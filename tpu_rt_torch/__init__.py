@@ -1,0 +1,24 @@
+"""tpu_rt_torch — the PyTorch + CUDA port of tpu_rt for NVIDIA Hopper.
+
+The JAX package ``tpu_rt`` beside it is the reference.  This package imports
+torch and numpy, never JAX or ``tpu_rt``, and mirrors ``tpu_rt``'s layout
+so the counterpart of every module is easy to find:
+
+    core/    SoA Rays/Hits (torch), host math + hashing
+    scene/   meshes, Scene flattening, camera (+ signature codec), Morton
+             pixel table, procedural test scenes
+    bench/   reference-calibrated workload (suite cameras)
+    bvh/     SBVH builder (host), flatten + Woop transform, 4-wide collapse,
+             hash-keyed build cache
+    native/  the C++ SBVH builder (tpu_rt/native/sbvh.cc) via ctypes
+    raygen/  primary ray generation
+    trace/   the 4-wide BVH traversal: CUDA kernel (csrc/quad_trace.cu) and
+             its plain PyTorch version
+    shade/   image reconstruction
+    renderer.py  the frame orchestrator
+
+Device work takes an explicit ``device``.  What is not ported yet is listed
+in ROADMAP.md.
+"""
+
+__version__ = "0.1.0"

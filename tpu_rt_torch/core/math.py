@@ -1,0 +1,179 @@
+"""Host (numpy) math + hashing utilities.
+
+Counterpart of the numpy paths of ``tpu_rt.core.math``, bit-for-bit:
+
+- Jenkins mix / hashBits      (reference src/framework/base/Hash.hh:195-200)
+- ABGR8 color pack            (src/framework/base/Math.cc:45-52)
+- float<->bits                (Math.hh floatToBits/bitsToFloat)
+- the Morton pixel swizzle    (src/rt/ray/PixelTable.cc:70-161)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+GOLDEN = np.uint32(0x9E3779B9)
+
+
+# ---------------------------------------------------------------------------
+# float <-> bits
+# ---------------------------------------------------------------------------
+
+def float_to_bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+def bits_to_float(b) -> np.ndarray:
+    return np.asarray(b, np.uint32).view(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Jenkins hashing
+# ---------------------------------------------------------------------------
+
+def jenkins_mix(a, b, c):
+    """The 96-bit Jenkins mixer. Inputs/outputs are uint32 arrays."""
+    u32 = lambda x: np.asarray(x).astype(np.uint32)
+    a, b, c = u32(a), u32(b), u32(c)
+    with np.errstate(over="ignore"):
+        a = u32(a - b); a = u32(a - c); a = a ^ (c >> 13)
+        b = u32(b - c); b = u32(b - a); b = b ^ (a << 8)
+        c = u32(c - a); c = u32(c - b); c = c ^ (b >> 13)
+        a = u32(a - b); a = u32(a - c); a = a ^ (c >> 12)
+        b = u32(b - c); b = u32(b - a); b = b ^ (a << 16)
+        c = u32(c - a); c = u32(c - b); c = c ^ (b >> 5)
+        a = u32(a - b); a = u32(a - c); a = a ^ (c >> 3)
+        b = u32(b - c); b = u32(b - a); b = b ^ (a << 10)
+        c = u32(c - a); c = u32(c - b); c = c ^ (b >> 15)
+    return a, b, c
+
+
+def hash_bits(*vals) -> int:
+    """Combine uint32 values into one hash, Jenkins style (host scalar).
+
+    Used for BVH cache keys, mirroring the discipline of the reference's
+    hashBits (src/framework/base/Hash.hh:195-196).
+    """
+    h = np.uint32(len(vals))
+    a = b = GOLDEN
+    vs = [np.uint32(v & 0xFFFFFFFF) for v in vals]
+    # Mix three at a time like the reference's overloads do.
+    i = 0
+    with np.errstate(over="ignore"):
+        while i < len(vs):
+            chunk = vs[i : i + 3] + [np.uint32(0)] * max(0, 3 - len(vs[i:]))
+            a = np.uint32(a + chunk[0])
+            b = np.uint32(b + chunk[1])
+            h = np.uint32(h + chunk[2])
+            a, b, h = jenkins_mix(a, b, h)
+            a, b, h = np.uint32(a), np.uint32(b), np.uint32(h)
+            i += 3
+    return int(h)
+
+
+def hash_buffer(arr) -> int:
+    """Hash raw array contents (host).  Cache-key building block."""
+    data = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    # Pad to a multiple of 4 bytes, fold as uint32 stream.
+    pad = (-data.size) % 4
+    if pad:
+        data = np.concatenate([data, np.zeros(pad, np.uint8)])
+    words = data.view(np.uint32)
+    with np.errstate(over="ignore"):
+        # Tree-reduce with position-dependent mixing for order sensitivity.
+        idx = np.arange(words.size, dtype=np.uint32)
+        a, b, c = jenkins_mix(words, idx, np.full(words.size, GOLDEN, np.uint32))
+        h = np.uint32(words.size)
+        for part in (a, b, c):
+            h = np.uint32(h * np.uint32(16777619) + np.uint32(part.sum(dtype=np.uint64) & 0xFFFFFFFF))
+    return int(h)
+
+
+# ---------------------------------------------------------------------------
+# ABGR8 colors — bit-exact with Vec4f::toABGR (Math.cc:45-52)
+# ---------------------------------------------------------------------------
+
+def to_abgr(rgba: np.ndarray) -> np.ndarray:
+    """Pack [...,4] float RGBA into uint32 ABGR with the reference's exact
+    fixed-point rounding: channel = ((floor(clamp(c)*2^56)*255 >> 55)+1)>>1."""
+    c = np.clip(np.asarray(rgba, np.float64), 0.0, 1.0)
+    fixed = (c * np.float64(2.0**56)).astype(np.uint64)
+    with np.errstate(over="ignore"):
+        ch = ((((fixed * np.uint64(255)) >> np.uint64(55)) + np.uint64(1)) >> np.uint64(1)).astype(np.uint32)
+    return (ch[..., 0] | (ch[..., 1] << 8) | (ch[..., 2] << 16) | (ch[..., 3] << 24)).astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# Pixel-space Morton swizzle (PixelTable equivalent)
+# ---------------------------------------------------------------------------
+
+def pixel_morton_luts(width: int, height: int) -> tuple[np.ndarray, np.ndarray]:
+    """index->pixel and pixel->index LUTs with the reference's exact layout
+    (src/rt/ray/PixelTable.cc:70-161): the image's 8x8-aligned bulk is split
+    into 8x8 blocks visited in Morton order, pixels bit-swizzled within each
+    block; the leftover bottom stripe then right stripe appended row-major.
+    """
+    n = width * height
+    index_to_pixel = np.empty(n, np.int32)
+    pixel_to_index = np.empty(n, np.int32)
+
+    bw, bh = width & ~7, height & ~7
+    w8, h8 = bw >> 3, bh >> 3
+    idx = 0
+
+    if w8 > 0 and h8 > 0:
+        maxdim = max(w8, h8)
+        maxdim_p2 = 1 << int(np.ceil(np.log2(maxdim))) if maxdim > 1 else 1
+        count = maxdim_p2 * maxdim_p2
+        i = np.arange(count, dtype=np.uint64)
+        # De-interleave block Morton index into (tx, ty).
+        def compact(v):
+            v = v & np.uint64(0x5555555555555555)
+            v = (v | (v >> np.uint64(1))) & np.uint64(0x3333333333333333)
+            v = (v | (v >> np.uint64(2))) & np.uint64(0x0F0F0F0F0F0F0F0F)
+            v = (v | (v >> np.uint64(4))) & np.uint64(0x00FF00FF00FF00FF)
+            v = (v | (v >> np.uint64(8))) & np.uint64(0x0000FFFF0000FFFF)
+            v = (v | (v >> np.uint64(16))) & np.uint64(0x00000000FFFFFFFF)
+            return v.astype(np.int64)
+
+        tx = compact(i)
+        ty = compact(i >> np.uint64(1))
+        keep = (tx < w8) & (ty < h8)
+        tx, ty = tx[keep], ty[keep]
+
+        inner = np.arange(64)
+        ix = ((inner & 1) >> 0) | ((inner & 4) >> 1) | ((inner & 16) >> 2)
+        iy = ((inner & 2) >> 1) | ((inner & 8) >> 2) | ((inner & 32) >> 3)
+
+        px = (tx[:, None] * 8 + ix[None, :]).ravel()
+        py = (ty[:, None] * 8 + iy[None, :]).ravel()
+        pos = (py * width + px).astype(np.int32)
+        m = pos.size
+        index_to_pixel[:m] = pos
+        pixel_to_index[pos] = np.arange(m, dtype=np.int32)
+        idx = m
+
+    # Bottom stripe: px in [0,bw), py in [bh,height), column-major per ref.
+    if bh < height and bw > 0:
+        px, py = np.meshgrid(np.arange(bw), np.arange(bh, height), indexing="ij")
+        pos = (py.ravel() * width + px.ravel()).astype(np.int32)
+        index_to_pixel[idx : idx + pos.size] = pos
+        pixel_to_index[pos] = np.arange(idx, idx + pos.size, dtype=np.int32)
+        idx += pos.size
+
+    # Right stripe + corner: py in [0,height), px in [bw,width), row-major.
+    if bw < width:
+        py, px = np.meshgrid(np.arange(height), np.arange(bw, width), indexing="ij")
+        pos = (py.ravel() * width + px.ravel()).astype(np.int32)
+        index_to_pixel[idx : idx + pos.size] = pos
+        pixel_to_index[pos] = np.arange(idx, idx + pos.size, dtype=np.int32)
+        idx += pos.size
+
+    if idx != n:
+        raise AssertionError((idx, n))
+    return index_to_pixel, pixel_to_index
+
+
+def normalize(v, axis=-1):
+    n = np.sqrt(np.sum(v * v, axis=axis, keepdims=True))
+    return v / n
