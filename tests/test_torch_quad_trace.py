@@ -1,6 +1,8 @@
-"""The plain PyTorch quad tracer on tables that tpu_rt built: exact against
-tpu_rt's scalar oracle, and against the Pallas packet4 kernel (interpret
-mode) up to its division-vs-reciprocal rounding."""
+"""The plain PyTorch quad tracer on tables that tpu_rt built, closest hit
+and any hit: exact against tpu_rt's scalar oracle, and against the Pallas
+packet4 kernel (interpret mode) up to its division-vs-reciprocal rounding
+(closest hit) or on hit vs miss (any hit, whose packet vote may pick
+another occluder)."""
 
 import numpy as np
 import pytest
@@ -63,6 +65,52 @@ def test_plain_equals_quad_oracle(setup):
     assert 0.2 < np.mean(s_id >= 0) < 0.95
 
 
+def _any_hit_rays(scene, n, seed):
+    """Long rays through the scene (several occluders each) and, in the
+    second half, short AO-like rays from points inside it, with
+    axis-aligned, -0.0 and tmax = -1 rays among them."""
+    o, d, tmin, tmax = _rays(scene, n, seed=seed)
+    d[:40] = np.array([0.0, -0.0, -1.0], np.float32)
+    d[40:80] = np.array([-0.0, 1.0, 0.0], np.float32)
+    lo, hi = scene.bbox()
+    size = float(np.linalg.norm(hi - lo))
+    rng = np.random.default_rng(seed + 1)
+    short = slice(n // 2, n)
+    o[short] = rng.uniform(lo, hi, (n - n // 2, 3)).astype(np.float32)
+    tmax[short] = np.float32(0.15 * size)
+    tmax[short][::7] = -1.0
+    return o, d, tmin, tmax
+
+
+def test_plain_any_hit_equals_quad_oracle(setup):
+    scene, _, quad, tables = setup
+    o, d, tmin, tmax = _any_hit_rays(scene, 1200, seed=13)
+    s_id, s_t, _, _ = trace_quad_scalar(quad, o, d, tmin, tmax, any_hit=True)
+    hits = trace_quad_plain(tables, make_rays(o, d, tmin, tmax), any_hit=True)
+    # The first accepted hit in the oracle's visit order: tri equal (which
+    # occluder, too) and t bit-equal.
+    np.testing.assert_array_equal(hits.tri.numpy(), s_id)
+    np.testing.assert_array_equal(hits.t.numpy().view(np.int32), s_t.view(np.int32))
+    assert np.all(hits.tri.numpy()[tmax < 0] == -1)
+    assert 0.1 < np.mean(s_id >= 0) < 0.95
+    # Any hit stops early: on some rays it reports another, farther
+    # occluder than the closest hit, never a nearer one.
+    c_id, c_t, _, _ = trace_quad_scalar(quad, o, d, tmin, tmax)
+    np.testing.assert_array_equal(s_id >= 0, c_id >= 0)
+    assert np.any(s_id != c_id) and np.all(s_t >= c_t)
+
+
+def test_plain_any_hit_matches_packet4_kernel(setup):
+    scene, _, quad, tables = setup
+    o, d, tmin, tmax = _any_hit_rays(scene, 1000, seed=14)
+    want = trace_packet4(quad, t_make_rays(o, d, tmin, tmax), any_hit=True, interpret=True,
+                         tile=512, k=2)
+    got = trace_quad_plain(tables, make_rays(o, d, tmin, tmax), any_hit=True)
+    # The packet kernel orders children by a packet vote, so only hit vs
+    # miss is held equal (as tests/test_pallas.py holds it).
+    np.testing.assert_array_equal(got.tri.numpy() >= 0, np.asarray(want.tri) >= 0)
+
+
 def test_plain_matches_packet4_kernel(setup):
     scene, _, quad, tables = setup
     o, d, tmin, tmax = _rays(scene, 600, seed=11)
@@ -117,14 +165,18 @@ def test_cpu_dispatch_and_routing(setup):
     assert routed.nodes.numpy().tobytes() == tables.nodes.numpy().tobytes()
     a, b = fn(routed, rays), trace_quad_plain(tables, rays)
     assert torch.equal(a.tri, b.tri) and torch.equal(a.t, b.t)
+    c, d = fn(routed, rays, any_hit=True), trace_quad_plain(tables, rays, any_hit=True)
+    assert torch.equal(c.tri, d.tri) and torch.equal(c.t, d.t)
     assert quad_kernel.KERNEL.launches == before
-    with pytest.raises(NotImplementedError):
-        fn(routed, rays, any_hit=True)
+    assert quad_kernel.KERNEL.launches_by_form == dict.fromkeys(("closest", "any"), 0)
+    # What is still unported raises.
     for prefer in ("xla", "packet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_routing_tracer(flat, prefer=prefer)
     with pytest.raises(ValueError):
         quad_kernel.KERNEL(tables, rays)
+    with pytest.raises(ValueError):
+        quad_kernel.KERNEL(tables, rays, any_hit=True)
 
 
 def test_empty_tree_misses():
@@ -133,6 +185,7 @@ def test_empty_tree_misses():
                              "tri_index": np.zeros(0, np.int32)})()
     tables = upload_quad(quad, "cpu")
     rays = make_rays(np.zeros((3, 3)), np.ones((3, 3)), np.zeros(3), [1.0, 2.0, -1.0])
-    hits = trace_quad_plain(tables, rays)
-    assert hits.tri.tolist() == [-1, -1, -1]
-    assert hits.t.tolist() == [1.0, 2.0, -1.0]
+    for any_hit in (False, True):
+        hits = trace_quad_plain(tables, rays, any_hit=any_hit)
+        assert hits.tri.tolist() == [-1, -1, -1]
+        assert hits.t.tolist() == [1.0, 2.0, -1.0]

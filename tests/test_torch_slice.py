@@ -1,4 +1,4 @@
-"""The port's primary frame, end to end, against tpu_rt's."""
+"""The port's primary, AO and diffuse frames, end to end, against tpu_rt's."""
 
 import os
 import subprocess
@@ -8,6 +8,7 @@ import textwrap
 import numpy as np
 import pytest
 
+from tpu_rt.bench.workload import suite_ao_radius as t_suite_ao_radius
 from tpu_rt.bench.workload import suite_camera as t_suite_camera
 from tpu_rt.renderer import Renderer as TRenderer
 from tpu_rt.renderer import RendererParams as TParams
@@ -15,6 +16,7 @@ from tpu_rt.scene import Scene as TScene
 from tpu_rt.scene import procedural as t_proc
 from tpu_rt.trace import trace_flat_scalar
 
+from tpu_rt_torch.bench.workload import suite_ao_radius as p_suite_ao_radius
 from tpu_rt_torch.bench.workload import suite_camera as p_suite_camera
 from tpu_rt_torch.renderer import Renderer as PRenderer
 from tpu_rt_torch.renderer import RendererParams as PParams
@@ -76,10 +78,126 @@ def test_render_stats(frames):
     assert p_img.shape == (H, W, 4) and np.isfinite(p_img).all()
 
 
-def test_secondary_ray_types_not_ported():
+# Secondary frames: 4 samples, and a batch budget of 4096 rays, so the
+# 3072 primary slots go out in 3 batches of 1024.
+SAMPLES, MAX_BATCH = 4, 4096
+
+
+@pytest.fixture(scope="module")
+def secondary_frames():
+    t_scene = TScene(t_proc.make_blob(700, seed=80))
+    p_scene = PScene(p_proc.make_blob(700, seed=80))
+    radius = t_suite_ao_radius("bunny", t_scene)
+    assert radius == p_suite_ao_radius("bunny", p_scene)
+    out = {}
     for ray_type in ("ao", "diffuse"):
+        t_r = TRenderer(W, H, TParams(ray_type=ray_type, num_samples=SAMPLES, ao_radius=radius,
+                                      max_batch=MAX_BATCH, tracer="xla", cache_dir=None))
+        t_r.set_scene(t_scene)
+        t_stats = t_r.render_frame(t_suite_camera("bunny", t_scene))
+        p_r = PRenderer(W, H, PParams(ray_type=ray_type, num_samples=SAMPLES, ao_radius=radius,
+                                      max_batch=MAX_BATCH, cache_dir=None, device="cpu"))
+        p_r.set_scene(p_scene)
+        p_stats = p_r.render_frame(p_suite_camera("bunny", p_scene))
+        out[ray_type] = (t_r, t_stats, t_r.update_result(), p_r, p_stats, p_r.update_result())
+    return out
+
+
+def _frame_samples(batches, s, to_np):
+    """Per-(primary slot, sample) hit ids and rays of a secondary frame,
+    assembled over its batches as Renderer.update_result does."""
+    n_all = W * H * s
+    tri = np.full(n_all, -1, np.int32)
+    rays = [np.zeros((n_all, 3), np.float32), np.zeros((n_all, 3), np.float32),
+            np.zeros(n_all, np.float32), np.full(n_all, -1.0, np.float32)]
+    for b in batches:
+        lo, hi = b.input_range
+        n = (hi - lo) * s
+        slots = to_np(b.id_to_slot)[:n]
+        tri[lo * s:lo * s + n] = to_np(b.hits.tri)[slots]
+        for dst, src in zip(rays, b.rays):
+            dst[lo * s:lo * s + n] = to_np(src)[slots]
+    return tri, rays
+
+
+@pytest.mark.parametrize("ray_type", ["ao", "diffuse"])
+def test_secondary_frame_matches_tpu_rt(secondary_frames, ray_type):
+    t_r, t_stats, t_img, p_r, p_stats, p_img = secondary_frames[ray_type]
+    assert p_stats["total_rays"] == t_stats["total_rays"]
+    assert p_stats["rays_traced"] == t_stats["rays_traced"] == W * H * SAMPLES
+    assert p_stats["batches"] == len(t_r._batches) == 3
+    assert p_stats["tracer"] == "quad-plain" and len(p_stats["batch_trace_s"]) == 3
+    # Mray/s numerator: primary hits x samples, not the rays traced.
+    p_hits = int((p_r.primary.hits.tri >= 0).sum())
+    assert p_stats["total_rays"] == p_hits * SAMPLES < p_stats["rays_traced"]
+
+    any_hit = ray_type == "ao"
+    t_tri, t_rays = _frame_samples(t_r._batches, SAMPLES, np.asarray)
+    p_tri, p_rays = _frame_samples(p_r._batches, SAMPLES, lambda x: x.numpy())
+    np.testing.assert_array_equal(p_r.frame_sample_tri().numpy(), p_tri)
+    # Samples classify alike: hit vs miss for AO, the hit triangle for
+    # diffuse (closest hit).
+    differ = (t_tri >= 0) != (p_tri >= 0) if any_hit else t_tri != p_tri
+    pixel = p_r.primary.slot_to_id.numpy()
+    bad_px = np.unique(pixel[np.nonzero(differ)[0] // SAMPLES])
+    same = np.ones(W * H, bool)
+    same[bad_px] = False
+    t_flat, p_flat = t_img.reshape(-1, 4), p_img.reshape(-1, 4)
+    if any_hit:
+        np.testing.assert_array_equal(p_flat[same], t_flat[same])
+    else:
+        np.testing.assert_allclose(p_flat[same], t_flat[same], rtol=0, atol=1e-6)
+    # Each disputed sample is adjudicated on each side's own ray by the
+    # binary oracle: either side may differ from it only on a borderline
+    # hit (an edge graze, or t within fp noise of tmax; the rule of
+    # tools/bench_suite.py verify_ao_frame), or on an exact-t tie (diffuse).
+    ids = np.nonzero(differ)[0]
+    for tri, rays in ((t_tri, t_rays), (p_tri, p_rays)):
+        if not ids.size:
+            break
+        o, dn, tn, tx = (x[ids] for x in rays)
+        s_id, s_t, s_u, s_v = trace_flat_scalar(t_r.flat, o, dn, tn, tx, any_hit=any_hit)
+        margin = np.minimum(np.minimum(s_u, s_v), 1.0 - s_u - s_v)
+        border = (s_id >= 0) & ((margin < 1e-3) | np.isclose(s_t, tx, rtol=2e-4))
+        if any_hit:
+            wrong = ((tri[ids] >= 0) != (s_id >= 0)) & ~border
+        else:
+            wrong = (tri[ids] != s_id) & ~border
+        assert not wrong.any(), ids[wrong]
+    assert ids.size <= 3
+    assert 0.2 < p_hits / (W * H) < 0.9
+    if any_hit:
+        # Occluded and open samples both occur; blocked AO pixels are dark.
+        assert 0.0 < np.mean(p_tri[p_rays[3] >= 0] >= 0) < 1.0
+    assert np.isfinite(p_img).all() and len(np.unique(p_flat, axis=0)) > 2
+
+
+@pytest.mark.parametrize("ray_type", ["primary", "ao", "diffuse"])
+def test_empty_scene_frame_is_background(ray_type):
+    from tpu_rt_torch.scene import Camera
+    from tpu_rt_torch.scene.objio import Mesh
+    from tpu_rt_torch.shade.reconstruct import BG_COLOR
+
+    r = PRenderer(8, 6, PParams(ray_type=ray_type, num_samples=2, cache_dir=None))
+    r.set_mesh(Mesh(np.zeros((0, 3), np.float32), None, None, [], []))
+    stats = r.render_frame(Camera.for_bbox(np.zeros(3), np.ones(3)))
+    assert stats["total_rays"] == (48 if ray_type == "primary" else 0)
+    np.testing.assert_array_equal(r.update_result(), np.broadcast_to(BG_COLOR, (6, 8, 4)))
+
+
+def test_secondary_ray_types_not_ported():
+    # The secondary-ray sort and dead-ray compaction (rays/buffer.py) are
+    # not ported; they raise instead of being ignored.
+    for flag in ("sort_secondary", "compact_degenerate"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PRenderer(8, 8, PParams(ray_type=ray_type))
+            PRenderer(8, 8, PParams(ray_type="ao", **{flag: True}))
+    with pytest.raises(ValueError):
+        PRenderer(8, 8, PParams(ray_type="shadow"))
+    for tracer in ("xla", "packet"):
+        r = PRenderer(8, 8, PParams(ray_type="diffuse", tracer=tracer, cache_dir=None))
+        r.set_mesh(p_proc.make_blob(200, seed=3))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            r.render_frame(p_suite_camera("bunny", r.scene))
 
 
 def test_port_imports_no_jax():
@@ -93,6 +211,12 @@ def test_port_imports_no_jax():
         stats = r.render_frame(Camera.for_bbox(*r.scene.bbox()))
         img = r.update_result()
         assert img.shape == (12, 16, 4) and stats["total_rays"] == 192
+        ao = Renderer(16, 12, RendererParams(ray_type="ao", num_samples=2, max_batch=256,
+                                             ao_radius=0.5, cache_dir=None))
+        ao.set_scene(r.scene)
+        stats = ao.render_frame(Camera.for_bbox(*r.scene.bbox()))
+        img = ao.update_result()
+        assert img.shape == (12, 16, 4) and stats["batches"] == 2
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "tpu_rt"))
         print("BAD", bad)

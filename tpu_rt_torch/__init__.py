@@ -7,13 +7,13 @@ so the counterpart of every module is easy to find:
     core/    SoA Rays/Hits (torch), host math + hashing
     scene/   meshes, Scene flattening, camera (+ signature codec), Morton
              pixel table, procedural test scenes
-    bench/   reference-calibrated workload (suite cameras)
+    bench/   reference-calibrated workload (suite cameras, AO radii)
     bvh/     SBVH builder (host), flatten + Woop transform, 4-wide collapse,
              hash-keyed build cache
     native/  the C++ SBVH builder (tpu_rt/native/sbvh.cc) via ctypes
-    raygen/  primary ray generation
-    trace/   the 4-wide BVH traversal: CUDA kernel (csrc/quad_trace.cu) and
-             its plain PyTorch version
+    raygen/  primary, AO / diffuse and shadow ray generation, batching
+    trace/   the 4-wide BVH traversal, closest and any hit: CUDA kernel
+             (csrc/quad_trace.cu) and its plain PyTorch version
     shade/   image reconstruction
     renderer.py  the frame orchestrator
 

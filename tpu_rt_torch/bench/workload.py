@@ -1,15 +1,32 @@
-"""Reference-calibrated suite cameras.
+"""Reference-calibrated suite workload: cameras, frame size and AO radii.
 
-Counterpart of the camera half of ``tpu_rt.bench.workload``, verbatim: the
-per-scene field of view decoded from the reference's committed camera
-signatures (73.7 deg for interiors and hairball, 46.8 deg for the object
-scenes) and the framing of each procedural stand-in.  The AO-radius
-calibration is not ported yet (ROADMAP.md).
+Counterpart of ``tpu_rt.bench.workload``, verbatim: the per-scene field of
+view decoded from the reference's committed camera signatures (73.7 deg for
+interiors and hairball, 46.8 deg for the object scenes), the framing of
+each procedural stand-in, the committed 640x480 frame, and the AO radius
+of each scene scaled from the reference's absolute radius to the
+stand-in's extent (the same relative occlusion range).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+# Reference absolute AO radii (grtcmdline.txt per-scene flags).
+REF_AO_RADIUS = {
+    "conference": 5.0, "fairy": 0.3, "sibenik": 5.0, "sanmiguel": 1.5,
+    "sponza": 5.0, "knob": 5.0, "dragon": 5.0, "bunny": 5.0,
+    "hairball": 5.0,
+}
+
+# Reference scene-extent estimates (units) from the decoded committed
+# cameras (|position|, near/far): object scenes are ~2-3 units,
+# interiors tens of units.
+REF_EXTENT_EST = {
+    "conference": 30.0, "fairy": 4.0, "sibenik": 20.0, "sanmiguel": 26.0,
+    "sponza": 20.0, "knob": 2.2, "dragon": 1.6, "bunny": 3.0,
+    "hairball": 9.0,
+}
 
 # Decoded per-scene camera fov (deg): 73.7 interiors/hairball, 46.8
 # object scenes.
@@ -18,6 +35,28 @@ SCENE_FOV = {
     "sponza": 73.7, "hairball": 73.7,
     "fairy": 46.8, "knob": 46.8, "dragon": 46.8, "bunny": 46.8,
 }
+
+# Reference committed frame (App.cc:53).
+FRAME_W, FRAME_H = 640, 480
+
+
+def scene_extent(scene) -> float:
+    lo, hi = scene.bbox()
+    return float(np.linalg.norm(hi - lo))
+
+
+def suite_ao_radius(scene_name: str, scene, spec: str = "grt") -> float:
+    """AO radius for a suite row.  spec: "grt" (default — the
+    reference's absolute radius scaled to the surrogate's extent),
+    "rel:<v>" (v x surrogate extent), or "abs:<v>"."""
+    if spec == "grt":
+        ref_r = REF_AO_RADIUS.get(scene_name, 5.0)
+        ref_e = REF_EXTENT_EST.get(scene_name)
+        if ref_e is None:
+            return ref_r
+        return ref_r * scene_extent(scene) / ref_e
+    kind, val = spec.split(":")
+    return float(val) * (scene_extent(scene) if kind == "rel" else 1.0)
 
 # Interior surrogates (make_interior room shells): the reference
 # cameras for these scenes sit INSIDE the architecture (decoded

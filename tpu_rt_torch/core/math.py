@@ -3,6 +3,7 @@
 Counterpart of the numpy paths of ``tpu_rt.core.math``, bit-for-bit:
 
 - Jenkins mix / hashBits      (reference src/framework/base/Hash.hh:195-200)
+- Sobol 2D + Hammersley       (RayGenKernels.cu:49-75, the shadow path)
 - ABGR8 color pack            (src/framework/base/Math.cc:45-52)
 - float<->bits                (Math.hh floatToBits/bitsToFloat)
 - the Morton pixel swizzle    (src/rt/ray/PixelTable.cc:70-161)
@@ -87,6 +88,36 @@ def hash_buffer(arr) -> int:
         for part in (a, b, c):
             h = np.uint32(h * np.uint32(16777619) + np.uint32(part.sum(dtype=np.uint64) & 0xFFFFFFFF))
     return int(h)
+
+
+# ---------------------------------------------------------------------------
+# Low-discrepancy points (host; the shadow generator uploads them)
+# ---------------------------------------------------------------------------
+
+def sobol2d(i):
+    """First two Sobol dimensions of index i (RayGenKernels.cu:54-75)."""
+    i = np.asarray(i, np.uint64)
+    scalar = i.ndim == 0
+    i = np.atleast_1d(i)
+    r1 = np.zeros(i.shape, np.uint32)
+    r2 = np.zeros(i.shape, np.uint32)
+    v1 = np.full(i.shape, np.uint32(1) << 31, np.uint32)
+    v2 = np.full(i.shape, np.uint32(3) << 30, np.uint32)
+    rem = i.copy()
+    with np.errstate(over="ignore"):
+        for _ in range(32):
+            take = (rem & 1).astype(bool)
+            r1 = np.where(take, r1 ^ v1, r1)
+            r2 = np.where(take, r2 ^ (v2 << 1), r2)
+            v1 = v1 | (v1 >> 1)
+            v2 = v2 ^ (v2 >> 1)
+            rem >>= 1
+    out = np.stack([r1 * (1.0 / 2**32), r2 * (1.0 / 2**32)], axis=-1).astype(np.float32)
+    return out[0] if scalar else out
+
+
+def hammersley(i, num):
+    return (np.asarray(i, np.float32) + 0.5) / np.float32(num)
 
 
 # ---------------------------------------------------------------------------

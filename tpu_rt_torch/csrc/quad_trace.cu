@@ -1,19 +1,30 @@
-// Closest-hit traversal of the 4-wide BVH (QuadBVH) for NVIDIA Hopper.
+// Traversal of the 4-wide BVH (QuadBVH) for NVIDIA Hopper, closest hit and
+// any hit.
 //
 // Replaces: tpu_rt/trace/packet2.py `_kernel2` in its 4-wide (`w4`) node-unit
-// form with the VPU Woop-triangle drain, closest hit, want_uv=False -- the
-// Pallas kernel behind `trace_packet4` and the `packet4` routing tracer.
+// form with the VPU Woop-triangle drain, want_uv=False -- the Pallas kernel
+// behind `trace_packet4` and the `packet4` routing tracer -- in its
+// closest-hit form and its any_hit=True form (packet2.py:552-567, :881-883).
 //
-// What it computes: for each ray, the nearest Woop-triangle hit over the
-// QuadBVH that tpu_rt_torch.bvh.collapse.collapse4 emits, exactly as the
-// host oracle `trace_quad_scalar` (tpu_rt_torch/bvh/collapse.py) does and
-// in the same order:
+// What it computes: for each ray, the nearest Woop-triangle hit (closest
+// hit) or the first accepted hit in visit order (any hit) over the QuadBVH
+// that tpu_rt_torch.bvh.collapse.collapse4 emits, exactly as the host
+// oracle `trace_quad_scalar` (tpu_rt_torch/bvh/collapse.py) does and in the
+// same order:
 //   - children are visited in stored order when d[hint] >= 0 for this ray,
 //     reversed otherwise (the Pallas kernel votes a packet-mean sign);
 //   - every hit leaf of a node is drained, in visit order, before the
 //     nearest (first in visit order) hit inner child is taken;
 //   - the other hit inner children are pushed so that the nearest pops
-//     first.
+//     first;
+//   - any hit: the ray writes (tri, t) and returns at its first accepted
+//     hit, as the oracle's `done` flag and the reference's per-lane anyHit
+//     abort (kepler_dynamic_fetch.cu:376-381) do.  The Pallas kernel keeps
+//     the ray in its packet and refuses later hits instead, and orders
+//     children by a packet vote, so its occluder may differ; hit vs miss
+//     cannot.
+// The form is a template parameter with one instantiation each, so the
+// closest-hit code carries no any-hit branch.
 // With -fmad=false and no fast math, every float op below is the oracle's
 // op in the oracle's order, so (tri, t) equal the plain PyTorch version's
 // (tpu_rt_torch/trace/quad_kernel.py) bit for bit.
@@ -22,8 +33,11 @@
 // (8 float4 loads, one cache line) and each triangle one 64-byte Woop row
 // (up to 4 float4 loads); for the bunny both tables (0.8 MB + 9 MB) sit in
 // the 50 MB L2, so the bound is load latency and warp divergence, not
-// device-memory bandwidth.  This first version is simple and exact: one
-// ray per thread, a per-thread stack in local memory, no packet or
+// device-memory bandwidth (conference: 2.1 MB + 23.6 MB, in L2 too).  Any
+// hit ends a ray at its first occluder, so short AO rays visit few nodes;
+// an AO batch's cost is its unoccluded rays, which walk every node their
+// segment crosses.  This first version is simple and exact: one ray per
+// thread, a per-thread stack in local memory, no packet or
 // persistent-thread scheduling yet.
 //
 // Layouts (row-major, contiguous):
@@ -94,7 +108,10 @@ __device__ __forceinline__ bool slab(const Ray& r, float hit_t,
 }
 
 // Test every triangle of one leaf in order; a hit must be strictly nearer.
-__device__ __forceinline__ void drain(const float4* __restrict__ woop, int link,
+// The any-hit form returns true at the first accepted triangle; the
+// closest-hit form tests them all and returns false.
+template <bool kAnyHit>
+__device__ __forceinline__ bool drain(const float4* __restrict__ woop, int link,
                                       const Ray& r, float& hit_t, int& hit_tri) {
     const int c = ~link;
     const int first = c & kFirstMask;
@@ -119,12 +136,15 @@ __device__ __forceinline__ void drain(const float4* __restrict__ woop, int link,
                 if (v >= 0.0f && u + v <= 1.0f) {
                     hit_t = t;
                     hit_tri = __float_as_int(w[3].x);
+                    if constexpr (kAnyHit) return true;
                 }
             }
         }
     }
+    return false;
 }
 
+template <bool kAnyHit>
 __global__ void __launch_bounds__(kBlock)
 quad_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
                   const float4* __restrict__ woop,
@@ -179,10 +199,20 @@ quad_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
             const int k0 = fwd ? l0 : l3, k1 = fwd ? l1 : l2;
             const int k2 = fwd ? l2 : l1, k3 = fwd ? l3 : l0;
 
-            if (v0 && k0 < 0) drain(woop, k0, r, hit_t, hit_tri);
-            if (v1 && k1 < 0) drain(woop, k1, r, hit_t, hit_tri);
-            if (v2 && k2 < 0) drain(woop, k2, r, hit_t, hit_tri);
-            if (v3 && k3 < 0) drain(woop, k3, r, hit_t, hit_tri);
+            if constexpr (kAnyHit) {
+                // Stop at the first accepted hit: write it and return.
+                if ((v0 && k0 < 0 && drain<true>(woop, k0, r, hit_t, hit_tri)) ||
+                    (v1 && k1 < 0 && drain<true>(woop, k1, r, hit_t, hit_tri)) ||
+                    (v2 && k2 < 0 && drain<true>(woop, k2, r, hit_t, hit_tri)) ||
+                    (v3 && k3 < 0 && drain<true>(woop, k3, r, hit_t, hit_tri))) {
+                    break;
+                }
+            } else {
+                if (v0 && k0 < 0) drain<false>(woop, k0, r, hit_t, hit_tri);
+                if (v1 && k1 < 0) drain<false>(woop, k1, r, hit_t, hit_tri);
+                if (v2 && k2 < 0) drain<false>(woop, k2, r, hit_t, hit_tri);
+                if (v3 && k3 < 0) drain<false>(woop, k3, r, hit_t, hit_tri);
+            }
 
             // Inner children: continue with the first in visit order; push
             // the others last-first so the second pops next.  The host
@@ -204,21 +234,34 @@ quad_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
     out_t[ray] = hit_t;
 }
 
+template <bool kAnyHit>
+void launch(const void* nodes, int n_nodes, const void* woop, const void* origin,
+            const void* dirn, const void* tmin, const void* tmax, void* out_tri,
+            void* out_t, int n_rays, cudaStream_t stream) {
+    const int grid = (n_rays + kBlock - 1) / kBlock;
+    quad_trace_kernel<kAnyHit><<<grid, kBlock, 0, stream>>>(
+        static_cast<const float4*>(nodes), n_nodes, static_cast<const float4*>(woop),
+        static_cast<const float*>(origin), static_cast<const float*>(dirn),
+        static_cast<const float*>(tmin), static_cast<const float*>(tmax),
+        static_cast<int*>(out_tri), static_cast<float*>(out_t), n_rays);
+}
+
 }  // namespace
 
-// C ABI for ctypes.  Launches on `stream` and returns cudaGetLastError().
+// C ABI for ctypes.  `any_hit` picks the instantiation on the host.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int quad_trace_launch(const void* nodes, int n_nodes, const void* woop,
                                  const void* origin, const void* dirn,
                                  const void* tmin, const void* tmax,
                                  void* out_tri, void* out_t, int n_rays,
-                                 void* stream) {
+                                 int any_hit, void* stream) {
     if (n_rays > 0) {
-        const int grid = (n_rays + kBlock - 1) / kBlock;
-        quad_trace_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float4*>(nodes), n_nodes, static_cast<const float4*>(woop),
-            static_cast<const float*>(origin), static_cast<const float*>(dirn),
-            static_cast<const float*>(tmin), static_cast<const float*>(tmax),
-            static_cast<int*>(out_tri), static_cast<float*>(out_t), n_rays);
+        const cudaStream_t s = static_cast<cudaStream_t>(stream);
+        if (any_hit) {
+            launch<true>(nodes, n_nodes, woop, origin, dirn, tmin, tmax, out_tri, out_t, n_rays, s);
+        } else {
+            launch<false>(nodes, n_nodes, woop, origin, dirn, tmin, tmax, out_tri, out_t, n_rays, s);
+        }
     }
     return static_cast<int>(cudaGetLastError());
 }

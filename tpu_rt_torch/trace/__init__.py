@@ -1,8 +1,9 @@
 """Routing tracers: resolve a tracer for a scene and a device.
 
 Counterpart of ``tpu_rt.trace.make_routing_tracer``.  Only the 4-wide
-(packet4) closest-hit path is ported: the CUDA kernel on a CUDA device, its
-plain PyTorch version on the CPU (``tpu_rt_torch.trace.quad_kernel``).
+(packet4) path is ported, in its closest-hit and any-hit forms: the CUDA
+kernel on a CUDA device, its plain PyTorch version on the CPU
+(``tpu_rt_torch.trace.quad_kernel``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ __all__ = ["make_routing_tracer", "trace_quad", "upload_quad", "QuadTables"]
 def make_routing_tracer(flat, prefer: str = "auto", device="cpu",
                         cache_dir: str | None = None):
     """Returns (fn, kind, tables) where fn(tables, rays, any_hit=False) ->
-    Hits, and tables are the device tables of the scene.
+    Hits (closest hit, or with ``any_hit`` the first accepted hit), and
+    tables are the device tables of the scene.
 
     prefer:
       "auto" / "packet4" — the 4-wide BVH (collapse4 with leaf_max =

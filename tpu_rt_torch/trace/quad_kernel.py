@@ -1,11 +1,13 @@
-"""Closest-hit traversal of the 4-wide BVH: the CUDA kernel, its plain
-PyTorch version, and the device tables both read.
+"""Traversal of the 4-wide BVH, closest hit and any hit: the CUDA kernel,
+its plain PyTorch version, and the device tables both read.
 
-Counterpart of the 4-wide (`w4`) closest-hit form of the Pallas kernel
-``tpu_rt/trace/packet2.py`` ``_kernel2`` (through ``trace_packet4``).  Both
-versions here compute what the host oracle ``trace_quad_scalar``
-(``tpu_rt_torch/bvh/collapse.py``) computes, in the same order, so their
-(tri, t) equal the oracle's bit for bit:
+Counterpart of the 4-wide (`w4`) form of the Pallas kernel
+``tpu_rt/trace/packet2.py`` ``_kernel2`` (through ``trace_packet4``), in
+its closest-hit and ``any_hit=True`` forms.  Both versions here compute
+what the host oracle ``trace_quad_scalar`` (``tpu_rt_torch/bvh/collapse.py``)
+computes, in the same order, so their (tri, t) equal the oracle's bit for
+bit -- for any hit too, down to which occluder is reported: a ray stops at
+its first accepted hit in the oracle's visit order.
 
 - ``trace_quad`` dispatches on the device of the rays: a CPU tensor takes
   the plain version, a CUDA tensor launches the kernel
@@ -18,7 +20,7 @@ versions here compute what the host oracle ``trace_quad_scalar``
 
 The kernel is built with nvcc for sm_90a at first launch into the port's
 git-ignored build directory and loaded with ctypes; ``KERNEL.launches``
-counts its launches.
+counts its launches, ``KERNEL.launches_by_form`` those of each form.
 """
 
 from __future__ import annotations
@@ -104,10 +106,12 @@ def _safe_inv(d: torch.Tensor) -> torch.Tensor:
     return torch.ones_like(d) / torch.where(d.abs() > float(OOEPS), d, torch.copysign(ooeps, d))
 
 
-def trace_quad_plain(tables: QuadTables, rays: Rays) -> Hits:
-    """Closest hit per ray, as ``trace_quad_scalar``, in PyTorch ops on the
-    device of ``rays``.  Every float op is the oracle's, in its order:
-    explicit three-term sums, NaN-propagating min/max, 1/d then multiply."""
+def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False) -> Hits:
+    """Closest hit per ray, or with ``any_hit`` the first accepted hit in
+    visit order, as ``trace_quad_scalar``, in PyTorch ops on the device of
+    ``rays``.  Every float op is the oracle's, in its order: explicit
+    three-term sums, NaN-propagating min/max, 1/d then multiply.  An any-hit
+    ray that holds a hit drains no later leaf and leaves the live set."""
     dev = rays.origin.device
     n = rays.origin.shape[0]
     nodes = tables.nodes.to(dev)
@@ -160,9 +164,13 @@ def trace_quad_plain(tables: QuadTables, rays: Rays) -> Hits:
 
         # Drain the hit leaves in visit order, each triangle in turn.
         for p in range(4):
-            sel = torch.nonzero(hit_v[:, p] & (lk_v[:, p] < 0)).squeeze(1)
+            leaf = hit_v[:, p] & (lk_v[:, p] < 0)
+            if any_hit:
+                leaf &= hit_tri[ids] < 0
+            sel = torch.nonzero(leaf).squeeze(1)
             if sel.numel():
-                _drain(woop, woop_i, ~lk_v[sel, p], ids[sel], o, d, tmin, hit_t, hit_tri)
+                _drain(woop, woop_i, ~lk_v[sel, p], ids[sel], o, d, tmin, hit_t, hit_tri,
+                       any_hit)
 
         # Inner children: go to the first in visit order, push the others
         # last-first so the second pops next.
@@ -180,13 +188,16 @@ def trace_quad_plain(tables: QuadTables, rays: Rays) -> Hits:
         node = torch.where(pop, stack[rows, (sp - 1).clamp(min=0)], node)
         sp = torch.where(go, sp + (m - 1), torch.where(pop, sp - 1, sp))
         live = go | pop
+        if any_hit:
+            live &= hit_tri[ids] < 0
         ids, node, stack, sp = ids[live], node[live], stack[live], sp[live]
     return Hits(tri=hit_tri, t=hit_t, u=zeros, v=zeros.clone())
 
 
-def _drain(woop, woop_i, c, ray_ids, o, d, tmin, hit_t, hit_tri) -> None:
+def _drain(woop, woop_i, c, ray_ids, o, d, tmin, hit_t, hit_tri, any_hit) -> None:
     """Test the leaves ``c`` (= ~link) of rays ``ray_ids``, triangle k of
-    every leaf in step k, updating hit_t/hit_tri in place."""
+    every leaf in step k, updating hit_t/hit_tri in place.  With ``any_hit``
+    a ray takes no triangle after its first accepted one."""
     first = (c & FIRST_MASK).long()
     count = ((c >> COUNT_SHIFT) & 0xFF).long()
     ox, oy, oz = o[ray_ids].unbind(1)
@@ -209,6 +220,8 @@ def _drain(woop, woop_i, c, ray_ids, o, d, tmin, hit_t, hit_tri) -> None:
         v = Oy + t * Dy
         take = (valid & (t > t_min) & (t < best_t) & (u >= 0)
                 & (v >= 0) & (u + v <= 1.0))
+        if any_hit:
+            take &= best_tri < 0
         best_t = torch.where(take, t, best_t)
         best_tri = torch.where(take, woop_i[row, 12], best_tri)
     hit_t[ray_ids] = best_t
@@ -233,10 +246,12 @@ def _nvcc() -> str:
 class QuadTraceKernel:
     """Wrapper of ``quad_trace.cu``: builds and loads it at first use,
     checks its arguments, launches it on the current stream, and counts
-    launches in ``launches``."""
+    launches of both forms in ``launches`` and of each in
+    ``launches_by_form`` ("closest", "any")."""
 
     def __init__(self):
         self.launches = 0
+        self.launches_by_form = {"closest": 0, "any": 0}
         self.build_log = ""
         self.build_s = 0.0
         self._lib = None
@@ -250,11 +265,15 @@ class QuadTraceKernel:
             vp = ctypes.c_void_p
             lib.quad_trace_launch.restype = ctypes.c_int
             lib.quad_trace_launch.argtypes = [vp, ctypes.c_int, vp, vp, vp, vp, vp,
-                                              vp, vp, ctypes.c_int, vp]
+                                              vp, vp, ctypes.c_int, ctypes.c_int, vp]
             self._lib = lib
         return self._lib
 
-    def __call__(self, tables: QuadTables, rays: Rays) -> Hits:
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.launches_by_form = dict.fromkeys(self.launches_by_form, 0)
+
+    def __call__(self, tables: QuadTables, rays: Rays, any_hit: bool = False) -> Hits:
         dev = rays.origin.device
         if dev.type != "cuda":
             raise ValueError(f"QuadTraceKernel needs CUDA tensors, got {dev}")
@@ -282,10 +301,11 @@ class QuadTraceKernel:
                 tables.nodes.data_ptr(), tables.nodes.shape[0], tables.woop.data_ptr(),
                 rays.origin.data_ptr(), rays.dirn.data_ptr(),
                 rays.tmin.data_ptr(), rays.tmax.data_ptr(),
-                tri.data_ptr(), t.data_ptr(), n, stream)
+                tri.data_ptr(), t.data_ptr(), n, int(bool(any_hit)), stream)
         if err != 0:
             raise RuntimeError(f"quad_trace launch failed: cudaError {err}")
         self.launches += 1
+        self.launches_by_form["any" if any_hit else "closest"] += 1
         zeros = torch.zeros((n,), dtype=torch.float32, device=dev)
         return Hits(tri=tri, t=t, u=zeros, v=zeros.clone())
 
@@ -294,13 +314,12 @@ KERNEL = QuadTraceKernel()
 
 
 def trace_quad(tables: QuadTables, rays: Rays, any_hit: bool = False) -> Hits:
-    """Closest hit per ray over the QuadBVH tables.  CPU rays take the plain
-    version; CUDA rays launch the kernel (there is no fallback)."""
-    if any_hit:
-        raise NotImplementedError("any-hit quad traversal is not ported yet (ROADMAP.md)")
+    """Closest hit per ray over the QuadBVH tables, or with ``any_hit`` the
+    first accepted hit in visit order.  CPU rays take the plain version;
+    CUDA rays launch the kernel (there is no fallback)."""
     dev = rays.origin.device
     if dev.type == "cpu":
-        return trace_quad_plain(tables, rays)
+        return trace_quad_plain(tables, rays, any_hit=any_hit)
     if dev.type == "cuda":
-        return KERNEL(tables, rays)
+        return KERNEL(tables, rays, any_hit=any_hit)
     raise ValueError(f"trace_quad: unsupported device {dev}")
