@@ -2,13 +2,15 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
 Drives the port's main paths once through the entry points a user calls,
-and holds every kernel against its plain PyTorch version and the host
-oracle ``trace_quad_scalar``:
+and holds every kernel form against its plain PyTorch version and the host
+oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 
-1-5. bunny (144,500 triangles), SBVH build, 4-wide collapse, Morton-ordered
+1.   builds both kernels (quad_trace.cu, flat_trace.cu; one nvcc each, run
+     together) and prints ptxas' registers, stack and spills per form.
+2-5. bunny (144,500 triangles), SBVH build, 4-wide collapse, Morton-ordered
      primary rays at 640x480, the closest-hit trace through
-     ``make_routing_tracer("auto")`` (the CUDA quad kernel) and the image;
-     the kernel against its plain version on every ray and the oracle on a
+     ``Renderer(tracer="auto")`` (the CUDA quad kernel) and the image; the
+     kernel against its plain version on every ray and the oracle on a
      strided subset; both timed with CUDA events.
 6-7. conference (350,949 triangles) AO frame at 640x480, 8 samples, the
      suite camera and AO radius: a closest-hit primary trace, then two
@@ -20,22 +22,45 @@ oracle ``trace_quad_scalar``:
 9.   kernel-only times of the any-hit kernel (AO batch 1, and a 1-sample
      AO batch), its plain version, and the closest-hit kernel on the
      diffuse batch.
+10.  binary path, bunny primary frame through ``Renderer(tracer="packet")``
+     (the CUDA binary kernel): against its plain version on every ray and
+     ``trace_flat_scalar`` on the subset; t bit-equal to the quad kernel's
+     on every ray, tri and image pixels differing only at exact-t ties.
+11.  binary path, conference AO and diffuse frames: the any-hit kernel
+     against plain on every ray of batch 1, against the oracle on 8,192
+     rays (the same occluder), per-ray hit / miss equal to the quad
+     any-hit kernel's; the closest-hit kernel on the diffuse batch.
+12.  want_uv and with_stats forms of both kernels through
+     ``make_routing_tracer(..., want_uv=True)``: bunny primary (closest
+     and any hit) and conference AO batch 1, against the plain versions on
+     every ray and the oracles on the subsets; node / triangle tests per
+     ray, 2-wide against 4-wide, and warp efficiency.
+13.  the "xla" route (the wavefront tracer) on bunny primary: tri against
+     the binary kernel's, disputed rays adjudicated by the oracle.
+14.  kernel-only times of the binary kernel (bunny primary, diffuse batch,
+     AO batch 1) and of the uv and stats forms of both kernels.
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
-it builds the kernels from the sources in the checkout.  Any failed phase
-ends the run with a nonzero exit and no result line.  The last line is
-``{"ok": true, "device": {...}}``; the line before it lists each kernel with
-its launches on the main paths, its largest deviation from the plain
-version, and both versions' times.
+it builds the kernels from the sources in the checkout, and the renderers
+share one BVH cache under the git-ignored ``build/``.  Any failed phase ends
+the run with a nonzero exit and no result line.  The last line is
+``{"ok": true, "device": {...}}``; the line before it lists each kernel
+form with its launches on the main paths, its largest deviation from the
+plain version, and both versions' times.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 import torch
@@ -49,6 +74,8 @@ WARMUP, REPEATS = 2, 5        # as bench.py: BENCH_WARMUP / BENCH_REPEATS
 PLAIN_WARMUP, PLAIN_REPEATS = 1, 3
 ORACLE_RAYS = 8192
 DEVICE = "cuda"
+CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_bvhcache")
+PACKET2 = "tpu_rt/trace/packet2.py:404"
 
 
 def check(ok: bool, what: str) -> None:
@@ -58,6 +85,13 @@ def check(ok: bool, what: str) -> None:
 
 def phase(name: str, t0: float) -> None:
     print(f"[{time.perf_counter() - t0:8.2f} s] {name}", flush=True)
+
+
+def gpu_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, warmup: int, repeats: int) -> list[float]:
@@ -85,18 +119,48 @@ def bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.view(torch.int32) != b.view(torch.int32)).sum())
 
 
+def np_bits_differ(a: np.ndarray, b: np.ndarray) -> int:
+    return int((np.asarray(a, np.float32).view(np.int32)
+                != np.asarray(b, np.float32).view(np.int32)).sum())
+
+
 def subset(rays, idx):
     from tpu_rt_torch.core.types import Rays
 
     return Rays(*(x[idx].contiguous() for x in rays))
 
 
+def strided(n: int, dev) -> torch.Tensor:
+    return torch.arange(0, n, max(n // ORACLE_RAYS, 1), device=dev)[:ORACLE_RAYS]
+
+
+def ptxas_forms(log: str) -> list[str]:
+    """One line per compiled kernel form: registers, stack and spills."""
+    out, name, stack = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            flags = re.search(r"([a-z]+_trace)_kernelILb([01])ELb([01])ELb([01])E", m.group(1))
+            name = (f"{flags.group(1)}<any={flags.group(2)},uv={flags.group(3)},"
+                    f"stats={flags.group(4)}>") if flags else m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            stack = f"{m.group(1)} B stack, spills {m.group(2)}/{m.group(3)} B"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {stack}")
+            name = None
+    return out
+
+
 def against_plain(kernel, plain, tables, rays, any_hit, frame_tri, what):
-    """The kernel against its plain version on every ray (tri equal, t
-    bit-equal), and a repeat launch against the frame's own hits.  Returns
-    the largest |t| deviation."""
+    """The kernel's frame form against its plain version on every ray (tri
+    equal, t bit-equal), and a repeat launch against the frame's own hits.
+    The plain version runs in its full form (u, v and counters), which the
+    uv and stats phases reuse.  Returns (largest |t| deviation, plain)."""
     got = kernel(tables, rays, any_hit=any_hit)
-    want = plain(tables, rays, any_hit=any_hit)
+    want, counts = plain(tables, rays, any_hit, True, True)
     torch.cuda.synchronize()
     tri_bad = int((got.tri != want.tri).sum())
     t_bad = bits_differ(got.t, want.t)
@@ -107,38 +171,43 @@ def against_plain(kernel, plain, tables, rays, any_hit, frame_tri, what):
           "tri mismatches (tolerance: tri equal, t bit-equal)")
     check(tri_bad == 0 and t_bad == 0, f"{what}: kernel differs from the plain version")
     check(frame_bad == 0, f"{what}: repeat trace differs from the frame's")
-    return max_abs_err
+    return max_abs_err, (want, counts)
 
 
-def against_oracle(kernel, tables, quad, sub, any_hit, what):
-    """The kernel against ``trace_quad_scalar`` on ``sub`` (tri equal, t
-    bit-equal).  Returns the oracle's hit ids."""
-    from tpu_rt_torch.bvh.collapse import trace_quad_scalar
-
+def against_oracle(kernel, tables, oracle, sub, any_hit, what, stats=None):
+    """The kernel against a host oracle (``trace_quad_scalar`` or
+    ``trace_flat_scalar``, bound to its tree with ``partial``) on ``sub`` (tri equal, t bit-equal).  Returns the
+    oracle's (tri, t, u, v)."""
     t0 = time.perf_counter()
-    s_id, s_t, _, _ = trace_quad_scalar(quad, *(x.cpu().numpy() for x in sub), any_hit=any_hit)
+    args = [x.cpu().numpy() for x in sub]
+    out = oracle(*args, any_hit=any_hit) if stats is None else oracle(*args, any_hit=any_hit,
+                                                                       stats=stats)
     oracle_s = time.perf_counter() - t0
     k = kernel(tables, sub, any_hit=any_hit)
     k_tri, k_t = k.tri.cpu().numpy(), k.t.cpu().numpy()
-    tri_bad = int((k_tri != s_id).sum())
-    t_bad = int((k_t.view(np.int32) != s_t.view(np.int32)).sum())
-    print(f"{what}: kernel vs trace_quad_scalar(any_hit={any_hit}) on {sub.num} rays "
+    tri_bad = int((k_tri != out[0]).sum())
+    t_bad = np_bits_differ(k_t, out[1])
+    print(f"{what}: kernel vs {oracle.func.__name__}(any_hit={any_hit}) on {sub.num} rays "
           f"({oracle_s:.1f} s on the host): tri mismatches {tri_bad}, t bit mismatches {t_bad}, "
-          f"hit fraction {float(np.mean(s_id >= 0)):.4f}")
+          f"hit fraction {float(np.mean(out[0] >= 0)):.4f}")
     check(tri_bad == 0 and t_bad == 0, f"{what}: kernel differs from the host oracle")
-    return s_id
+    return out
 
 
-def render(renderer, camera, kernel):
+def render(renderer, camera, kernel, idle=None):
     """One frame through the user's entry points, launch counts reset just
-    before and read just after.  Returns (stats, image, counts, wall s)."""
+    before and read just after; ``idle`` is a kernel that must not launch.
+    Returns (stats, image, launches by form (nonzero only), wall s)."""
     kernel.reset_counts()
+    if idle is not None:
+        idle.reset_counts()
     t0 = time.perf_counter()
     stats = renderer.render_frame(camera)
     image = renderer.update_result()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return stats, image, dict(kernel.launches_by_form), wall
+    check(idle is None or idle.launches == 0, f"{idle and idle.name} launched in this frame")
+    return stats, image, {k: v for k, v in kernel.launches_by_form.items() if v}, wall
 
 
 def frame_line(name, renderer, stats, counts, wall):
@@ -160,11 +229,18 @@ def check_image(image, what):
     check(len(np.unique(image.reshape(-1, 4), axis=0)) > 2, f"{what}: image is uniform")
 
 
+def timing_line(what, ms, rays, n=None):
+    n = rays.num if n is None else n
+    print(f"timing {what} ({rays.num} rays, {n} counted): ms {[round(x, 4) for x in ms]} "
+          f"best {min(ms):.4f} median {median(ms):.4f} -> {n / (median(ms) * 1e3):.2f} Mray/s "
+          "at the median")
+
+
 def bunny_primary(t0, kernel, dev):
     """Phases 2-5: the bunny primary frame, its checks and its timing."""
     from tpu_rt_torch.bench.workload import suite_camera
     from tpu_rt_torch.bvh import load_or_collapse_quad
-    from tpu_rt_torch.bvh.collapse import MAX_LEAF4
+    from tpu_rt_torch.bvh.collapse import MAX_LEAF4, trace_quad_scalar
     from tpu_rt_torch.renderer import Renderer, RendererParams
     from tpu_rt_torch.scene import Scene, procedural
     from tpu_rt_torch.shade.reconstruct import BG_COLOR
@@ -174,7 +250,7 @@ def bunny_primary(t0, kernel, dev):
     t1 = time.perf_counter()
     scene = Scene(procedural.scene_by_name(SCENE))
     camera = suite_camera(SCENE, scene)
-    renderer = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=None, device=DEVICE))
+    renderer = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE))
     renderer.set_scene(scene)
     print(f"scene: {SCENE} {scene.num_triangles} tris, {scene.num_vertices} vertices "
           f"({time.perf_counter() - t1:.2f} s)")
@@ -187,8 +263,8 @@ def bunny_primary(t0, kernel, dev):
           f"({tables.woop.numel() * 4 / 1e6:.2f} MB), depth {tables.depth}, leaf_max {MAX_LEAF4}")
     hit_frac = frame_line(f"{SCENE} primary frame", renderer, stats, counts, wall)
     check(stats["tracer"] == "quad-cuda", f"auto tracer is {stats['tracer']}")
-    check(counts["closest"] >= 1 and counts["any"] == 0,
-          f"the primary path launched {counts}, want the closest-hit kernel only")
+    check(counts == {"closest": 1}, f"the primary path launched {counts}, want the closest-hit "
+          "kernel only")
     check_image(image, "primary")
     check(0.05 < hit_frac < 0.95, f"hit fraction {hit_frac}")
     phase("bunny main path done", t0)
@@ -196,14 +272,16 @@ def bunny_primary(t0, kernel, dev):
     # 3. Kernel vs plain PyTorch version on every ray of the frame.
     rays = renderer.primary.rays
     tri = renderer.primary.hits.tri
-    max_abs_err = against_plain(kernel, quad_kernel.trace_quad_plain, tables, rays, False, tri,
-                                "bunny primary")
+    max_abs_err, full = against_plain(kernel, quad_kernel.trace_quad_plain, tables, rays, False,
+                                      tri, "bunny primary")
     phase("kernel == plain", t0)
 
     # 4. Strided subset against the host oracle trace_quad_scalar.
-    idx = torch.arange(0, rays.num, rays.num // ORACLE_RAYS, device=dev)[:ORACLE_RAYS]
-    quad = load_or_collapse_quad(flat, leaf_max=MAX_LEAF4, cache_dir=None)
-    s_id = against_oracle(kernel, tables, quad, subset(rays, idx), False, "bunny primary")
+    idx = strided(rays.num, dev)
+    quad = load_or_collapse_quad(flat, leaf_max=MAX_LEAF4, cache_dir=CACHE)
+    oracle = against_oracle(kernel, tables, partial(trace_quad_scalar, quad),
+                            subset(rays, idx), False, "bunny primary")
+    s_id = oracle[0]
     # The image at those pixels is the oracle's hit colour.
     pix = renderer.primary.slot_to_id[idx].cpu().numpy()
     expect = np.where((s_id >= 0)[:, None], scene.tri_shaded[np.maximum(s_id, 0)], BG_COLOR[None, :])
@@ -221,8 +299,11 @@ def bunny_primary(t0, kernel, dev):
           f"Mray/s at best; plain ms {[round(x, 2) for x in p_ms]} median {median(p_ms):.2f} "
           f"-> {WIDTH * HEIGHT / (median(p_ms) * 1e3):.2f} Mray/s")
     phase("bunny timed", t0)
-    return {"launches": counts["closest"], "max_abs_err": max_abs_err,
-            "ms": median(k_ms), "plain_ms": median(p_ms)}
+    entry = {"launches": counts["closest"], "max_abs_err": max_abs_err,
+             "ms": median(k_ms), "plain_ms": median(p_ms)}
+    ctx = {"scene": scene, "camera": camera, "renderer": renderer, "image": image,
+           "idx": idx, "quad": quad, "quad_oracle": oracle, "plain": full}
+    return entry, ctx
 
 
 def conference(t0, kernel, dev):
@@ -230,7 +311,7 @@ def conference(t0, kernel, dev):
     the timing of both kernel forms on their batches."""
     from tpu_rt_torch.bench.workload import suite_ao_radius, suite_camera
     from tpu_rt_torch.bvh import load_or_collapse_quad
-    from tpu_rt_torch.bvh.collapse import MAX_LEAF4
+    from tpu_rt_torch.bvh.collapse import MAX_LEAF4, trace_quad_scalar
     from tpu_rt_torch.raygen import RayGen
     from tpu_rt_torch.renderer import Renderer, RendererParams
     from tpu_rt_torch.scene import Scene, procedural
@@ -249,7 +330,7 @@ def conference(t0, kernel, dev):
           f"AO radius {radius:.4f}")
     ao = Renderer(WIDTH, HEIGHT, RendererParams(
         ray_type="ao", num_samples=AO_SAMPLES, ao_radius=radius, max_batch=AO_MAX_BATCH,
-        cache_dir=None, device=DEVICE))
+        cache_dir=CACHE, device=DEVICE))
     ao.set_scene(scene)
     stats, image, counts, wall = render(ao, camera, kernel)
     tables = ao.tracer_tables
@@ -281,13 +362,16 @@ def conference(t0, kernel, dev):
     lo, hi = b1.input_range
     check(lo == 0 and b1.rays.num == (hi - lo) * AO_SAMPLES == per_batch * AO_SAMPLES,
           "AO batch 1 shape")
-    any_err = against_plain(kernel, plain, tables, b1.rays, True, b1.hits.tri, "AO batch 1")
-    quad = load_or_collapse_quad(ao.flat, leaf_max=MAX_LEAF4, cache_dir=None)
+    any_err, b1_plain = against_plain(kernel, plain, tables, b1.rays, True, b1.hits.tri,
+                                      "AO batch 1")
+    quad = load_or_collapse_quad(ao.flat, leaf_max=MAX_LEAF4, cache_dir=CACHE)
     n_px = ORACLE_RAYS // AO_SAMPLES
     slots = torch.arange(0, hi, hi // n_px, device=dev)[:n_px]
     ids = (slots[:, None] * AO_SAMPLES + torch.arange(AO_SAMPLES, device=dev)).reshape(-1)
-    s_id = against_oracle(kernel, tables, quad, subset(b1.rays, b1.id_to_slot[ids].long()), True,
-                          "AO batch 1")
+    b1_idx = b1.id_to_slot[ids].long()
+    b1_oracle = against_oracle(kernel, tables, partial(trace_quad_scalar, quad),
+                               subset(b1.rays, b1_idx), True, "AO batch 1")
+    s_id = b1_oracle[0]
     # The AO colour of those pixels from the oracle's hit / miss.
     colors = np.where((s_id >= 0)[:, None], np.float32([0, 0, 0, 1]), np.float32(1.0))
     expect = colors.reshape(n_px, AO_SAMPLES, 4).mean(axis=1, dtype=np.float32)
@@ -301,28 +385,26 @@ def conference(t0, kernel, dev):
 
     # 8. The diffuse frame (1 sample): the closest-hit kernel on secondary rays.
     dif = Renderer(WIDTH, HEIGHT, RendererParams(
-        ray_type="diffuse", num_samples=1, cache_dir=None, device=DEVICE))
+        ray_type="diffuse", num_samples=1, cache_dir=CACHE, device=DEVICE))
     dif.set_scene(scene)
     stats_d, image_d, counts_d, wall_d = render(dif, camera, kernel)
     frame_line(f"{SECONDARY_SCENE} diffuse frame", dif, stats_d, counts_d, wall_d)
     check(bits_differ(dif.tracer_tables.nodes, tables.nodes) == 0
           and bits_differ(dif.tracer_tables.woop, tables.woop) == 0, "rebuilt tables differ")
     check(torch.equal(dif.primary.hits.tri, ao.primary.hits.tri), "primary hits differ")
-    check(stats_d["batches"] == 1 and counts_d == {"closest": 2, "any": 0},
+    check(stats_d["batches"] == 1 and counts_d == {"closest": 2},
           f"diffuse frame launched {counts_d} in {stats_d['batches']} batches")
     check(stats_d["total_rays"] == hits, "diffuse Mray/s numerator")
     check_image(image_d, "diffuse")
     bd = dif._batches[0]
-    dif_err = against_plain(kernel, plain, tables, bd.rays, False, bd.hits.tri, "diffuse batch")
-    idx = torch.arange(0, bd.rays.num, bd.rays.num // ORACLE_RAYS, device=dev)[:ORACLE_RAYS]
-    against_oracle(kernel, tables, quad, subset(bd.rays, idx), False, "diffuse batch")
+    dif_err, _ = against_plain(kernel, plain, tables, bd.rays, False, bd.hits.tri, "diffuse batch")
+    d_idx = strided(bd.rays.num, dev)
+    against_oracle(kernel, tables, partial(trace_quad_scalar, quad),
+                   subset(bd.rays, d_idx), False, "diffuse batch")
     phase("diffuse frame, closest-hit kernel == plain, oracle", t0)
 
     # 9. Kernel-only times; Mray/s as bench.py counts it: primary hits x
     # samples over kernel time.
-    def rate(n, ms):
-        return n / (ms * 1e3)
-
     b1_live = int((b1.rays.tmax >= 0).sum())
     k_b1 = time_ms(lambda: kernel(tables, b1.rays, any_hit=True), WARMUP, REPEATS)
     rays_s1 = RayGen().ao(ao.primary.rays, ao.primary.hits,
@@ -330,49 +412,402 @@ def conference(t0, kernel, dev):
     k_s1 = time_ms(lambda: kernel(tables, rays_s1, any_hit=True), WARMUP, REPEATS)
     k_dif = time_ms(lambda: kernel(tables, bd.rays), WARMUP, REPEATS)
     p_b1 = time_ms(lambda: plain(tables, b1.rays, any_hit=True), PLAIN_WARMUP, PLAIN_REPEATS)
-    for what, ms, n, rays in (("any-hit kernel, AO batch 1", k_b1, b1_live, b1.rays),
-                              ("any-hit kernel, 1-sample AO batch", k_s1, hits, rays_s1),
-                              ("closest-hit kernel, diffuse batch", k_dif, hits, bd.rays),
-                              ("plain any-hit, AO batch 1", p_b1, b1_live, b1.rays)):
-        print(f"timing {what} ({rays.num} rays, {n} live): ms {[round(x, 4) for x in ms]} "
-              f"best {min(ms):.4f} median {median(ms):.4f} -> {rate(n, median(ms)):.2f} Mray/s "
-              "at the median")
+    timing_line("any-hit kernel, AO batch 1", k_b1, b1.rays, b1_live)
+    timing_line("any-hit kernel, 1-sample AO batch", k_s1, rays_s1, hits)
+    timing_line("closest-hit kernel, diffuse batch", k_dif, bd.rays, hits)
+    timing_line("plain any-hit, AO batch 1", p_b1, b1.rays, b1_live)
     phase("conference timed", t0)
-    return ({"launches": ao_counts["any"], "max_abs_err": any_err,
-             "ms": median(k_b1), "plain_ms": median(p_b1)},
-            {"launches": ao_counts["closest"] + counts_d["closest"], "max_abs_err": dif_err})
+    anyhit = {"launches": ao_counts["any"], "max_abs_err": any_err,
+              "ms": median(k_b1), "plain_ms": median(p_b1)}
+    closest = {"launches": ao_counts["closest"] + counts_d["closest"], "max_abs_err": dif_err}
+    ctx = {"scene": scene, "camera": camera, "radius": radius, "ao": ao, "dif": dif,
+           "b1_idx": b1_idx, "d_idx": d_idx, "b1_plain": b1_plain, "b1_oracle": b1_oracle,
+           "occluded": occluded / live, "occluded_n": occluded,
+           "b1_live": b1_live, "hits": hits}
+    return anyhit, closest, ctx
+
+
+def binary_bunny(t0, flat_k, quad_k, bctx):
+    """Phase 10: the bunny primary frame on the binary kernel."""
+    from tpu_rt_torch.renderer import Renderer, RendererParams
+    from tpu_rt_torch.trace import RayStats, flat_kernel, trace_flat_scalar
+
+    scene, camera, quad_r = bctx["scene"], bctx["camera"], bctx["renderer"]
+    r = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE, tracer="packet"))
+    r.set_scene(scene)
+    stats, image, counts, wall = render(r, camera, flat_k, idle=quad_k)
+    tables = r.tracer_tables
+    print(f"binary bvh: {tables.nodes.shape[0]} nodes ({tables.nodes.numel() * 4 / 1e6:.2f} MB), "
+          f"{tables.woop.shape[0]} woop rows ({tables.woop.numel() * 4 / 1e6:.2f} MB), depth "
+          f"{tables.depth} (quad depth {quad_r.tracer_tables.depth})")
+    hit_frac = frame_line(f"{SCENE} primary frame, binary", r, stats, counts, wall)
+    check(stats["tracer"] == "flat-cuda", f"packet tracer is {stats['tracer']}")
+    check(counts == {"closest": 1}, f"the binary primary path launched {counts}")
+    check_image(image, "binary primary")
+    check(0.05 < hit_frac < 0.95, f"hit fraction {hit_frac}")
+    rays, hits = r.primary.rays, r.primary.hits
+    check(all(torch.equal(a, b) for a, b in zip(rays, quad_r.primary.rays)),
+          "the two renderers' primary rays differ")
+    phase("binary bunny main path done", t0)
+
+    err, full = against_plain(flat_k, flat_kernel.trace_flat_plain, tables, rays, False, hits.tri,
+                              "binary bunny primary")
+    st = RayStats()
+    flat = r.flat
+    oracle = against_oracle(flat_k, tables,
+                            partial(trace_flat_scalar, flat),
+                            subset(rays, bctx["idx"]), False, "binary bunny primary", stats=st)
+    # Against the quad kernel's frame: the same geometric query, so t is
+    # bit-equal on every ray; tri may differ only at exact-t ties, and the
+    # image only at those pixels.
+    q_hits = quad_r.primary.hits
+    t_bad = bits_differ(hits.t, q_hits.t)
+    tie = (hits.tri != q_hits.tri).cpu().numpy()
+    tie_px = set(r.primary.slot_to_id.cpu().numpy()[np.nonzero(tie)[0]].tolist())
+    img_px = set(np.nonzero((image.reshape(-1, 4) != bctx["image"].reshape(-1, 4)).any(1))[0]
+                 .tolist())
+    print(f"binary vs quad frame: t bit mismatches {t_bad}, tri differing at exact-t ties "
+          f"{int(tie.sum())}, image pixels differing {len(img_px)} (all at tie pixels: "
+          f"{img_px <= tie_px})")
+    check(t_bad == 0, "binary and quad t differ")
+    check(img_px <= tie_px, "binary and quad images differ off the tie pixels")
+    phase("binary kernel == plain, oracle, quad", t0)
+    entry = {"launches": counts["closest"], "max_abs_err": err}
+    return entry, {"renderer": r, "plain": full, "oracle": oracle, "stats": st}
+
+
+def binary_conference(t0, flat_k, quad_k, cctx):
+    """Phase 11: the conference AO and diffuse frames on the binary kernel."""
+    from tpu_rt_torch.renderer import Renderer, RendererParams
+    from tpu_rt_torch.trace import RayStats, flat_kernel, trace_flat_scalar
+
+    scene, camera, quad_ao = cctx["scene"], cctx["camera"], cctx["ao"]
+    plain = flat_kernel.trace_flat_plain
+    ao = Renderer(WIDTH, HEIGHT, RendererParams(
+        ray_type="ao", num_samples=AO_SAMPLES, ao_radius=cctx["radius"], max_batch=AO_MAX_BATCH,
+        cache_dir=CACHE, device=DEVICE, tracer="packet"))
+    ao.set_scene(scene)
+    stats, image, counts, wall = render(ao, camera, flat_k, idle=quad_k)
+    tables = ao.tracer_tables
+    print(f"binary bvh: {tables.nodes.shape[0]} nodes ({tables.nodes.numel() * 4 / 1e6:.2f} MB), "
+          f"{tables.woop.shape[0]} woop rows ({tables.woop.numel() * 4 / 1e6:.2f} MB), depth "
+          f"{tables.depth}")
+    frame_line(f"{SECONDARY_SCENE} AO frame, binary", ao, stats, counts, wall)
+    live = sum(int((b.rays.tmax >= 0).sum()) for b in ao._batches)
+    occluded = sum(int(((b.rays.tmax >= 0) & (b.hits.tri >= 0)).sum()) for b in ao._batches)
+    check(stats["tracer"] == "flat-cuda", f"packet tracer is {stats['tracer']}")
+    check(counts == {"closest": 1, "any": stats["batches"]}, f"binary AO frame launched {counts}")
+    check_image(image, "binary AO")
+    b1, q_b1 = ao._batches[0], quad_ao._batches[0]
+    # The primary pre-trace: t bit-equal to the quad path's; tri may differ
+    # at exact-t ties, and then that pixel's AO rays start from another
+    # triangle's normal.
+    p_t_bad = bits_differ(ao.primary.hits.t, quad_ao.primary.hits.t)
+    p_ties = int((ao.primary.hits.tri != quad_ao.primary.hits.tri).sum())
+    b1_differ = int((b1.rays.dirn != q_b1.rays.dirn).any(1).sum())
+    print(f"binary AO: occluded fraction {occluded / live:.4f} ({occluded} of {live}; quad path "
+          f"{cctx['occluded']:.4f}); primary pre-trace t bit mismatches {p_t_bad}, tri differing "
+          f"at exact-t ties {p_ties}; batch-1 rays differing from the quad path's {b1_differ}")
+    check(p_t_bad == 0, "binary and quad primary t differ")
+    phase("binary conference AO frame done", t0)
+
+    any_err, full = against_plain(flat_k, plain, tables, b1.rays, True, b1.hits.tri,
+                                  "binary AO batch 1")
+    st = RayStats()
+    flat = ao.flat
+    oracle = against_oracle(flat_k, tables, partial(trace_flat_scalar, flat),
+                            subset(b1.rays, cctx["b1_idx"]), True, "binary AO batch 1", stats=st)
+    # Hit / miss per ray equal to the quad any-hit kernel's on the same
+    # rays (every batch), so the occluded fractions are equal exactly.
+    hm_bad, q_occluded = 0, 0
+    for b in ao._batches:
+        q = quad_k(quad_ao.tracer_tables, b.rays, any_hit=True)
+        hm_bad += int(((q.tri >= 0) != (b.hits.tri >= 0)).sum())
+        q_occluded += int(((b.rays.tmax >= 0) & (q.tri >= 0)).sum())
+    print(f"binary AO: hit / miss mismatches against the quad any-hit kernel on the same rays "
+          f"{hm_bad} of {ao.rays_traced}; occluded {occluded} (binary) and {q_occluded} (quad) of "
+          f"{live}; the quad path's own frame {cctx['occluded_n']}")
+    check(hm_bad == 0 and occluded == q_occluded,
+          "binary and quad any-hit kernels disagree on occlusion")
+    phase("binary any-hit kernel == plain, oracle, quad", t0)
+
+    dif = Renderer(WIDTH, HEIGHT, RendererParams(
+        ray_type="diffuse", num_samples=1, cache_dir=CACHE, device=DEVICE, tracer="packet"))
+    dif.set_scene(scene)
+    stats_d, image_d, counts_d, wall_d = render(dif, camera, flat_k, idle=quad_k)
+    frame_line(f"{SECONDARY_SCENE} diffuse frame, binary", dif, stats_d, counts_d, wall_d)
+    check(stats_d["batches"] == 1 and counts_d == {"closest": 2},
+          f"binary diffuse frame launched {counts_d}")
+    check_image(image_d, "binary diffuse")
+    bd = dif._batches[0]
+    dif_err, _ = against_plain(flat_k, plain, tables, bd.rays, False, bd.hits.tri,
+                               "binary diffuse batch")
+    against_oracle(flat_k, tables, partial(trace_flat_scalar, flat),
+                   subset(bd.rays, cctx["d_idx"]), False, "binary diffuse batch")
+    phase("binary diffuse frame, closest-hit kernel == plain, oracle", t0)
+    anyhit = {"launches": counts["any"], "max_abs_err": any_err}
+    closest = {"launches": counts["closest"] + counts_d["closest"], "max_abs_err": dif_err}
+    return anyhit, closest, {"ao": ao, "dif": dif, "plain": full, "oracle": oracle, "stats": st}
+
+
+def warp_efficiency(work: torch.Tensor) -> float:
+    """Mean work per ray over the mean, over 32-ray launch-order groups, of
+    the group's largest: the share of a warp's lanes busy per step."""
+    w = work.float()
+    pad = (-w.numel()) % 32
+    w = torch.cat([w, w.new_zeros(pad)])
+    return float(w.sum() / (w.view(-1, 32).amax(1).sum() * 32))
+
+
+def uv_and_stats(t0, quad_k, flat_k, bctx, fb, cctx, fc):
+    """Phase 12: the want_uv and with_stats forms of both kernels through
+    make_routing_tracer, on bunny primary (uv: closest and any hit; stats:
+    closest hit) and conference AO batch 1 (stats: any hit), against the
+    plain versions on every ray and the oracles on the subsets."""
+    from tpu_rt_torch.bvh.collapse import trace_quad_scalar
+    from tpu_rt_torch.trace import (
+        RayStats,
+        flat_kernel,
+        make_routing_tracer,
+        quad_kernel,
+        trace_flat_scalar,
+    )
+    from tpu_rt_torch.trace.common import form_name
+
+    dev = torch.device(DEVICE, 0)
+    bunny, conf = "bunny primary", "conference AO batch 1"
+    # Each kernel on its own renderer's rays (a primary hit that ties in t
+    # may pick another triangle, and then its AO rays differ).
+    cases = ((bunny, {"quad": bctx["renderer"].primary.rays, "flat": fb["renderer"].primary.rays},
+              bctx["idx"], fb["renderer"].flat, (False, True), False),
+             (conf, {"quad": cctx["ao"]._batches[0].rays, "flat": fc["ao"]._batches[0].rays},
+              cctx["b1_idx"], fc["ao"].flat, (), True))
+    kernels = (("quad", quad_k, "packet4", quad_kernel.trace_quad_plain),
+               ("flat", flat_k, "packet", flat_kernel.trace_flat_plain))
+    # Full-form plain results and oracle results the earlier phases made.
+    plains = {("quad", bunny, False): bctx["plain"], ("quad", conf, True): cctx["b1_plain"],
+              ("flat", bunny, False): fb["plain"], ("flat", conf, True): fc["plain"]}
+    oracles = {("quad", bunny, False): (bctx["quad_oracle"], None),
+               ("quad", conf, True): (cctx["b1_oracle"], None),
+               ("flat", bunny, False): (fb["oracle"], fb["stats"]),
+               ("flat", conf, True): (fc["oracle"], fc["stats"])}
+    out = {name: {"uv_launches": 0, "stats_launches": 0, "uv_err": 0.0, "stats_err": 0.0}
+           for name, *_ in kernels}
+    census = []
+    for label, ray_sets, idx, flat, uv_any, stats_any in cases:
+        for name, kern, prefer, plain in kernels:
+            rays = ray_sets[name]
+            sub = subset(rays, idx)
+            sub_np = [x.cpu().numpy() for x in sub]
+            fn_uv, kind, tables = make_routing_tracer(flat, prefer=prefer, device=dev,
+                                                      want_uv=True, cache_dir=CACHE)
+            fn, kind2, _ = make_routing_tracer(flat, prefer=prefer, device=dev, cache_dir=CACHE)
+            check(kind == kind2 == f"{name}-cuda", f"{prefer} route is {kind}")
+            # The user's calls, launch counts reset just before, read after.
+            kern.reset_counts()
+            got = [(a, False, fn_uv(tables, rays, any_hit=a)) for a in uv_any]
+            got.append((stats_any, True, fn(tables, rays, any_hit=stats_any, with_stats=True)))
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kern.launches_by_form.items() if v}
+            want_counts = {form_name(a, not st, st): 1 for a, st, _ in got}
+            print(f"{label}, {name}: launches {counts}")
+            check(counts == want_counts, f"{label} {name} launched {counts}, want {want_counts}")
+            for a, st, res in got:
+                what = "stats" if st else "uv"
+                out[name][f"{what}_launches"] += 1
+                hits, cnt = res if st else (res, None)
+                key = (name, label, a)
+                if key not in plains:
+                    plains[key] = plain(tables, rays, a, True, True)
+                want, want_cnt = plains[key]
+                fields = ("t",) if st else ("t", "u", "v")
+                bad = {k: bits_differ(getattr(hits, k), getattr(want, k)) for k in fields}
+                bad["tri"] = int((hits.tri != want.tri).sum())
+                if st:
+                    bad.update({k: int((cnt[k] != want_cnt[k]).sum()) for k in cnt})
+                    check(not hits.u.any() and not hits.v.any(), "the stats form wrote u, v")
+                err = max(float((getattr(hits, k) - getattr(want, k)).abs().max()) for k in fields)
+                out[name][f"{what}_err"] = max(out[name][f"{what}_err"], err)
+                print(f"{label}, {name} {what} form (any_hit={a}) vs plain on {rays.num} rays: "
+                      f"mismatches {bad}, max |d| {err}")
+                check(not any(bad.values()), f"{label} {name} {what} form differs from plain")
+                # The oracles on the subset: tri, t (and u, v) bit-equal; the
+                # binary kernel's counters equal RayStats.
+                if key not in oracles:
+                    t1 = time.perf_counter()
+                    if name == "quad":
+                        oracles[key] = (trace_quad_scalar(bctx["quad"], *sub_np, any_hit=a), None)
+                    else:
+                        rs = RayStats()
+                        oracles[key] = (trace_flat_scalar(flat, *sub_np, any_hit=a, stats=rs), rs)
+                    print(f"{name} oracle (any_hit={a}) on {sub.num} rays: "
+                          f"{time.perf_counter() - t1:.1f} s on the host")
+                s, rs = oracles[key]
+                k = [x[idx].cpu().numpy() for x in hits]
+                bad = {"tri": int((k[0] != s[0]).sum())}
+                bad.update({f: np_bits_differ(k[i], s[i]) for i, f in enumerate(("t", "u", "v"), 1)
+                            if f in fields})
+                if st and rs is not None:
+                    bad["node_tests"] = int((cnt["node_tests"][idx].cpu().numpy()
+                                             != rs.per_ray_node_tests).sum())
+                    bad["tri_tests"] = int((cnt["tri_tests"][idx].cpu().numpy()
+                                            != rs.per_ray_tri_tests).sum())
+                print(f"{label}, {name} {what} form (any_hit={a}) vs the oracle on {sub.num} "
+                      f"rays: mismatches {bad}")
+                check(not any(bad.values()), f"{label} {name} {what} form differs from the oracle")
+                if st:
+                    census.append((label, name, cnt))
+    for label in (bunny, conf):
+        parts = []
+        for label2, name, cnt in census:
+            if label2 == label:
+                nt, tt = cnt["node_tests"], cnt["tri_tests"]
+                parts.append(f"{name}: node_tests/ray {float(nt.float().mean()):.3f}, "
+                             f"tri_tests/ray {float(tt.float().mean()):.3f}, warp efficiency "
+                             f"{warp_efficiency(nt + tt):.4f}")
+        print(f"census, {label}: " + "; ".join(parts))
+    phase("uv and stats forms == plain, oracles", t0)
+    return out
+
+
+def xla_route(t0, fb, bctx):
+    """Phase 13: the wavefront tracer ("xla") on bunny primary."""
+    from tpu_rt_torch.renderer import Renderer, RendererParams
+    from tpu_rt_torch.trace import trace_flat_scalar
+
+    r = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE, tracer="xla"))
+    r.set_scene(bctx["scene"])
+    t1 = time.perf_counter()
+    stats = r.render_frame(bctx["camera"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    check(stats["tracer"] == "wavefront", f"xla tracer is {stats['tracer']}")
+    got, want = r.primary.hits, fb["renderer"].primary.hits
+    bad = (got.tri != want.tri).cpu().numpy()
+    ids = np.nonzero(bad)[0]
+    wrong = 0
+    if ids.size:
+        # bench.py's rules: an fp tie or an edge graze is allowed.  The
+        # wavefront divides Oz / Dz where the oracle multiplies by 1 / Dz,
+        # so the graze may be on either side: the oracle's hit near an edge,
+        # or the wavefront's (its own u, v).
+        rays = r.primary.rays
+        s_id, s_t, s_u, s_v = trace_flat_scalar(fb["renderer"].flat,
+                                                *(x.cpu().numpy()[ids] for x in rays))
+        g_tri, g_t, g_u, g_v = (x.cpu().numpy()[ids] for x in got)
+        exact = g_tri == s_id
+        tie = ~exact & np.isclose(g_t, s_t, rtol=2e-4, atol=1e-5)
+        margin = np.minimum(np.minimum(s_u, s_v), 1.0 - s_u - s_v)
+        g_margin = np.minimum(np.minimum(g_u, g_v), 1.0 - g_u - g_v)
+        graze = ~exact & ~tie & (((s_id >= 0) & (margin < 1e-3))
+                                 | ((g_tri >= 0) & (g_margin < 1e-3)))
+        wrong = int((~exact & ~tie & ~graze).sum())
+        for i in range(ids.size):
+            print(f"  disputed ray {ids[i]}: wavefront tri {g_tri[i]} t {g_t[i]} u {g_u[i]} "
+                  f"v {g_v[i]}; oracle tri {s_id[i]} t {s_t[i]} u {s_u[i]} v {s_v[i]}; "
+                  f"{'exact' if exact[i] else 'tie' if tie[i] else 'graze' if graze[i] else 'WRONG'}")
+    hit = (want.tri >= 0)
+    dt = float((got.t - want.t)[hit].abs().max()) if bool(hit.any()) else 0.0
+    print(f"xla route (wavefront) on {WIDTH}x{HEIGHT}: wall {wall:.3f} s (set-up {r.setup_s:.2f} s; "
+          f"trace {stats['trace_time_s']:.3f} s); tri differing from the binary kernel {ids.size}, "
+          f"wrong after oracle adjudication {wrong}; max |dt| on hits {dt}")
+    check(wrong == 0, "the wavefront disagrees with the oracle")
+    phase("xla route == binary kernel", t0)
+    return wall
+
+
+def binary_timing(t0, quad_k, flat_k, bctx, fb, cctx, fc):
+    """Phase 14: kernel-only times of the binary kernel and of the uv and
+    stats forms of both kernels, each beside its plain version."""
+    from tpu_rt_torch.trace import flat_kernel, quad_kernel
+
+    rays = fb["renderer"].primary.rays
+    ft, qt = fb["renderer"].tracer_tables, bctx["renderer"].tracer_tables
+    ft_c = fc["ao"].tracer_tables
+    b1 = fc["ao"]._batches[0]
+    bd = fc["dif"]._batches[0]
+    fplain, qplain = flat_kernel.trace_flat_plain, quad_kernel.trace_quad_plain
+    res = {}
+    for what, kern, tables, r, a, n in (
+            ("flat closest-hit, bunny primary", flat_k, ft, rays, False, rays.num),
+            ("flat closest-hit, diffuse batch", flat_k, ft_c, bd.rays, False, cctx["hits"]),
+            ("flat any-hit, AO batch 1", flat_k, ft_c, b1.rays, True, cctx["b1_live"])):
+        k = time_ms(lambda: kern(tables, r, any_hit=a), WARMUP, REPEATS)
+        p = time_ms(lambda: fplain(tables, r, any_hit=a), PLAIN_WARMUP, PLAIN_REPEATS)
+        timing_line(what, k, r, n)
+        timing_line(f"plain {what}", p, r, n)
+        res[what] = (median(k), median(p))
+    for name, kern, tables, plain in (("quad", quad_k, qt, qplain), ("flat", flat_k, ft, fplain)):
+        for a in (False, True):
+            for uv, stats in ((False, False), (True, False), (False, True), (True, True)):
+                k = time_ms(lambda: kern(tables, rays, a, uv, stats), WARMUP, REPEATS)
+                timing_line(f"{name} any_hit={a} want_uv={uv} with_stats={stats}, bunny primary",
+                            k, rays)
+                res[(name, a, uv, stats)] = median(k)
+        for uv, stats in ((True, False), (False, True)):
+            p = time_ms(lambda: plain(tables, rays, False, uv, stats), PLAIN_WARMUP,
+                        PLAIN_REPEATS)
+            timing_line(f"plain {name} want_uv={uv} with_stats={stats}, bunny primary", p, rays)
+            res[(name, "plain", uv, stats)] = median(p)
+    phase("binary and uv / stats forms timed", t0)
+    return res
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
-    from tpu_rt_torch.trace import quad_kernel
+    from tpu_rt_torch.trace import flat_kernel, quad_kernel
 
     t0 = time.perf_counter()
     dev = torch.device(DEVICE, 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(gpu_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    shutil.rmtree(CACHE, ignore_errors=True)
 
-    # 1. Build every kernel of the path from the checkout's sources (both
-    # forms are instantiations in one library).
-    kernel = quad_kernel.KERNEL
-    kernel.load()
-    ptxas = [ln.strip() for ln in kernel.build_log.splitlines() if "ptxas" in ln and
-             ("registers" in ln or "spill" in ln or "stack" in ln or "Compiling" in ln)]
-    print(f"build: quad_trace.cu in {kernel.build_s:.2f} s; " + " | ".join(ptxas))
-    phase("kernel built", t0)
+    # 1. Build every kernel of the paths from the checkout's sources, one
+    # nvcc per source, started together (the eight forms of each kernel are
+    # instantiations in one library).
+    kernel, flat_k = quad_kernel.KERNEL, flat_kernel.KERNEL
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda k: k.load(), (kernel, flat_k)))
+    for k in (kernel, flat_k):
+        print(f"build: {k.name}.cu in {k.build_s:.2f} s")
+        for ln in ptxas_forms(k.build_log):
+            print(f"  ptxas {ln}")
+    phase("kernels built", t0)
 
-    closest = bunny_primary(t0, kernel, dev)
-    anyhit, closest_secondary = conference(t0, kernel, dev)
+    closest, bctx = bunny_primary(t0, kernel, dev)
+    anyhit, closest_secondary, cctx = conference(t0, kernel, dev)
+    f_closest, fb = binary_bunny(t0, flat_k, kernel, bctx)
+    f_anyhit, f_closest_secondary, fc = binary_conference(t0, flat_k, kernel, cctx)
+    forms = uv_and_stats(t0, kernel, flat_k, bctx, fb, cctx, fc)
+    xla_route(t0, fb, bctx)
+    times = binary_timing(t0, kernel, flat_k, bctx, fb, cctx, fc)
 
+    def form_entries(name, src, base):
+        f = forms[name]
+        return [{
+            "name": f"{base}_uv", "route": "cuda", "source": src,
+            "replaces": f"{PACKET2} (want_uv=True, :466-468, :568-571, :891-893, :902-904)",
+            "launches": f["uv_launches"], "max_abs_err": f["uv_err"],
+            "ms": times[(name, False, True, False)], "plain_ms": times[(name, "plain", True, False)],
+        }, {
+            "name": f"{base}_stats", "route": "cuda", "source": src,
+            "replaces": f"{PACKET2} (count_iters, :432-433, :921-933, :1006-1011, :1034-1036)",
+            "launches": f["stats_launches"], "max_abs_err": f["stats_err"],
+            "ms": times[(name, False, False, True)],
+            "plain_ms": times[(name, "plain", False, True)],
+        }]
+
+    quad_src, flat_src = "tpu_rt_torch/csrc/quad_trace.cu", "tpu_rt_torch/csrc/flat_trace.cu"
+    f_bunny = times["flat closest-hit, bunny primary"]
+    f_b1 = times["flat any-hit, AO batch 1"]
     print(json.dumps({"kernels": [{
         "name": "quad_trace",
         "route": "cuda",
-        "source": "tpu_rt_torch/csrc/quad_trace.cu",
-        "replaces": "tpu_rt/trace/packet2.py:404",
+        "source": quad_src,
+        "replaces": PACKET2,
         "launches": closest["launches"] + closest_secondary["launches"],
         "max_abs_err": max(closest["max_abs_err"], closest_secondary["max_abs_err"]),
         "ms": closest["ms"],
@@ -380,10 +815,27 @@ def main() -> None:
     }, {
         "name": "quad_trace_anyhit",
         "route": "cuda",
-        "source": "tpu_rt_torch/csrc/quad_trace.cu",
-        "replaces": "tpu_rt/trace/packet2.py:404 (any_hit=True, :552-567, :881-883)",
+        "source": quad_src,
+        "replaces": f"{PACKET2} (any_hit=True, :552-567, :881-883)",
         **anyhit,
-    }]}))
+    }, *form_entries("quad", quad_src, "quad_trace"), {
+        "name": "flat_trace",
+        "route": "cuda",
+        "source": flat_src,
+        "replaces": f"{PACKET2} (binary f32 node unit :704-770, via trace_packet2 :1052)",
+        "launches": f_closest["launches"] + f_closest_secondary["launches"],
+        "max_abs_err": max(f_closest["max_abs_err"], f_closest_secondary["max_abs_err"]),
+        "ms": f_bunny[0],
+        "plain_ms": f_bunny[1],
+    }, {
+        "name": "flat_trace_anyhit",
+        "route": "cuda",
+        "source": flat_src,
+        "replaces": f"{PACKET2} (binary node unit :704-770, any_hit=True :552-567, :881-883)",
+        **f_anyhit,
+        "ms": f_b1[0],
+        "plain_ms": f_b1[1],
+    }, *form_entries("flat", flat_src, "flat_trace")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,8 +1,8 @@
 """The plain PyTorch quad tracer on tables that tpu_rt built, closest hit
-and any hit: exact against tpu_rt's scalar oracle, and against the Pallas
-packet4 kernel (interpret mode) up to its division-vs-reciprocal rounding
-(closest hit) or on hit vs miss (any hit, whose packet vote may pick
-another occluder)."""
+and any hit, with and without u, v and the per-ray counters: exact against
+tpu_rt's scalar oracle, and against the Pallas packet4 kernel (interpret
+mode) up to its division-vs-reciprocal rounding (closest hit) or on hit vs
+miss (any hit, whose packet vote may pick another occluder)."""
 
 import numpy as np
 import pytest
@@ -17,6 +17,7 @@ from tpu_rt.trace.packet2 import trace_packet4
 
 from tpu_rt_torch.core.types import make_rays
 from tpu_rt_torch.trace import make_routing_tracer, quad_kernel
+from tpu_rt_torch.trace.common import FORMS
 from tpu_rt_torch.trace.quad_kernel import (
     STACK_SIZE,
     trace_quad,
@@ -124,6 +125,54 @@ def test_plain_matches_packet4_kernel(setup):
     np.testing.assert_allclose(got.t.numpy()[hit], np.asarray(want.t)[hit], rtol=1e-5)
 
 
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_plain_uv_and_counters(setup, any_hit):
+    scene, _, quad, tables = setup
+    o, d, tmin, tmax = _any_hit_rays(scene, 1000, seed=15)
+    s_id, s_t, s_u, s_v = trace_quad_scalar(quad, o, d, tmin, tmax, any_hit=any_hit)
+    rays = make_rays(o, d, tmin, tmax)
+    hits, counts = trace_quad_plain(tables, rays, any_hit=any_hit, want_uv=True,
+                                    with_stats=True)
+    # u, v of the accepted hit bit-equal to the oracle's, as t is.
+    np.testing.assert_array_equal(hits.tri.numpy(), s_id)
+    for got, want in ((hits.t, s_t), (hits.u, s_u), (hits.v, s_v)):
+        np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    # The other forms give the same (tri, t); the frame forms u = v = 0.
+    for want_uv in (False, True):
+        for with_stats in (False, True):
+            out = trace_quad(tables, rays, any_hit, want_uv, with_stats)
+            h = out[0] if with_stats else out
+            assert torch.equal(h.tri, hits.tri) and torch.equal(h.t, hits.t)
+            assert torch.equal(h.u, hits.u) if want_uv else not h.u.any()
+    # Counters: a live ray visits the root at least; a dead one does
+    # nothing.  Any hit walks the closest-hit path up to its first accepted
+    # hit and stops there, so it never does more work.
+    live = tmax >= 0
+    nt, tt = counts["node_tests"].numpy(), counts["tri_tests"].numpy()
+    assert counts["node_tests"].dtype == torch.int32
+    assert np.all(nt[live] >= 1) and not nt[~live].any() and not tt[~live].any()
+    assert np.all(tt[hits.tri.numpy() >= 0] >= 1)
+    if any_hit:
+        _, c_counts = trace_quad_plain(tables, rays, with_stats=True)
+        assert np.all(nt <= c_counts["node_tests"].numpy())
+        assert np.all(tt <= c_counts["tri_tests"].numpy())
+        assert np.any(tt < c_counts["tri_tests"].numpy())
+
+
+def test_plain_uv_matches_packet4_kernel(setup):
+    scene, _, quad, tables = setup
+    o, d, tmin, tmax = _rays(scene, 600, seed=16)
+    want = trace_packet4(quad, t_make_rays(o, d, tmin, tmax), interpret=True, tile=512, k=2,
+                         want_uv=True)
+    got = trace_quad_plain(tables, make_rays(o, d, tmin, tmax), want_uv=True)
+    want_tri = np.asarray(want.tri)
+    np.testing.assert_array_equal(got.tri.numpy(), want_tri)
+    hit = want_tri >= 0
+    # tests/test_pallas.py's tolerance for packet4's u, v.
+    np.testing.assert_allclose(got.u.numpy()[hit], np.asarray(want.u)[hit], rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(got.v.numpy()[hit], np.asarray(want.v)[hit], rtol=1e-3, atol=1e-4)
+
+
 def test_upload_keeps_bits(setup):
     _, _, quad, tables = setup
     assert tables.nodes.numpy().tobytes() == np.ascontiguousarray(quad.nodes).tobytes()
@@ -161,18 +210,22 @@ def test_cpu_dispatch_and_routing(setup):
     rays = make_rays(o, d, tmin, tmax)
     before = quad_kernel.KERNEL.launches
     fn, kind, routed = make_routing_tracer(flat, device="cpu")
-    assert kind == "quad-plain" and fn is trace_quad
+    assert kind == "quad-plain" and fn.func is trace_quad
     assert routed.nodes.numpy().tobytes() == tables.nodes.numpy().tobytes()
     a, b = fn(routed, rays), trace_quad_plain(tables, rays)
     assert torch.equal(a.tri, b.tri) and torch.equal(a.t, b.t)
     c, d = fn(routed, rays, any_hit=True), trace_quad_plain(tables, rays, any_hit=True)
     assert torch.equal(c.tri, d.tri) and torch.equal(c.t, d.t)
     assert quad_kernel.KERNEL.launches == before
-    assert quad_kernel.KERNEL.launches_by_form == dict.fromkeys(("closest", "any"), 0)
-    # What is still unported raises.
-    for prefer in ("xla", "packet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_routing_tracer(flat, prefer=prefer)
+    assert quad_kernel.KERNEL.launches_by_form == dict.fromkeys(FORMS, 0)
+    # The binary kernel and the wavefront run and name their route.
+    for prefer, want_kind in (("packet", "flat-plain"), ("xla", "wavefront"),
+                              ("pallas", "quad-plain"), ("packet4", "quad-plain")):
+        fn2, kind2, tables2 = make_routing_tracer(flat, prefer=prefer)
+        assert kind2 == want_kind
+        assert torch.equal(fn2(tables2, rays).tri, a.tri)
+    with pytest.raises(ValueError, match="unknown tracer"):
+        make_routing_tracer(flat, prefer="packet8")
     with pytest.raises(ValueError):
         quad_kernel.KERNEL(tables, rays)
     with pytest.raises(ValueError):

@@ -42,6 +42,10 @@ def frames():
 
 def test_primary_frame_matches_tpu_rt(frames):
     t_r, t_img, p_r, p_img, _ = frames
+    _check_primary(t_r, t_img, p_r, p_img)
+
+
+def _check_primary(t_r, t_img, p_r, p_img):
     # Per-pixel hit ids of both frames.
     t_tri = np.asarray(t_r._batches[0].hits.tri)[np.asarray(t_r.primary.id_to_slot)]
     p_tri = p_r.primary.hits.tri.numpy()[p_r.primary.id_to_slot.numpy()]
@@ -122,11 +126,14 @@ def _frame_samples(batches, s, to_np):
 
 @pytest.mark.parametrize("ray_type", ["ao", "diffuse"])
 def test_secondary_frame_matches_tpu_rt(secondary_frames, ray_type):
-    t_r, t_stats, t_img, p_r, p_stats, p_img = secondary_frames[ray_type]
+    _check_secondary(*secondary_frames[ray_type], ray_type, "quad-plain")
+
+
+def _check_secondary(t_r, t_stats, t_img, p_r, p_stats, p_img, ray_type, kind):
     assert p_stats["total_rays"] == t_stats["total_rays"]
     assert p_stats["rays_traced"] == t_stats["rays_traced"] == W * H * SAMPLES
     assert p_stats["batches"] == len(t_r._batches) == 3
-    assert p_stats["tracer"] == "quad-plain" and len(p_stats["batch_trace_s"]) == 3
+    assert p_stats["tracer"] == kind and len(p_stats["batch_trace_s"]) == 3
     # Mray/s numerator: primary hits x samples, not the rays traced.
     p_hits = int((p_r.primary.hits.tri >= 0).sum())
     assert p_stats["total_rays"] == p_hits * SAMPLES < p_stats["rays_traced"]
@@ -193,11 +200,59 @@ def test_secondary_ray_types_not_ported():
             PRenderer(8, 8, PParams(ray_type="ao", **{flag: True}))
     with pytest.raises(ValueError):
         PRenderer(8, 8, PParams(ray_type="shadow"))
-    for tracer in ("xla", "packet"):
+    with pytest.raises(ValueError, match="tracer"):
+        PRenderer(8, 8, PParams(tracer="bvh8"))
+    # Every tracer route runs and names itself.
+    images = {}
+    for tracer, kind in (("auto", "quad-plain"), ("packet4", "quad-plain"),
+                         ("pallas", "quad-plain"), ("packet", "flat-plain"),
+                         ("xla", "wavefront")):
         r = PRenderer(8, 8, PParams(ray_type="diffuse", tracer=tracer, cache_dir=None))
         r.set_mesh(p_proc.make_blob(200, seed=3))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            r.render_frame(p_suite_camera("bunny", r.scene))
+        stats = r.render_frame(p_suite_camera("bunny", r.scene))
+        assert stats["tracer"] == r.active_tracer == kind
+        images[tracer] = r.update_result()
+    for tracer in ("packet4", "pallas", "packet", "xla"):
+        np.testing.assert_array_equal(images[tracer], images["auto"])
+
+
+# The binary kernel's and the wavefront's routes, rendered through the
+# Renderer, against the same tpu_rt frames.
+ROUTES = {"packet": "flat-plain", "xla": "wavefront"}
+
+
+@pytest.fixture(scope="module", params=sorted(ROUTES))
+def route_frames(request, frames, secondary_frames):
+    tracer = request.param
+    t_r, t_img = frames[:2]
+    p_scene = PScene(p_proc.make_blob(700, seed=80))
+    p_r = PRenderer(W, H, PParams(cache_dir=None, device="cpu", tracer=tracer))
+    p_r.set_scene(p_scene)
+    stats = p_r.render_frame(p_suite_camera("bunny", p_scene))
+    out = {"primary": (t_r, t_img, p_r, p_r.update_result(), stats)}
+    radius = p_suite_ao_radius("bunny", p_scene)
+    for ray_type in ("ao", "diffuse"):
+        t_r2, t_stats, t_img2 = secondary_frames[ray_type][:3]
+        p_r2 = PRenderer(W, H, PParams(ray_type=ray_type, num_samples=SAMPLES, ao_radius=radius,
+                                       max_batch=MAX_BATCH, cache_dir=None, device="cpu",
+                                       tracer=tracer))
+        p_r2.set_scene(p_scene)
+        p_stats = p_r2.render_frame(p_suite_camera("bunny", p_scene))
+        out[ray_type] = (t_r2, t_stats, t_img2, p_r2, p_stats, p_r2.update_result())
+    return tracer, out
+
+
+def test_route_primary_frame_matches_tpu_rt(route_frames):
+    tracer, out = route_frames
+    t_r, t_img, p_r, p_img, stats = out["primary"]
+    assert stats["tracer"] == ROUTES[tracer] and stats["total_rays"] == W * H
+    _check_primary(t_r, t_img, p_r, p_img)
+
+
+@pytest.mark.parametrize("ray_type", ["ao", "diffuse"])
+def test_route_secondary_frame_matches_tpu_rt(route_frames, ray_type):
+    tracer, out = route_frames
+    _check_secondary(*out[ray_type], ray_type, ROUTES[tracer])
 
 
 def test_port_imports_no_jax():
@@ -217,6 +272,13 @@ def test_port_imports_no_jax():
         stats = ao.render_frame(Camera.for_bbox(*r.scene.bbox()))
         img = ao.update_result()
         assert img.shape == (12, 16, 4) and stats["batches"] == 2
+        import tpu_rt_torch.trace.common, tpu_rt_torch.trace.cpu_reference
+        import tpu_rt_torch.trace.flat_kernel, tpu_rt_torch.trace.wavefront
+        for tracer in ("packet", "xla"):
+            rr = Renderer(16, 12, RendererParams(ray_type="ao", num_samples=2, ao_radius=0.5,
+                                                 cache_dir=None, tracer=tracer))
+            rr.set_scene(r.scene)
+            assert rr.render_frame(Camera.for_bbox(*r.scene.bbox()))["total_rays"] > 0
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "tpu_rt"))
         print("BAD", bad)

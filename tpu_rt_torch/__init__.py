@@ -12,8 +12,10 @@ so the counterpart of every module is easy to find:
              hash-keyed build cache
     native/  the C++ SBVH builder (tpu_rt/native/sbvh.cc) via ctypes
     raygen/  primary, AO / diffuse and shadow ray generation, batching
-    trace/   the 4-wide BVH traversal, closest and any hit: CUDA kernel
-             (csrc/quad_trace.cu) and its plain PyTorch version
+    trace/   the 4-wide and binary BVH traversals, closest and any hit, with
+             optional u, v and per-ray counters: CUDA kernels
+             (csrc/quad_trace.cu, csrc/flat_trace.cu) and their plain
+             PyTorch versions; the wavefront tracer; the host oracles
     shade/   image reconstruction
     renderer.py  the frame orchestrator
 

@@ -19,16 +19,18 @@ BUILD_DIR = os.path.join(REPO_ROOT, "build", "tpu_rt_torch")
 
 
 def build_shared(name: str, sources: list[str], compile_cmd: list[str],
-                 timeout: float = 600.0) -> tuple[str, str]:
+                 timeout: float = 600.0, deps: list[str] = ()) -> tuple[str, str]:
     """Build ``lib<name>-<hash>.so`` from ``sources`` unless it exists.
 
     ``compile_cmd`` is the compiler command without sources and output; it
-    is run as ``compile_cmd + sources + ["-o", tmp]``.  Returns the library
-    path and the compiler's output ("" when the library was already built).
-    Raises ``RuntimeError`` with the compiler's output when the build fails.
+    is run as ``compile_cmd + sources + ["-o", tmp]``.  ``deps`` (headers
+    the sources include) enter the hash but not the command.  Returns the
+    library path and the compiler's output ("" when the library was already
+    built).  Raises ``RuntimeError`` with the compiler's output when the
+    build fails.
     """
     h = hashlib.blake2b(digest_size=8)
-    for src in sources:
+    for src in [*sources, *deps]:
         with open(src, "rb") as f:
             h.update(f.read())
     h.update("\0".join(compile_cmd).encode())

@@ -1,10 +1,12 @@
-// Traversal of the 4-wide BVH (QuadBVH) for NVIDIA Hopper, closest hit and
-// any hit.
+// Traversal of the 4-wide BVH (QuadBVH) for NVIDIA Hopper: closest hit and
+// any hit, each with or without the barycentrics and the per-ray counters.
 //
 // Replaces: tpu_rt/trace/packet2.py `_kernel2` in its 4-wide (`w4`) node-unit
-// form with the VPU Woop-triangle drain, want_uv=False -- the Pallas kernel
-// behind `trace_packet4` and the `packet4` routing tracer -- in its
-// closest-hit form and its any_hit=True form (packet2.py:552-567, :881-883).
+// form with the VPU Woop-triangle drain -- the Pallas kernel behind
+// `trace_packet4` and the `packet4` routing tracer -- in its closest-hit
+// form, its any_hit=True form (packet2.py:552-567, :881-883), its
+// want_uv=True form (:466-468, :568-571, :891-893, :902-904) and its
+// count_iters form (:432-433, :921-933), which here counts per ray.
 //
 // What it computes: for each ray, the nearest Woop-triangle hit (closest
 // hit) or the first accepted hit in visit order (any hit) over the QuadBVH
@@ -17,17 +19,22 @@
 //     nearest (first in visit order) hit inner child is taken;
 //   - the other hit inner children are pushed so that the nearest pops
 //     first;
-//   - any hit: the ray writes (tri, t) and returns at its first accepted
+//   - any hit: the ray writes its hit and returns at its first accepted
 //     hit, as the oracle's `done` flag and the reference's per-lane anyHit
 //     abort (kepler_dynamic_fetch.cu:376-381) do.  The Pallas kernel keeps
 //     the ray in its packet and refuses later hits instead, and orders
 //     children by a packet vote, so its occluder may differ; hit vs miss
 //     cannot.
-// The form is a template parameter with one instantiation each, so the
-// closest-hit code carries no any-hit branch.
+//   - want_uv: u, v of the accepted hit, the oracle's (collapse.py:323-326);
+//   - stats: node_tests (quad nodes visited) and tri_tests (triangles
+//     tested), as the plain version counts them.  The Pallas census counts
+//     loop iterations per grid step, a packet's; per-ray counts are the
+//     SIMT quantity.
+// The three forms are template flags (trace_common.cuh), one instantiation
+// each, so the frame forms carry no any-hit, uv or counter code.
 // With -fmad=false and no fast math, every float op below is the oracle's
-// op in the oracle's order, so (tri, t) equal the plain PyTorch version's
-// (tpu_rt_torch/trace/quad_kernel.py) bit for bit.
+// op in the oracle's order, so (tri, t, u, v) equal the plain PyTorch
+// version's (tpu_rt_torch/trace/quad_kernel.py) bit for bit.
 //
 // What bounds it: a data-dependent walk.  Each node is one 128-byte record
 // (8 float4 loads, one cache line) and each triangle one 64-byte Woop row
@@ -49,9 +56,10 @@
 //   woop [R,16] f32: cols 0..11 the Woop rows (z, u, v), col 12 the
 //     original triangle id as int32 bits.
 //   origin, dirn [N,3] f32; tmin, tmax [N] f32 (tmax < 0: skip the ray).
-// Outputs: tri [N] i32 (-1 miss), t [N] f32 (tmax where missed).
+// Outputs: tri [N] i32 (-1 miss), t [N] f32 (tmax where missed); u, v [N]
+// f32 (want_uv); node_tests, tri_tests [N] i32 (stats).
 
-#include <cuda_runtime.h>
+#include "trace_common.cuh"
 
 #ifndef STACK_SIZE
 #error "STACK_SIZE must be defined by the build (tpu_rt_torch/trace/quad_kernel.py)"
@@ -59,123 +67,42 @@
 
 namespace {
 
+using namespace tpu_rt_torch;
+
 constexpr int kSent = 0x7FFFFFFF;
 constexpr int kCountShift = 24;
 constexpr int kFirstMask = (1 << kCountShift) - 1;
-constexpr float kOoeps = 0x1p-80f;
-constexpr int kBlock = 128;
 
-// numpy/torch minimum and maximum propagate NaN; fminf/fmaxf drop it.  The
-// SENT check already skips the NaN boxes of empty slots; these keep every
-// other NaN (a degenerate box) a miss as in the oracle.
-__device__ __forceinline__ float min_nan(float a, float b) {
-    return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-__device__ __forceinline__ float max_nan(float a, float b) {
-    return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
-
-struct Ray {
-    float ox, oy, oz;
-    float dx, dy, dz;
-    float ix, iy, iz;        // 1 / d, tiny components clamped to +-2^-80
-    float oix, oiy, oiz;     // o * (1 / d)
-    float t_min;
-};
-
-__device__ __forceinline__ float safe_inv(float d) {
-    return 1.0f / (fabsf(d) > kOoeps ? d : copysignf(kOoeps, d));
-}
-
-// Slab test of one child box, as trace_quad_scalar: near = max(max over
-// axes of min(lo, hi), tmin), far = min(min over axes of max(lo, hi), t).
-__device__ __forceinline__ bool slab(const Ray& r, float hit_t,
-                                     float lox, float hix, float loy,
-                                     float hiy, float loz, float hiz) {
-    const float ax = lox * r.ix - r.oix;
-    const float bx = hix * r.ix - r.oix;
-    const float ay = loy * r.iy - r.oiy;
-    const float by = hiy * r.iy - r.oiy;
-    const float az = loz * r.iz - r.oiz;
-    const float bz = hiz * r.iz - r.oiz;
-    const float near3 = max_nan(max_nan(min_nan(ax, bx), min_nan(ay, by)), min_nan(az, bz));
-    const float far3 = min_nan(min_nan(max_nan(ax, bx), max_nan(ay, by)), max_nan(az, bz));
-    // Python's max(a, b) / min(a, b) keep `a` unless `b` compares greater /
-    // smaller, which decides the NaN cases the same way.
-    const float near = r.t_min > near3 ? r.t_min : near3;
-    const float far = hit_t < far3 ? hit_t : far3;
-    return far >= near;
-}
-
-// Test every triangle of one leaf in order; a hit must be strictly nearer.
-// The any-hit form returns true at the first accepted triangle; the
-// closest-hit form tests them all and returns false.
-template <bool kAnyHit>
-__device__ __forceinline__ bool drain(const float4* __restrict__ woop, int link,
-                                      const Ray& r, float& hit_t, int& hit_tri) {
+// Drain the leaf behind `link` = ~(first | count << 24).
+template <bool kAnyHit, bool kWantUv, bool kStats>
+__device__ __forceinline__ bool drain_leaf(const float4* __restrict__ woop, int link,
+                                           const Ray& r, Hit& h) {
     const int c = ~link;
-    const int first = c & kFirstMask;
-    const int count = (c >> kCountShift) & 0xFF;
-    for (int i = first; i < first + count; ++i) {
-        const float4* w = woop + static_cast<size_t>(i) * 4;
-        const float4 wz = w[0];
-        const float Oz = wz.w - r.ox * wz.x - r.oy * wz.y - r.oz * wz.z;
-        const float Dz = r.dx * wz.x + r.dy * wz.y + r.dz * wz.z;
-        const float inv_dz = 1.0f / Dz;
-        const float t = Oz * inv_dz;
-        if (t > r.t_min && t < hit_t) {
-            const float4 wu = w[1];
-            const float Ox = wu.w + r.ox * wu.x + r.oy * wu.y + r.oz * wu.z;
-            const float Dx = r.dx * wu.x + r.dy * wu.y + r.dz * wu.z;
-            const float u = Ox + t * Dx;
-            if (u >= 0.0f) {
-                const float4 wv = w[2];
-                const float Oy = wv.w + r.ox * wv.x + r.oy * wv.y + r.oz * wv.z;
-                const float Dy = r.dx * wv.x + r.dy * wv.y + r.dz * wv.z;
-                const float v = Oy + t * Dy;
-                if (v >= 0.0f && u + v <= 1.0f) {
-                    hit_t = t;
-                    hit_tri = __float_as_int(w[3].x);
-                    if constexpr (kAnyHit) return true;
-                }
-            }
-        }
-    }
-    return false;
+    return drain<kAnyHit, kWantUv, kStats>(woop, c & kFirstMask, (c >> kCountShift) & 0xFF, r, h);
 }
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kWantUv, bool kStats>
 __global__ void __launch_bounds__(kBlock)
 quad_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
                   const float4* __restrict__ woop,
                   const float* __restrict__ origin, const float* __restrict__ dirn,
                   const float* __restrict__ tmin, const float* __restrict__ tmax,
-                  int* __restrict__ out_tri, float* __restrict__ out_t, int n_rays) {
+                  int* __restrict__ out_tri, float* __restrict__ out_t,
+                  float* __restrict__ out_u, float* __restrict__ out_v,
+                  int* __restrict__ out_node_tests, int* __restrict__ out_tri_tests,
+                  int n_rays) {
     const int ray = blockIdx.x * blockDim.x + threadIdx.x;
     if (ray >= n_rays) return;
 
-    float hit_t = tmax[ray];
-    int hit_tri = -1;
-    if (!(hit_t < 0.0f) && n_nodes > 0) {
-        Ray r;
-        r.ox = origin[3 * ray + 0];
-        r.oy = origin[3 * ray + 1];
-        r.oz = origin[3 * ray + 2];
-        r.dx = dirn[3 * ray + 0];
-        r.dy = dirn[3 * ray + 1];
-        r.dz = dirn[3 * ray + 2];
-        r.ix = safe_inv(r.dx);
-        r.iy = safe_inv(r.dy);
-        r.iz = safe_inv(r.dz);
-        r.oix = r.ox * r.ix;
-        r.oiy = r.oy * r.iy;
-        r.oiz = r.oz * r.iz;
-        r.t_min = tmin[ray];
+    Hit h{tmax[ray], -1, 0.0f, 0.0f, 0, 0};
+    if (!(h.t < 0.0f) && n_nodes > 0) {
+        const Ray r = load_ray(origin, dirn, tmin, ray);
 
         int stack[STACK_SIZE];
         int sp = 0;
         int node = 0;
         for (;;) {
+            if constexpr (kStats) ++h.node_tests;
             const float4* rec = nodes + static_cast<size_t>(node) * 8;
             const float4 q0 = rec[0], q1 = rec[1], q2 = rec[2], q3 = rec[3];
             const float4 q4 = rec[4], q5 = rec[5], q6 = rec[6], q7 = rec[7];
@@ -185,10 +112,10 @@ quad_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
 
             // All four slab tests use the hit distance from before this
             // node's leaves are drained, as the oracle does.
-            const bool h0 = l0 != kSent && slab(r, hit_t, q0.x, q0.y, q0.z, q0.w, q1.x, q1.y);
-            const bool h1 = l1 != kSent && slab(r, hit_t, q1.z, q1.w, q2.x, q2.y, q2.z, q2.w);
-            const bool h2 = l2 != kSent && slab(r, hit_t, q3.x, q3.y, q3.z, q3.w, q4.x, q4.y);
-            const bool h3 = l3 != kSent && slab(r, hit_t, q4.z, q4.w, q5.x, q5.y, q5.z, q5.w);
+            const bool h0 = l0 != kSent && slab(r, h.t, q0.x, q0.y, q0.z, q0.w, q1.x, q1.y);
+            const bool h1 = l1 != kSent && slab(r, h.t, q1.z, q1.w, q2.x, q2.y, q2.z, q2.w);
+            const bool h2 = l2 != kSent && slab(r, h.t, q3.x, q3.y, q3.z, q3.w, q4.x, q4.y);
+            const bool h3 = l3 != kSent && slab(r, h.t, q4.z, q4.w, q5.x, q5.y, q5.z, q5.w);
 
             // Visit order: stored order if this ray's direction along the
             // hint axis is >= 0, reversed otherwise.
@@ -201,17 +128,17 @@ quad_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
 
             if constexpr (kAnyHit) {
                 // Stop at the first accepted hit: write it and return.
-                if ((v0 && k0 < 0 && drain<true>(woop, k0, r, hit_t, hit_tri)) ||
-                    (v1 && k1 < 0 && drain<true>(woop, k1, r, hit_t, hit_tri)) ||
-                    (v2 && k2 < 0 && drain<true>(woop, k2, r, hit_t, hit_tri)) ||
-                    (v3 && k3 < 0 && drain<true>(woop, k3, r, hit_t, hit_tri))) {
+                if ((v0 && k0 < 0 && drain_leaf<true, kWantUv, kStats>(woop, k0, r, h)) ||
+                    (v1 && k1 < 0 && drain_leaf<true, kWantUv, kStats>(woop, k1, r, h)) ||
+                    (v2 && k2 < 0 && drain_leaf<true, kWantUv, kStats>(woop, k2, r, h)) ||
+                    (v3 && k3 < 0 && drain_leaf<true, kWantUv, kStats>(woop, k3, r, h))) {
                     break;
                 }
             } else {
-                if (v0 && k0 < 0) drain<false>(woop, k0, r, hit_t, hit_tri);
-                if (v1 && k1 < 0) drain<false>(woop, k1, r, hit_t, hit_tri);
-                if (v2 && k2 < 0) drain<false>(woop, k2, r, hit_t, hit_tri);
-                if (v3 && k3 < 0) drain<false>(woop, k3, r, hit_t, hit_tri);
+                if (v0 && k0 < 0) drain_leaf<false, kWantUv, kStats>(woop, k0, r, h);
+                if (v1 && k1 < 0) drain_leaf<false, kWantUv, kStats>(woop, k1, r, h);
+                if (v2 && k2 < 0) drain_leaf<false, kWantUv, kStats>(woop, k2, r, h);
+                if (v3 && k3 < 0) drain_leaf<false, kWantUv, kStats>(woop, k3, r, h);
             }
 
             // Inner children: continue with the first in visit order; push
@@ -230,38 +157,34 @@ quad_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
             node = stack[--sp];
         }
     }
-    out_tri[ray] = hit_tri;
-    out_t[ray] = hit_t;
-}
-
-template <bool kAnyHit>
-void launch(const void* nodes, int n_nodes, const void* woop, const void* origin,
-            const void* dirn, const void* tmin, const void* tmax, void* out_tri,
-            void* out_t, int n_rays, cudaStream_t stream) {
-    const int grid = (n_rays + kBlock - 1) / kBlock;
-    quad_trace_kernel<kAnyHit><<<grid, kBlock, 0, stream>>>(
-        static_cast<const float4*>(nodes), n_nodes, static_cast<const float4*>(woop),
-        static_cast<const float*>(origin), static_cast<const float*>(dirn),
-        static_cast<const float*>(tmin), static_cast<const float*>(tmax),
-        static_cast<int*>(out_tri), static_cast<float*>(out_t), n_rays);
+    store_hit<kWantUv, kStats>(h, ray, out_tri, out_t, out_u, out_v, out_node_tests,
+                               out_tri_tests);
 }
 
 }  // namespace
 
-// C ABI for ctypes.  `any_hit` picks the instantiation on the host.
-// Launches on `stream` and returns cudaGetLastError().
+// C ABI for ctypes.  `any_hit`, `want_uv` and `stats` pick the instantiation
+// on the host; u, v and the counters may be null in the forms that do not
+// write them.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int quad_trace_launch(const void* nodes, int n_nodes, const void* woop,
                                  const void* origin, const void* dirn,
                                  const void* tmin, const void* tmax,
-                                 void* out_tri, void* out_t, int n_rays,
-                                 int any_hit, void* stream) {
+                                 void* out_tri, void* out_t, void* out_u, void* out_v,
+                                 void* out_node_tests, void* out_tri_tests, int n_rays,
+                                 int any_hit, int want_uv, int stats, void* stream) {
     if (n_rays > 0) {
         const cudaStream_t s = static_cast<cudaStream_t>(stream);
-        if (any_hit) {
-            launch<true>(nodes, n_nodes, woop, origin, dirn, tmin, tmax, out_tri, out_t, n_rays, s);
-        } else {
-            launch<false>(nodes, n_nodes, woop, origin, dirn, tmin, tmax, out_tri, out_t, n_rays, s);
-        }
+        const int grid = (n_rays + kBlock - 1) / kBlock;
+        dispatch_form(any_hit != 0, want_uv != 0, stats != 0, [&](auto a, auto u, auto c) {
+            quad_trace_kernel<decltype(a)::value, decltype(u)::value, decltype(c)::value>
+                <<<grid, kBlock, 0, s>>>(
+                    static_cast<const float4*>(nodes), n_nodes, static_cast<const float4*>(woop),
+                    static_cast<const float*>(origin), static_cast<const float*>(dirn),
+                    static_cast<const float*>(tmin), static_cast<const float*>(tmax),
+                    static_cast<int*>(out_tri), static_cast<float*>(out_t),
+                    static_cast<float*>(out_u), static_cast<float*>(out_v),
+                    static_cast<int*>(out_node_tests), static_cast<int*>(out_tri_tests), n_rays);
+        });
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -8,9 +8,12 @@ Trace time is kernel-only: on a CUDA device it is read from CUDA events
 recorded around each trace call and summed over the batches; on the CPU
 (tests) from the host clock around the plain version.  As in ``tpu_rt``,
 the seed is explicit and batch results are kept on the device until one
-reconstruction over the frame.  The secondary-ray sort and the dead-ray
-compaction (``sort_secondary``, ``compact_degenerate``) need
-``rays/buffer.py``, which is not ported yet (ROADMAP.md).
+reconstruction over the frame.  ``RendererParams.tracer`` picks the route
+(``tpu_rt_torch.trace.make_routing_tracer``): the 4-wide or the binary
+traversal kernel, or the wavefront tracer (``"xla"``).  The secondary-ray
+sort and the dead-ray compaction (``sort_secondary``,
+``compact_degenerate``) need ``rays/buffer.py``, which is not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from tpu_rt_torch.core.types import Hits, Rays
 from tpu_rt_torch.raygen import RayGen
 from tpu_rt_torch.scene import Camera, Scene
 from tpu_rt_torch.shade import count_hits, reconstruct_image
-from tpu_rt_torch.trace import make_routing_tracer
+from tpu_rt_torch.trace import TRACERS, make_routing_tracer
 
 RAY_TYPES = ("primary", "ao", "diffuse")
 
@@ -46,8 +49,10 @@ class RendererParams:
     max_batch: int = 1 << 21
     seed: int = 0
     cache_dir: str | None = "bvhcache"
-    # "auto": the 4-wide BVH kernel on a CUDA device, its plain PyTorch
-    # version on the CPU (tpu_rt_torch.trace.make_routing_tracer).
+    # One of TRACERS: "auto" / "packet4" the 4-wide BVH kernel, "packet"
+    # the binary one, "pallas" 4-wide then binary -- each the CUDA kernel on
+    # a CUDA device, its plain PyTorch version on the CPU -- or "xla" the
+    # wavefront tracer (tpu_rt_torch.trace.make_routing_tracer).
     tracer: str = "auto"
     device: str = "cpu"
 
@@ -69,6 +74,8 @@ class Renderer:
         p = self.params
         if p.ray_type not in RAY_TYPES:
             raise ValueError(f"ray_type {p.ray_type!r} not in {RAY_TYPES}")
+        if p.tracer not in TRACERS:
+            raise ValueError(f"tracer {p.tracer!r} not in {TRACERS}")
         if p.sort_secondary or p.compact_degenerate:
             raise NotImplementedError(
                 "sort_secondary / compact_degenerate need rays/buffer.py, which is not "

@@ -1,0 +1,209 @@
+"""Traversal of the binary BVH (FlatBVH), closest hit and any hit, each with
+or without the barycentrics and the per-ray counters: the CUDA kernel, its
+plain PyTorch version, and the device tables both read.
+
+Counterpart of the binary f32 node-unit form of the Pallas kernel
+``tpu_rt/trace/packet2.py`` ``_kernel2`` (through ``trace_packet2`` and
+``make_routing_tracer(prefer="packet")``).  Both versions here compute what
+the host oracle ``trace_flat_scalar`` (``tpu_rt_torch/trace/
+cpu_reference.py``) computes, in the same order, so their (tri, t, u, v)
+equal the oracle's bit for bit, and their ``node_tests`` / ``tri_tests``
+equal its ``RayStats.per_ray_node_tests`` / ``per_ray_tri_tests``.  For any
+hit a ray stops at its first accepted hit in the oracle's visit order, so
+the occluder is the oracle's too.  (The Pallas kernel orders a packet's
+children by a split-axis vote, so against ``trace_packet2`` only hit vs
+miss of an any-hit ray is comparable.)
+
+- ``trace_flat`` dispatches on the device of the rays: a CPU tensor takes
+  the plain version, a CUDA tensor launches the kernel
+  (``tpu_rt_torch/csrc/flat_trace.cu``) or raises.
+- ``trace_flat_plain`` is a wavefront loop over the batch in PyTorch ops:
+  each step moves every live ray by one node or one whole leaf.
+- ``upload_flat`` turns ``tpu_rt``'s or the port's FlatBVH (numpy) into
+  device tables with the same bits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpu_rt_torch.core.types import Rays
+from tpu_rt_torch.trace.common import (
+    STACK_SIZE,
+    CudaTraceKernel,
+    TraceState,
+    check_stack,
+    drain_plain,
+    safe_inv,
+    tree_depth,
+    woop_rows,
+)
+
+
+class FlatTables(NamedTuple):
+    """Device tables of one FlatBVH."""
+
+    nodes: torch.Tensor        # [N, 16] f32, cols 12..15 int32 bits
+    woop: torch.Tensor         # [max(R, 1), 16] f32, col 12 the triangle id bits
+    leaf_counts: torch.Tensor  # [R + 1] i32, the last entry the empty leaf
+    depth: int                 # inner-node levels (0 when empty)
+
+
+def upload_flat(flat, device) -> FlatTables:
+    """Device tables for a FlatBVH: the node rows and leaf counts byte for
+    byte, and the Woop rows padded to 16 floats with the original triangle
+    id in slot 12 (so no ``tri_index`` gather is needed).  The binary stack
+    holds at most one entry per level, so a tree deeper than ``STACK_SIZE``
+    raises ``StackDepthError``."""
+    nodes = np.ascontiguousarray(flat.nodes, np.float32)
+    if nodes.ndim != 2 or nodes.shape[1] != 16:
+        raise ValueError(f"flat nodes must be [N, 16], got {nodes.shape}")
+    depth = tree_depth(np.ascontiguousarray(nodes[:, 12:14]).view(np.int32))
+    check_stack(depth, depth, "binary BVH")
+    counts = np.ascontiguousarray(flat.leaf_counts, np.int32)
+    if nodes.shape[0] >= 2**31 or counts.shape[0] >= 2**31:
+        raise ValueError("flat_trace indexes nodes and leaves with int32")
+    if counts.shape[0] == 0:
+        counts = np.zeros(1, np.int32)
+    woop = woop_rows(flat.tri_woop, flat.tri_index)
+    return FlatTables(nodes=torch.tensor(nodes, device=device),
+                      woop=torch.tensor(woop, device=device),
+                      leaf_counts=torch.tensor(counts, device=device), depth=depth)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+# Columns of child 0's and child 1's (lo.x, lo.y, lo.z) and (hi.x, hi.y, hi.z).
+_LO = ((0, 2, 8), (4, 6, 10))
+_HI = ((1, 3, 9), (5, 7, 11))
+
+
+def trace_flat_plain(tables: FlatTables, rays: Rays, any_hit: bool = False,
+                     want_uv: bool = False, with_stats: bool = False):
+    """Closest hit per ray, or with ``any_hit`` the first accepted hit in
+    visit order, as ``trace_flat_scalar``, in PyTorch ops on the device of
+    ``rays``.  Every float op is the oracle's, in its order.  In each step a
+    ray at an inner node tests both children and goes to the nearer hit one
+    (pushing the other) or pops; a ray at a leaf link drains the leaf and
+    pops.  Returns what ``trace_flat`` returns."""
+    dev = rays.origin.device
+    n = rays.origin.shape[0]
+    nodes = tables.nodes.to(dev)
+    links = nodes.view(torch.int32)[:, 12:14]
+    woop = tables.woop.to(dev)
+    woop_i = woop.view(torch.int32)
+    counts = tables.leaf_counts.to(dev)
+    st = TraceState.start(rays)
+    if nodes.shape[0] == 0 or n == 0:
+        return st.result(want_uv, with_stats)
+
+    idir = safe_inv(rays.dirn)
+    ood = rays.origin * idir
+    lo_cols = torch.tensor(_LO, device=dev)
+    hi_cols = torch.tensor(_HI, device=dev)
+
+    # Live rays (ids), their current link (>= 0 inner, < 0 leaf), stack and
+    # stack pointer.
+    ids = torch.nonzero(~(rays.tmax < 0)).squeeze(1)
+    node = torch.zeros_like(ids)
+    stack = torch.zeros((ids.shape[0], STACK_SIZE), dtype=torch.int64, device=dev)
+    sp = torch.zeros_like(ids)
+    while ids.numel():
+        rows = torch.arange(ids.shape[0], device=dev)
+        pop = torch.zeros_like(ids, dtype=torch.bool)
+        at_leaf = torch.nonzero(node < 0).squeeze(1)
+
+        # Inner nodes: slab tests of both children.
+        sel = torch.nonzero(node >= 0).squeeze(1)
+        if sel.numel():
+            r = ids[sel]
+            nd = node[sel]
+            st.node_tests[r] += 1
+            box = nodes[nd]
+            ia = idir[r][:, None, :]
+            oa = ood[r][:, None, :]
+            lo = box[:, lo_cols] * ia - oa                  # [s, 2, 3]
+            hi = box[:, hi_cols] * ia - oa
+            mn = torch.minimum(lo, hi)
+            mx = torch.maximum(lo, hi)
+            near3 = torch.maximum(torch.maximum(mn[..., 0], mn[..., 1]), mn[..., 2])
+            far3 = torch.minimum(torch.minimum(mx[..., 0], mx[..., 1]), mx[..., 2])
+            t0 = rays.tmin[r][:, None]
+            ht = st.t[r][:, None]
+            near = torch.where(t0 > near3, t0, near3)
+            far = torch.where(ht < far3, ht, far3)
+            h0, h1 = (far >= near).unbind(1)
+            c0, c1 = links[nd].long().unbind(1)
+            # Both hit: the nearer entry next (c1min < c0min swaps), the
+            # other pushed; one hit: that one; none: pop.
+            both = h0 & h1
+            swap = both & (near[:, 1] < near[:, 0])
+            b = sel[both]
+            stack[b, sp[b]] = torch.where(swap, c0, c1)[both]
+            sp[b] += 1
+            node[sel] = torch.where(swap | ~h0, c1, c0)
+            pop[sel] = ~h0 & ~h1
+
+        # Rays that started the step at a leaf link: drain it, then pop.
+        sel = at_leaf
+        if sel.numel():
+            first = ~node[sel]
+            count = counts[first.clamp(max=counts.shape[0] - 1)]
+            drain_plain(woop, woop_i, first, count, ids[sel], rays, st, any_hit)
+            pop[sel] = True
+
+        can = pop & (sp > 0)
+        node = torch.where(can, stack[rows, (sp - 1).clamp(min=0)], node)
+        sp = torch.where(can, sp - 1, sp)
+        live = ~pop | can
+        if any_hit:
+            live &= st.tri[ids] < 0
+        ids, node, stack, sp = ids[live], node[live], stack[live], sp[live]
+    return st.result(want_uv, with_stats)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+class FlatTraceKernel(CudaTraceKernel):
+    """Wrapper of ``flat_trace.cu`` (see ``CudaTraceKernel``)."""
+
+    def __init__(self):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        super().__init__("flat_trace", [vp, ci, vp, vp, ci])
+
+    def __call__(self, tables: FlatTables, rays: Rays, any_hit: bool = False,
+                 want_uv: bool = False, with_stats: bool = False):
+        f32 = torch.float32
+        nc = tables.leaf_counts.shape[0]
+        checks = [("nodes", tables.nodes, f32, (tables.nodes.shape[0], 16)),
+                  ("woop", tables.woop, f32, (tables.woop.shape[0], 16)),
+                  ("leaf_counts", tables.leaf_counts, torch.int32, (nc,))]
+        args = [tables.nodes.data_ptr(), tables.nodes.shape[0], tables.woop.data_ptr(),
+                tables.leaf_counts.data_ptr(), nc]
+        return self.launch(checks, args, rays, any_hit, want_uv, with_stats)
+
+
+KERNEL = FlatTraceKernel()
+
+
+def trace_flat(tables: FlatTables, rays: Rays, any_hit: bool = False,
+               want_uv: bool = False, with_stats: bool = False):
+    """Closest hit per ray over the FlatBVH tables, or with ``any_hit`` the
+    first accepted hit in visit order; u, v with ``want_uv`` (else 0) and
+    ``(hits, {"node_tests", "tri_tests"})`` with ``with_stats``.  CPU rays
+    take the plain version; CUDA rays launch the kernel (there is no
+    fallback).  Counterpart of ``tpu_rt`` ``trace_packet2``."""
+    dev = rays.origin.device
+    if dev.type == "cpu":
+        return trace_flat_plain(tables, rays, any_hit, want_uv, with_stats)
+    if dev.type == "cuda":
+        return KERNEL(tables, rays, any_hit, want_uv, with_stats)
+    raise ValueError(f"trace_flat: unsupported device {dev}")
