@@ -6,7 +6,9 @@ and holds every kernel form against its plain PyTorch version and the host
 oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 
 1.   builds both kernels (quad_trace.cu, flat_trace.cu; one nvcc each, run
-     together) and prints ptxas' registers, stack and spills per form.
+     together; 24 + 48 forms) and prints ptxas' registers, stack and spills
+     per form; the vmem f32 frame forms must keep their registers from
+     before the layout flags.
 2-5. bunny (144,500 triangles), SBVH build, 4-wide collapse, Morton-ordered
      primary rays at 640x480, the closest-hit trace through
      ``Renderer(tracer="auto")`` (the CUDA quad kernel) and the image; the
@@ -39,6 +41,29 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      the binary kernel's, disputed rays adjudicated by the oracle.
 14.  kernel-only times of the binary kernel (bunny primary, diffuse batch,
      AO batch 1) and of the uv and stats forms of both kernels.
+15.  dragon (910,348 triangles), the large-scene path: SBVH into the shared
+     cache, quad collapses at leaf 16 and 32, table bytes, the card's L2
+     and the routing decisions at the default budget (none), at the
+     card's largest persisting-L2 set-aside and at tpu_rt's 12 MiB.
+16.  the dragon primary frame through ``Renderer(tracer="auto")`` and
+     ``Renderer(tracer="packet")`` at the default budget (vmem f32).
+17.  the dragon AO frame, 8 samples, ``suite_ao_radius``, through
+     ``Renderer(tracer="packet")``.
+18.  tpu_rt's forced large-scene forms (binary bf16 mixed, binary f32 hbm,
+     quad leaf 32 mixed) and the other layouts (bf16 vmem and hbm, f32
+     mixed, quad mixed and hbm) through ``make_routing_tracer``, each a
+     path of its own on the same rays (launch counts set to 0 just
+     before it): every form (frame, uv and stats, closest and any hit)
+     against its plain version on every ray of the primary frame and AO
+     batch 1, ``t`` bit-equal across forms and trees, hit / miss equal to
+     the AO frame's; against ``trace_flat_scalar`` on 8,192 rays of each
+     (tri disputes only at exact-``t`` ties, adjudicated with the
+     triangle's own Woop test) and the quad forms against
+     ``trace_quad_scalar``.
+19.  kernel times of every dragon form, in two passes (the second in
+     reverse order, the persisting L2 released after each form), and of
+     the plain versions, and the census (node and triangle tests per ray,
+     f32 against bf16, warp efficiency).
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
@@ -46,8 +71,12 @@ it builds the kernels from the sources in the checkout, and the renderers
 share one BVH cache under the git-ignored ``build/``.  Any failed phase ends
 the run with a nonzero exit and no result line.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel
-form with its launches on the main paths, its largest deviation from the
-plain version, and both versions' times.
+form with the path it was counted on and its launches in that path's run,
+its largest deviation from the plain version, both versions' times, and
+its bound: the larger of the operations its node and triangle tests need
+over the f32 peak and the table rows its rays read, rays and hits over the
+memory rate (``bound``).  No single PyTorch
+call computes a BVH traversal, so ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -68,6 +97,7 @@ import torch
 WIDTH, HEIGHT = 640, 480
 SCENE = "bunny"
 SECONDARY_SCENE = "conference"
+DRAGON = "dragon"             # the large-scene path (tools/bench_suite.py FULLFRAME_TARGETS)
 AO_SAMPLES = 8
 AO_MAX_BATCH = 1 << 21        # the Renderer's default: 2 AO batches at 640x480
 WARMUP, REPEATS = 2, 5        # as bench.py: BENCH_WARMUP / BENCH_REPEATS
@@ -134,22 +164,39 @@ def strided(n: int, dev) -> torch.Tensor:
     return torch.arange(0, n, max(n // ORACLE_RAYS, 1), device=dev)[:ORACLE_RAYS]
 
 
-def ptxas_forms(log: str) -> list[str]:
-    """One line per compiled kernel form: registers, stack and spills."""
-    out, name, stack = [], None, ""
+# ptxas of the vmem f32 frame forms before the layout flags: the residency and
+# node-format flags must leave their code as it was.
+PTXAS_VMEM_F32 = {"quad_trace<any=0,uv=0,stats=0>": (53, 256),
+                  "quad_trace<any=1,uv=0,stats=0>": (48, 256),
+                  "flat_trace<any=0,uv=0,stats=0>": (32, 256),
+                  "flat_trace<any=1,uv=0,stats=0>": (36, 256)}
+
+
+def ptxas_forms(log: str) -> list[tuple[str, int, int, str]]:
+    """One entry per compiled kernel form: (name, registers, stack bytes,
+    the line to print).  The name is the kernel, its three form flags, then
+    the layout: "@" + residency (+ "-bf16"), nothing for vmem f32."""
+    out, name, stack, stack_b = [], None, "", 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            flags = re.search(r"([a-z]+_trace)_kernelILb([01])ELb([01])ELb([01])E", m.group(1))
-            name = (f"{flags.group(1)}<any={flags.group(2)},uv={flags.group(3)},"
-                    f"stats={flags.group(4)}>") if flags else m.group(1)
+            flags = re.search(r"([a-z]+_trace)_kernelI((?:Lb[01]E)+)E", m.group(1))
+            if flags:
+                b = [int(x) for x in re.findall(r"Lb([01])E", flags.group(2))]
+                bf16 = len(b) == 6 and b[3] == 1
+                res = ("hbm" if b[-2] else "mixed") if b[-1] else "vmem"
+                lay = "" if res == "vmem" and not bf16 else f"@{res}" + ("-bf16" if bf16 else "")
+                name = f"{flags.group(1)}<any={b[0]},uv={b[1]},stats={b[2]}>{lay}"
+            else:
+                name = m.group(1)
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if m:
             stack = f"{m.group(1)} B stack, spills {m.group(2)}/{m.group(3)} B"
+            stack_b = int(m.group(1)) + int(m.group(2)) + int(m.group(3))
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            out.append(f"{name}: {m.group(1)} registers, {stack}")
+            out.append((name, int(m.group(1)), stack_b, f"{name}: {m.group(1)} registers, {stack}"))
             name = None
     return out
 
@@ -158,9 +205,11 @@ def against_plain(kernel, plain, tables, rays, any_hit, frame_tri, what):
     """The kernel's frame form against its plain version on every ray (tri
     equal, t bit-equal), and a repeat launch against the frame's own hits.
     The plain version runs in its full form (u, v and counters), which the
-    uv and stats phases reuse.  Returns (largest |t| deviation, plain)."""
+    uv and stats phases reuse, and records the table rows it reads (for
+    ``bound``).  Returns (largest |t| deviation, plain, rows read)."""
     got = kernel(tables, rays, any_hit=any_hit)
-    want, counts = plain(tables, rays, any_hit, True, True)
+    seen = {}
+    want, counts = plain(tables, rays, any_hit, True, True, visited=seen)
     torch.cuda.synchronize()
     tri_bad = int((got.tri != want.tri).sum())
     t_bad = bits_differ(got.t, want.t)
@@ -171,7 +220,7 @@ def against_plain(kernel, plain, tables, rays, any_hit, frame_tri, what):
           "tri mismatches (tolerance: tri equal, t bit-equal)")
     check(tri_bad == 0 and t_bad == 0, f"{what}: kernel differs from the plain version")
     check(frame_bad == 0, f"{what}: repeat trace differs from the frame's")
-    return max_abs_err, (want, counts)
+    return max_abs_err, (want, counts), seen
 
 
 def against_oracle(kernel, tables, oracle, sub, any_hit, what, stats=None):
@@ -272,8 +321,8 @@ def bunny_primary(t0, kernel, dev):
     # 3. Kernel vs plain PyTorch version on every ray of the frame.
     rays = renderer.primary.rays
     tri = renderer.primary.hits.tri
-    max_abs_err, full = against_plain(kernel, quad_kernel.trace_quad_plain, tables, rays, False,
-                                      tri, "bunny primary")
+    max_abs_err, full, seen = against_plain(kernel, quad_kernel.trace_quad_plain, tables, rays,
+                                            False, tri, "bunny primary")
     phase("kernel == plain", t0)
 
     # 4. Strided subset against the host oracle trace_quad_scalar.
@@ -299,10 +348,11 @@ def bunny_primary(t0, kernel, dev):
           f"Mray/s at best; plain ms {[round(x, 2) for x in p_ms]} median {median(p_ms):.2f} "
           f"-> {WIDTH * HEIGHT / (median(p_ms) * 1e3):.2f} Mray/s")
     phase("bunny timed", t0)
-    entry = {"launches": counts["closest"], "max_abs_err": max_abs_err,
+    entry = {"path": f"{SCENE} primary frame, Renderer(tracer='auto')",
+             "launches": counts["closest"], "max_abs_err": max_abs_err,
              "ms": median(k_ms), "plain_ms": median(p_ms)}
     ctx = {"scene": scene, "camera": camera, "renderer": renderer, "image": image,
-           "idx": idx, "quad": quad, "quad_oracle": oracle, "plain": full}
+           "idx": idx, "quad": quad, "quad_oracle": oracle, "plain": full, "seen": seen}
     return entry, ctx
 
 
@@ -362,8 +412,8 @@ def conference(t0, kernel, dev):
     lo, hi = b1.input_range
     check(lo == 0 and b1.rays.num == (hi - lo) * AO_SAMPLES == per_batch * AO_SAMPLES,
           "AO batch 1 shape")
-    any_err, b1_plain = against_plain(kernel, plain, tables, b1.rays, True, b1.hits.tri,
-                                      "AO batch 1")
+    any_err, b1_plain, b1_seen = against_plain(kernel, plain, tables, b1.rays, True, b1.hits.tri,
+                                               "AO batch 1")
     quad = load_or_collapse_quad(ao.flat, leaf_max=MAX_LEAF4, cache_dir=CACHE)
     n_px = ORACLE_RAYS // AO_SAMPLES
     slots = torch.arange(0, hi, hi // n_px, device=dev)[:n_px]
@@ -397,7 +447,8 @@ def conference(t0, kernel, dev):
     check(stats_d["total_rays"] == hits, "diffuse Mray/s numerator")
     check_image(image_d, "diffuse")
     bd = dif._batches[0]
-    dif_err, _ = against_plain(kernel, plain, tables, bd.rays, False, bd.hits.tri, "diffuse batch")
+    dif_err, _, _ = against_plain(kernel, plain, tables, bd.rays, False, bd.hits.tri,
+                                  "diffuse batch")
     d_idx = strided(bd.rays.num, dev)
     against_oracle(kernel, tables, partial(trace_quad_scalar, quad),
                    subset(bd.rays, d_idx), False, "diffuse batch")
@@ -417,11 +468,13 @@ def conference(t0, kernel, dev):
     timing_line("closest-hit kernel, diffuse batch", k_dif, bd.rays, hits)
     timing_line("plain any-hit, AO batch 1", p_b1, b1.rays, b1_live)
     phase("conference timed", t0)
-    anyhit = {"launches": ao_counts["any"], "max_abs_err": any_err,
+    anyhit = {"path": f"{SECONDARY_SCENE} AO frame, Renderer(tracer='auto')",
+              "launches": ao_counts["any"], "max_abs_err": any_err,
               "ms": median(k_b1), "plain_ms": median(p_b1)}
-    closest = {"launches": ao_counts["closest"] + counts_d["closest"], "max_abs_err": dif_err}
+    closest = {"max_abs_err": dif_err}
     ctx = {"scene": scene, "camera": camera, "radius": radius, "ao": ao, "dif": dif,
            "b1_idx": b1_idx, "d_idx": d_idx, "b1_plain": b1_plain, "b1_oracle": b1_oracle,
+           "b1_seen": b1_seen,
            "occluded": occluded / live, "occluded_n": occluded,
            "b1_live": b1_live, "hits": hits}
     return anyhit, closest, ctx
@@ -450,8 +503,8 @@ def binary_bunny(t0, flat_k, quad_k, bctx):
           "the two renderers' primary rays differ")
     phase("binary bunny main path done", t0)
 
-    err, full = against_plain(flat_k, flat_kernel.trace_flat_plain, tables, rays, False, hits.tri,
-                              "binary bunny primary")
+    err, full, seen = against_plain(flat_k, flat_kernel.trace_flat_plain, tables, rays, False,
+                                    hits.tri, "binary bunny primary")
     st = RayStats()
     flat = r.flat
     oracle = against_oracle(flat_k, tables,
@@ -472,8 +525,9 @@ def binary_bunny(t0, flat_k, quad_k, bctx):
     check(t_bad == 0, "binary and quad t differ")
     check(img_px <= tie_px, "binary and quad images differ off the tie pixels")
     phase("binary kernel == plain, oracle, quad", t0)
-    entry = {"launches": counts["closest"], "max_abs_err": err}
-    return entry, {"renderer": r, "plain": full, "oracle": oracle, "stats": st}
+    entry = {"path": f"{SCENE} primary frame, Renderer(tracer='packet')",
+             "launches": counts["closest"], "max_abs_err": err}
+    return entry, {"renderer": r, "plain": full, "oracle": oracle, "stats": st, "seen": seen}
 
 
 def binary_conference(t0, flat_k, quad_k, cctx):
@@ -511,8 +565,8 @@ def binary_conference(t0, flat_k, quad_k, cctx):
     check(p_t_bad == 0, "binary and quad primary t differ")
     phase("binary conference AO frame done", t0)
 
-    any_err, full = against_plain(flat_k, plain, tables, b1.rays, True, b1.hits.tri,
-                                  "binary AO batch 1")
+    any_err, full, seen = against_plain(flat_k, plain, tables, b1.rays, True, b1.hits.tri,
+                                        "binary AO batch 1")
     st = RayStats()
     flat = ao.flat
     oracle = against_oracle(flat_k, tables, partial(trace_flat_scalar, flat),
@@ -540,14 +594,16 @@ def binary_conference(t0, flat_k, quad_k, cctx):
           f"binary diffuse frame launched {counts_d}")
     check_image(image_d, "binary diffuse")
     bd = dif._batches[0]
-    dif_err, _ = against_plain(flat_k, plain, tables, bd.rays, False, bd.hits.tri,
-                               "binary diffuse batch")
+    dif_err, _, _ = against_plain(flat_k, plain, tables, bd.rays, False, bd.hits.tri,
+                                  "binary diffuse batch")
     against_oracle(flat_k, tables, partial(trace_flat_scalar, flat),
                    subset(bd.rays, cctx["d_idx"]), False, "binary diffuse batch")
     phase("binary diffuse frame, closest-hit kernel == plain, oracle", t0)
-    anyhit = {"launches": counts["any"], "max_abs_err": any_err}
-    closest = {"launches": counts["closest"] + counts_d["closest"], "max_abs_err": dif_err}
-    return anyhit, closest, {"ao": ao, "dif": dif, "plain": full, "oracle": oracle, "stats": st}
+    anyhit = {"path": f"{SECONDARY_SCENE} AO frame, Renderer(tracer='packet')",
+              "launches": counts["any"], "max_abs_err": any_err}
+    closest = {"max_abs_err": dif_err}
+    return anyhit, closest, {"ao": ao, "dif": dif, "plain": full, "oracle": oracle, "stats": st,
+                             "seen": seen}
 
 
 def warp_efficiency(work: torch.Tensor) -> float:
@@ -591,8 +647,7 @@ def uv_and_stats(t0, quad_k, flat_k, bctx, fb, cctx, fc):
                ("quad", conf, True): (cctx["b1_oracle"], None),
                ("flat", bunny, False): (fb["oracle"], fb["stats"]),
                ("flat", conf, True): (fc["oracle"], fc["stats"])}
-    out = {name: {"uv_launches": 0, "stats_launches": 0, "uv_err": 0.0, "stats_err": 0.0}
-           for name, *_ in kernels}
+    out = {name: {"uv_err": 0.0, "stats_err": 0.0} for name, *_ in kernels}
     census = []
     for label, ray_sets, idx, flat, uv_any, stats_any in cases:
         for name, kern, prefer, plain in kernels:
@@ -612,9 +667,13 @@ def uv_and_stats(t0, quad_k, flat_k, bctx, fb, cctx, fc):
             want_counts = {form_name(a, not st, st): 1 for a, st, _ in got}
             print(f"{label}, {name}: launches {counts}")
             check(counts == want_counts, f"{label} {name} launched {counts}, want {want_counts}")
+            if label == bunny:
+                # The kernels line's uv and stats entries: this run's counts.
+                for what in ("uv", "stats"):
+                    out[name][f"{what}_launches"] = sum(v for k, v in counts.items()
+                                                        if f"_{what}" in k)
             for a, st, res in got:
                 what = "stats" if st else "uv"
-                out[name][f"{what}_launches"] += 1
                 hits, cnt = res if st else (res, None)
                 key = (name, label, a)
                 if key not in plains:
@@ -753,6 +812,499 @@ def binary_timing(t0, quad_k, flat_k, bctx, fb, cctx, fc):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-19: the large-scene path on dragon
+# ---------------------------------------------------------------------------
+
+# Operations per slab test of one child box (6 mul, 6 sub, 10 min/max,
+# 3 compares) and per Woop triangle test (the part every test runs: Oz and
+# Dz, 1 / Dz, t, two compares), and per ray (1 / d, o / d); the operation
+# term of a kernel's bound counts these for this run's node and triangle
+# tests (the plain version's counters).
+SLAB_OPS, WOOP_OPS, RAY_OPS = 25, 15, 6
+PEAK_F32_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
+PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+RAY_IN_BYTES, HIT_OUT_BYTES = 32, 8
+
+
+def bound(what, tables, rays, counts, seen, boxes, want_uv=False, with_stats=False):
+    """The least time of one trace (ms) and what bounds it: the larger of
+    the operations its node and triangle tests need over the f32 peak, and
+    the bytes it must move over the memory rate: each table row that this
+    run's rays read (``seen``, the plain version's ``visited`` masks), once,
+    plus rays in and hits out.  Prints both terms."""
+    nt = float(counts["node_tests"].double().sum())
+    tt = float(counts["tri_tests"].double().sum())
+    ops = nt * boxes * SLAB_OPS + tt * WOOP_OPS + rays.num * RAY_OPS
+    rows = {}
+    for name, mask in seen.items():
+        x = getattr(tables, name)
+        rows[name] = (int(mask.sum()), mask.numel(),
+                      x.element_size() * (x.shape[1] if x.dim() > 1 else 1))
+    table_b = sum(r * b for r, _, b in rows.values())
+    out_b = HIT_OUT_BYTES + (8 if want_uv else 0) + (8 if with_stats else 0)
+    nbytes = table_b + rays.num * (RAY_IN_BYTES + out_b)
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    print(f"bound {what}: rows read " + ", ".join(f"{k} {r} of {n} ({r * b} B)"
+                                                  for k, (r, n, b) in rows.items())
+          + f"; {nbytes} B in all -> {t_bytes:.6f} ms; {ops:.6g} operations -> {t_ops:.6f} ms")
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes
+            else "bytes"}
+
+
+def woop_hit(flat, tri, o, d, tmin, tmax):
+    """(t, accepted) of triangle ``tri`` along each ray, in the kernels' f32
+    ops and order (trace_common.cuh ``drain``)."""
+    tri_index = np.asarray(flat.tri_index)
+    rows = np.array([np.flatnonzero(tri_index == i)[0] for i in tri], np.int64)
+    w = np.asarray(flat.tri_woop, np.float32)[rows]
+    oz = w[:, 3] - o[:, 0] * w[:, 0] - o[:, 1] * w[:, 1] - o[:, 2] * w[:, 2]
+    dz = d[:, 0] * w[:, 0] + d[:, 1] * w[:, 1] + d[:, 2] * w[:, 2]
+    t = oz * (np.float32(1.0) / dz)
+    ox = w[:, 7] + o[:, 0] * w[:, 4] + o[:, 1] * w[:, 5] + o[:, 2] * w[:, 6]
+    dx = d[:, 0] * w[:, 4] + d[:, 1] * w[:, 5] + d[:, 2] * w[:, 6]
+    oy = w[:, 11] + o[:, 0] * w[:, 8] + o[:, 1] * w[:, 9] + o[:, 2] * w[:, 10]
+    dy = d[:, 0] * w[:, 8] + d[:, 1] * w[:, 9] + d[:, 2] * w[:, 10]
+    u, v = ox + t * dx, oy + t * dy
+    return t, (t > tmin) & (t < tmax) & (u >= 0) & (v >= 0) & (u + v <= 1.0)
+
+
+def adjudicate(flat, sub_np, got_tri, got_t, s_id, s_t, what):
+    """A closest-hit result against the oracle's on a subset: t bit-equal
+    on every ray; where tri differs, the result's own triangle must be hit
+    at exactly the oracle's t (an exact-t tie).  Returns the tie count."""
+    t_bad = np_bits_differ(got_t, s_t)
+    ids = np.nonzero(got_tri != s_id)[0]
+    wrong = 0
+    if ids.size:
+        o, d, tmin, tmax = (x[ids] for x in sub_np)
+        both = (got_tri[ids] >= 0) & (s_id[ids] >= 0)
+        tt, ok = woop_hit(flat, np.maximum(got_tri[ids], 0), o, d, tmin, tmax)
+        tie = both & ok & (tt.view(np.int32) == np.asarray(s_t[ids], np.float32).view(np.int32))
+        wrong = int((~tie).sum())
+        for i, j in enumerate(ids):
+            print(f"  {what}: disputed ray {j}: tri {got_tri[j]} (its own t {tt[i]}) against the "
+                  f"oracle's {s_id[j]} at t {s_t[j]}: {'exact-t tie' if tie[i] else 'WRONG'}")
+    print(f"{what}: vs trace_flat_scalar on {len(s_id)} rays: t bit mismatches {t_bad}, tri "
+          f"disputes {ids.size}, of them not an exact-t tie {wrong}")
+    check(t_bad == 0 and wrong == 0, f"{what}: differs from the oracle beyond exact-t ties")
+    return ids.size
+
+
+def replaces(kernel: str, residency: str, bf16_nodes: bool, any_hit: bool) -> str:
+    """The ``replaces`` field of a form of this slice: the TPU kernel's lines
+    of its node unit, its residency and, for the binary kernel, bf16 nodes."""
+    unit = ("4-wide node unit :618-679, trace_packet4 :1168-1175" if kernel == "quad_trace"
+            else "bf16 node unit :680-703 on pack_tables2 :238-255" if bf16_nodes
+            else "binary f32 node unit :704-770")
+    res = "" if residency == "vmem" else f", {residency} residency :501-515, :906-944"
+    return f"{PACKET2} ({unit}{res}{', any_hit=True :552-567' if any_hit else ''})"
+
+
+def dragon_setup(t0, quad_k, flat_k, dev):
+    """Phase 15: the dragon scene, its BVH (built once into the shared
+    cache), both quad collapses, table bytes, the card's L2 and the routing
+    decisions at the default budget (none), at the card's largest
+    persisting-L2 set-aside and at tpu_rt's 12 MiB."""
+    from tpu_rt_torch.bvh import BuildParams, Platform, load_or_build_bvh, load_or_collapse_quad
+    from tpu_rt_torch.scene import Scene, procedural
+    from tpu_rt_torch.trace import choose_node_format, quad_policy
+    from tpu_rt_torch.trace.common import tree_depth
+    from tpu_rt_torch.trace.tables import (
+        BF16_NODE_BYTES,
+        FLAT_NODE_BYTES,
+        QUAD_NODE_BYTES,
+        TABLE_BUDGET,
+        VMEM_TABLE_BUDGET,
+        WOOP_ROW_BYTES,
+        quad_residency,
+    )
+
+    t1 = time.perf_counter()
+    scene = Scene(procedural.scene_by_name(DRAGON))
+    mesh_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    flat, bstats = load_or_build_bvh(scene, Platform.gpu(), BuildParams(), cache_dir=CACHE)
+    sbvh_s = time.perf_counter() - t1
+    quads, collapse_s = {}, {}
+    for leaf in (16, 32):
+        t1 = time.perf_counter()
+        quads[leaf] = load_or_collapse_quad(flat, leaf_max=leaf, cache_dir=CACHE)
+        collapse_s[leaf] = time.perf_counter() - t1
+    n, r = flat.nodes.shape[0], flat.tri_woop.shape[0]
+    depth = tree_depth(np.ascontiguousarray(flat.nodes[:, 12:14]).view(np.int32))
+    q_depth = {k: tree_depth(np.ascontiguousarray(q.nodes[:, 24:28]).view(np.int32))
+               for k, q in quads.items()}
+    print(f"scene: {DRAGON} {scene.num_triangles} tris, {scene.num_vertices} vertices; mesh "
+          f"{mesh_s:.2f} s, SBVH {sbvh_s:.2f} s, collapse leaf 16 {collapse_s[16]:.2f} s, leaf 32 "
+          f"{collapse_s[32]:.2f} s")
+    print(f"bvh: binary {n} nodes, depth {depth}, {bstats.num_duplicates} duplicates; quad leaf 16 "
+          f"{quads[16].nodes.shape[0]} nodes, depth {q_depth[16]}; quad leaf 32 "
+          f"{quads[32].nodes.shape[0]} nodes, depth {q_depth[32]}")
+    sizes = {"binary f32 nodes": n * FLAT_NODE_BYTES, "binary bf16 nodes": n * BF16_NODE_BYTES,
+             "woop rows": r * WOOP_ROW_BYTES,
+             "quad nodes leaf 16": quads[16].nodes.shape[0] * QUAD_NODE_BYTES,
+             "quad nodes leaf 32": quads[32].nodes.shape[0] * QUAD_NODE_BYTES,
+             "quad woop rows leaf 16": quads[16].tri_woop.shape[0] * WOOP_ROW_BYTES,
+             "quad woop rows leaf 32": quads[32].tri_woop.shape[0] * WOOP_ROW_BYTES}
+    print("table bytes: " + ", ".join(f"{k} {v} ({v / 1e6:.2f} MB)" for k, v in sizes.items()))
+    check(scene.num_triangles == 910_348, "dragon triangle count")
+    l2 = flat_k.l2_info(dev)
+    print(f"L2: {l2['l2_bytes']} B, largest persisting set-aside {l2['max_persisting_l2']} B, "
+          f"largest access-policy window {l2['max_window']} B")
+    decisions = {}
+    for label, budget in (("default", TABLE_BUDGET), ("L2 set-aside", l2["max_persisting_l2"]),
+                          ("tpu_rt 12 MiB", VMEM_TABLE_BUDGET)):
+        res, bf16 = choose_node_format(flat, budget)
+        leaf = quad_policy(flat, CACHE, budget)
+        q = quads[leaf]
+        qres = quad_residency(q.nodes.shape[0] * QUAD_NODE_BYTES,
+                              max(q.tri_woop.shape[0], 1) * WOOP_ROW_BYTES, budget)
+        decisions[label] = {"binary": (res, bf16), "quad": (leaf, qres)}
+        print(f"routing at {label} ({budget} B): packet -> {res} {'bf16' if bf16 else 'f32'} "
+              f"nodes; auto -> quad leaf {leaf} {qres}")
+    check(decisions["default"] == {"binary": ("vmem", False), "quad": (16, "vmem")},
+          "the default budget must keep dragon on the vmem f32 forms")
+    check(decisions["tpu_rt 12 MiB"] == {"binary": ("mixed", True), "quad": (32, "mixed")},
+          "at 12 MiB the policy must give tpu_rt's dragon targets")
+    phase("dragon set-up done", t0)
+    return {"scene": scene, "flat": flat, "quads": quads, "decisions": decisions,
+            "sizes": sizes, "l2": l2}
+
+
+def tree_of(tables) -> str:
+    from tpu_rt_torch.trace import FlatTables
+
+    if isinstance(tables, FlatTables):
+        return "binary bf16" if tables.bf16_nodes else "binary f32"
+    return f"quad {tables.nodes.shape[0]} nodes"
+
+
+def kernel_of(tables, quad_k, flat_k):
+    from tpu_rt_torch.trace import FlatTables
+
+    return flat_k if isinstance(tables, FlatTables) else quad_k
+
+
+def layout_key(tables) -> str:
+    from tpu_rt_torch.trace.common import layout_name
+
+    return layout_name(tables.residency, getattr(tables, "bf16_nodes", False))
+
+
+def dragon_frames(t0, quad_k, flat_k, dev, dctx):
+    """Phases 16-18: the dragon primary frame through Renderer("auto") and
+    Renderer("packet") at the default budget, the AO frame through
+    Renderer("packet"), and tpu_rt's forced large-scene forms on the same
+    rays through make_routing_tracer, each its own path; every form against
+    its plain version on every ray, against the oracles on 8,192 rays, and
+    t across forms."""
+    from tpu_rt_torch.bench.workload import suite_ao_radius, suite_camera
+    from tpu_rt_torch.bvh.collapse import trace_quad_scalar
+    from tpu_rt_torch.renderer import Renderer, RendererParams
+    from tpu_rt_torch.trace import (
+        VMEM_TABLE_BUDGET,
+        flat_kernel,
+        make_routing_tracer,
+        quad_kernel,
+        release_persisting_l2,
+        trace_flat_scalar,
+    )
+
+    scene, flat, dec = dctx["scene"], dctx["flat"], dctx["decisions"]["default"]
+    camera = suite_camera(DRAGON, scene)
+    res, bf16 = dec["binary"]
+    leaf, qres = dec["quad"]
+    want_packet = "flat-cuda" + ("" if res == "vmem" else f"-{res}") + ("-bf16" if bf16 else "")
+    want_auto = "quad-cuda" + ("" if qres == "vmem" else f"-{qres}")
+
+    # 16. The primary frame through the user's entry points, default budget.
+    frames = {}
+    for prefer, kern, idle, want in (("auto", quad_k, flat_k, want_auto),
+                                     ("packet", flat_k, quad_k, want_packet)):
+        r = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE, tracer=prefer))
+        r.set_scene(scene)
+        stats, image, counts, wall = render(r, camera, kern, idle=idle)
+        hit_frac = frame_line(f"{DRAGON} primary frame, tracer={prefer!r}", r, stats, counts, wall)
+        check(stats["tracer"] == want, f"{prefer} tracer is {stats['tracer']}, want {want}")
+        key = "closest" + layout_key(r.tracer_tables)
+        check(counts == {key: 1}, f"dragon {prefer} frame launched {counts}, want {{{key}: 1}}")
+        check_image(image, f"dragon {prefer} primary")
+        check(0.05 < hit_frac < 0.95, f"hit fraction {hit_frac}")
+        frames[prefer] = {"renderer": r, "image": image, "counts": counts}
+    if isinstance(frames["auto"]["renderer"].tracer_tables, quad_kernel.QuadTables):
+        check(frames["auto"]["renderer"].tracer_tables.nodes.shape[0]
+              == dctx["quads"][leaf].nodes.shape[0], "auto's quad tree is not the policy's")
+    rays = frames["packet"]["renderer"].primary.rays
+    check(all(torch.equal(a, b) for a, b in zip(rays, frames["auto"]["renderer"].primary.rays)),
+          "the two renderers' primary rays differ")
+    phase("dragon primary frames done", t0)
+
+    # 17. The AO frame, 8 samples, through Renderer("packet").
+    radius = suite_ao_radius(DRAGON, scene)
+    ao = Renderer(WIDTH, HEIGHT, RendererParams(
+        ray_type="ao", num_samples=AO_SAMPLES, ao_radius=radius, max_batch=AO_MAX_BATCH,
+        cache_dir=CACHE, device=DEVICE, tracer="packet"))
+    ao.set_scene(scene)
+    stats, ao_image, ao_counts, wall = render(ao, camera, flat_k, idle=quad_k)
+    frame_line(f"{DRAGON} AO frame (radius {radius:.4f}), tracer='packet'", ao, stats, ao_counts,
+               wall)
+    lay = layout_key(ao.tracer_tables)
+    check(ao_counts == {"closest" + lay: 1, "any" + lay: stats["batches"]},
+          f"dragon AO frame launched {ao_counts}")
+    check_image(ao_image, "dragon AO")
+    live = sum(int((b.rays.tmax >= 0).sum()) for b in ao._batches)
+    occluded = sum(int(((b.rays.tmax >= 0) & (b.hits.tri >= 0)).sum()) for b in ao._batches)
+    check(bits_differ(ao.primary.hits.t, frames["packet"]["renderer"].primary.hits.t) == 0,
+          "AO primary pre-trace differs from the primary frame")
+    print(f"dragon AO: live AO rays {live}, occluded {occluded} ({occluded / max(live, 1):.4f})")
+    phase("dragon AO frame done", t0)
+
+    # 18a. The default routes' tables, then tpu_rt's forced large-scene
+    # forms (FULLFRAME_TARGETS) and the other layouts through
+    # make_routing_tracer, on the same primary rays and AO batches.
+    defaults = {"auto (default)": "auto", "packet (default)": "packet"}
+    configs = [
+        ("auto (default)", frames["auto"]["renderer"].routing,
+         frames["auto"]["renderer"].tracer_tables, want_auto),
+        ("packet (default)", frames["packet"]["renderer"].routing,
+         frames["packet"]["renderer"].tracer_tables, want_packet),
+    ]
+    forced = (("packet at 12 MiB", "packet", {"budget_bytes": VMEM_TABLE_BUDGET},
+               "flat-cuda-mixed-bf16"),
+              ("auto at 12 MiB", "auto", {"budget_bytes": VMEM_TABLE_BUDGET}, "quad-cuda-mixed"),
+              ("packet hbm f32", "packet", {"residency": "hbm", "bf16_nodes": False},
+               "flat-cuda-hbm"),
+              ("packet vmem bf16", "packet", {"residency": "vmem", "bf16_nodes": True},
+               "flat-cuda-bf16"),
+              ("packet hbm bf16", "packet", {"residency": "hbm", "bf16_nodes": True},
+               "flat-cuda-hbm-bf16"),
+              ("packet mixed f32", "packet", {"residency": "mixed", "bf16_nodes": False},
+               "flat-cuda-mixed"),
+              ("packet4 hbm", "packet4", {"residency": "hbm"}, "quad-cuda-hbm"),
+              ("packet4 mixed", "packet4", {"residency": "mixed"}, "quad-cuda-mixed"))
+    for label, prefer, kw, want in forced:
+        fn, kind, tables = make_routing_tracer(flat, prefer=prefer, device=dev, cache_dir=CACHE,
+                                               **kw)
+        check(kind == want, f"{label}: kind {kind}, want {want}")
+        configs.append((label, fn, tables, kind))
+    for label, _, tables, kind in configs:
+        if tables.residency == "mixed":
+            kern = kernel_of(tables, quad_k, flat_k)
+            table_b = tables.nodes.numel() * tables.nodes.element_size()
+            window, set_aside = kern.l2_window(table_b, dev)
+            print(f"{label} ({kind}): L2 window {window} B over a node table of {table_b} B "
+                  f"(clipped: {window < table_b}), persisting set-aside {set_aside} B, hitRatio "
+                  f"{min(1.0, set_aside / window):.4f}")
+    # Each forced form is a path of its own: the primary frame's rays
+    # (closest hit) and every AO batch (any hit), launch counts set to 0
+    # just before and read just after.  The default routes' primary frames
+    # were counted in phase 16; here they trace the AO batches.
+    got, runs = {}, {}
+    for label, fn, tables, kind in configs:
+        kern = kernel_of(tables, quad_k, flat_k)
+        for k in (quad_k, flat_k):
+            k.reset_counts()
+        closest = fn(tables, rays) if label not in defaults else None
+        anyhit = [fn(tables, b.rays, any_hit=True) for b in ao._batches]
+        torch.cuda.synchronize()
+        release_persisting_l2()
+        got[label] = (closest, anyhit)
+        runs[label] = {k: v for k, v in kern.launches_by_form.items() if v}
+        lay_c = layout_key(tables)
+        want = {"any" + lay_c: len(ao._batches), **({} if closest is None
+                                                    else {"closest" + lay_c: 1})}
+        print(f"{label} ({kind}): launches {runs[label]}")
+        check(runs[label] == want and (quad_k if kern is flat_k else flat_k).launches == 0,
+              f"{label}: launched {runs[label]}, want {want}")
+    phase("dragon forced forms traced", t0)
+
+    # 18b. Every form against its plain version: the frame form (closest,
+    # primary) and the uv and stats forms on every ray; the any-hit form on
+    # every ray of AO batch 1; t across forms and trees; hit / miss against
+    # the AO frame's own.
+    b1 = ao._batches[0]
+    plains, err = {}, {}
+    ref = None
+    for label, fn, tables, kind in configs:
+        tree = tree_of(tables)
+        kern = kernel_of(tables, quad_k, flat_k)
+        plain = (flat_kernel.trace_flat_plain if kern is flat_k else quad_kernel.trace_quad_plain)
+        if tree not in plains:
+            t1 = time.perf_counter()
+            seen = {"closest": {}, "any": {}}
+            plains[tree] = {"closest": plain(tables, rays, False, True, True,
+                                             visited=seen["closest"]),
+                            "any": plain(tables, b1.rays, True, True, True, visited=seen["any"]),
+                            "tables": tables, "plain": plain, "seen": seen}
+            torch.cuda.synchronize()
+            print(f"plain {tree}: closest on {rays.num} + any on {b1.rays.num} rays in "
+                  f"{time.perf_counter() - t1:.1f} s")
+        want, want_cnt = plains[tree]["closest"]
+        if ref is None:
+            ref = want
+        closest = got[label][0] if got[label][0] is not None else (
+            frames[defaults[label]]["renderer"].primary.hits)
+        uv = kern(tables, rays, False, True, False)
+        hits_s, cnt = kern(tables, rays, False, False, True)
+        anyb1 = got[label][1][0]
+        want_a, _ = plains[tree]["any"]
+        torch.cuda.synchronize()
+        release_persisting_l2()
+        bad = {"tri": int((closest.tri != want.tri).sum()), "t": bits_differ(closest.t, want.t),
+               "uv_tri": int((uv.tri != want.tri).sum()), "u": bits_differ(uv.u, want.u),
+               "v": bits_differ(uv.v, want.v), "stats_t": bits_differ(hits_s.t, want.t),
+               "node_tests": int((cnt["node_tests"] != want_cnt["node_tests"]).sum()),
+               "tri_tests": int((cnt["tri_tests"] != want_cnt["tri_tests"]).sum()),
+               "any_tri": int((anyb1.tri != want_a.tri).sum()),
+               "any_t": bits_differ(anyb1.t, want_a.t),
+               "t_vs_binary_f32": bits_differ(closest.t, ref.t),
+               "hit_miss_vs_ao_frame": sum(int(((a.tri >= 0) != (b.hits.tri >= 0)).sum())
+                                           for a, b in zip(got[label][1], ao._batches))}
+        err[label] = max(float((closest.t - want.t).abs().max()),
+                         float((anyb1.t - want_a.t).abs().max()))
+        print(f"{label} ({kind}, {tree}): vs plain on {rays.num} primary + {b1.rays.num} AO rays: "
+              f"mismatches {bad}")
+        check(not any(bad.values()), f"{label}: differs from its plain version or the f32 t")
+    phase("dragon forms == plain on every ray", t0)
+
+    # 18c. The oracles on 8,192 strided primary rays and on 8,192 rays of
+    # AO batch 1: t bit-equal for every form; tri equal for the binary f32
+    # forms, and at worst an exact-t tie for bf16 and quad forms; any hit:
+    # hit / miss equal, and the binary f32 forms' occluder the oracle's.
+    idx = strided(rays.num, dev)
+    sub = subset(rays, idx)
+    sub_np = [x.cpu().numpy() for x in sub]
+    t1 = time.perf_counter()
+    s_id, s_t, _, _ = trace_flat_scalar(flat, *sub_np)
+    a_idx = strided(b1.rays.num, dev)
+    a_sub_np = [x.cpu().numpy() for x in subset(b1.rays, a_idx)]
+    a_id, _, _, _ = trace_flat_scalar(flat, *a_sub_np, any_hit=True)
+    print(f"trace_flat_scalar on {len(s_id)} primary + {len(a_id)} AO rays: "
+          f"{time.perf_counter() - t1:.1f} s on the host; primary hit fraction "
+          f"{float(np.mean(s_id >= 0)):.4f}, AO occluded {float(np.mean(a_id >= 0)):.4f}")
+    ties = {}
+    q_oracles = {}
+    for label, fn, tables, kind in configs:
+        closest = got[label][0] if got[label][0] is not None else (
+            frames[defaults[label]]["renderer"].primary.hits)
+        k_tri, k_t = closest.tri[idx].cpu().numpy(), closest.t[idx].cpu().numpy()
+        ties[label] = adjudicate(flat, sub_np, k_tri, k_t, s_id, s_t, f"{label} ({kind})")
+        a_tri = got[label][1][0].tri[a_idx].cpu().numpy()
+        hm_bad = int(((a_tri >= 0) != (a_id >= 0)).sum())
+        occ_bad = int((a_tri != a_id).sum()) if tree_of(tables) == "binary f32" else 0
+        print(f"{label} ({kind}) any hit vs trace_flat_scalar(any_hit=True) on {len(a_id)} rays: "
+              f"hit / miss mismatches {hm_bad}, occluder mismatches (binary f32 forms) {occ_bad}")
+        check(hm_bad == 0 and occ_bad == 0, f"{label}: any hit differs from the oracle")
+        if isinstance(tables, quad_kernel.QuadTables):
+            # The quad forms against the quad oracle on their own tree:
+            # tri and t bit-equal.
+            n_q = tables.nodes.shape[0]
+            if n_q not in q_oracles:
+                q = next(q for q in dctx["quads"].values() if q.nodes.shape[0] == n_q)
+                t1 = time.perf_counter()
+                q_oracles[n_q] = trace_quad_scalar(q, *sub_np)
+                print(f"trace_quad_scalar (quad {n_q} nodes) on {len(s_id)} rays: "
+                      f"{time.perf_counter() - t1:.1f} s on the host")
+            qs = q_oracles[n_q]
+            q_bad = int((k_tri != qs[0]).sum()) + np_bits_differ(k_t, qs[1])
+            print(f"{label} ({kind}) vs trace_quad_scalar on its tree: mismatches {q_bad}")
+            check(q_bad == 0, f"{label}: differs from trace_quad_scalar")
+    phase("dragon forms == oracles", t0)
+    return {"rays": rays, "ao": ao, "b1": b1, "configs": configs, "plains": plains, "err": err,
+            "runs": runs, "frames": frames, "ties": ties, "live": live, "occluded": occluded}
+
+
+def dragon_timing(t0, quad_k, flat_k, dctx, fctx):
+    """Phase 19: kernel times of every dragon form (closest hit on the
+    primary frame, any hit on AO batch 1), its plain version's, and the
+    census: node and triangle tests per ray and warp efficiency.  The forms
+    are timed in two passes, the second in reverse order, and the
+    persisting L2 is released after each form, so that no form runs in
+    another's set-aside; a form's time is the median over both passes."""
+    from tpu_rt_torch.trace import release_persisting_l2
+
+    rays, b1 = fctx["rays"], fctx["b1"]
+    b1_live = int((b1.rays.tmax >= 0).sum())
+    configs = fctx["configs"]
+    samples = {label: ([], []) for label, *_ in configs}
+    passes = {}
+    for n_pass, seq in enumerate((configs, configs[::-1]), 1):
+        for label, fn, tables, kind in seq:
+            k_c = time_ms(lambda: fn(tables, rays), WARMUP, REPEATS)
+            k_a = time_ms(lambda: fn(tables, b1.rays, any_hit=True), WARMUP, REPEATS)
+            release_persisting_l2()
+            timing_line(f"dragon pass {n_pass} {label} ({kind}) closest hit, primary", k_c, rays)
+            timing_line(f"dragon pass {n_pass} {label} ({kind}) any hit, AO batch 1", k_a,
+                        b1.rays, b1_live)
+            samples[label][0].extend(k_c)
+            samples[label][1].extend(k_a)
+            passes[(label, n_pass)] = (median(k_c), median(k_a))
+    times = {label: (median(c), median(a)) for label, (c, a) in samples.items()}
+    for label, _, _, kind in configs:
+        print(f"dragon A/B {label} ({kind}): primary ms pass 1 {passes[(label, 1)][0]:.4f} pass 2 "
+              f"{passes[(label, 2)][0]:.4f}; AO batch 1 ms pass 1 {passes[(label, 1)][1]:.4f} "
+              f"pass 2 {passes[(label, 2)][1]:.4f}")
+    plain_ms = {}
+    for tree, p in fctx["plains"].items():
+        p_c = time_ms(lambda: p["plain"](p["tables"], rays), PLAIN_WARMUP, PLAIN_REPEATS)
+        p_a = time_ms(lambda: p["plain"](p["tables"], b1.rays, any_hit=True), PLAIN_WARMUP,
+                      PLAIN_REPEATS)
+        timing_line(f"dragon plain {tree} closest hit, primary", p_c, rays)
+        timing_line(f"dragon plain {tree} any hit, AO batch 1", p_a, b1.rays, b1_live)
+        plain_ms[tree] = (median(p_c), median(p_a))
+    for tree, p in fctx["plains"].items():
+        parts = []
+        for what, (_, cnt) in (("primary", p["closest"]), ("AO batch 1", p["any"])):
+            nt, tt = cnt["node_tests"], cnt["tri_tests"]
+            parts.append(f"{what}: node_tests/ray {float(nt.float().mean()):.3f}, tri_tests/ray "
+                         f"{float(tt.float().mean()):.3f}, warp efficiency "
+                         f"{warp_efficiency(nt + tt):.4f}")
+        print(f"census, dragon, {tree}: " + "; ".join(parts))
+    phase("dragon timed", t0)
+    return times, plain_ms
+
+
+def dragon_entries(quad_k, flat_k, fctx, times, plain_ms):
+    """The kernels-line entries of the forms this slice added: each layout's
+    closest-hit and any-hit frame forms, timed on the dragon primary frame
+    and AO batch 1, with the launches of the first path that ran the form
+    (its own run, counts set to 0 just before it)."""
+    entries, seen = [], set()
+    rays, b1 = fctx["rays"], fctx["b1"]
+    for label, fn, tables, kind in fctx["configs"]:
+        lay = layout_key(tables)
+        if not lay:
+            continue    # vmem f32: the earlier slices' forms, listed with their scenes
+        kern = kernel_of(tables, quad_k, flat_k)
+        tree = tree_of(tables)
+        boxes = 2 if kern is flat_k else 4
+        for any_hit in (False, True):
+            form = ("any" if any_hit else "closest") + lay
+            # One entry per form: the first config of that form gives its
+            # path, launches and times.
+            name = f"{kern.name}{'_anyhit' if any_hit else ''}{lay}"
+            if name in seen:
+                continue
+            seen.add(name)
+            r = b1.rays if any_hit else rays
+            which = "any" if any_hit else "closest"
+            _, cnt = fctx["plains"][tree][which]
+            entries.append({
+                "name": name, "route": "cuda", "source": f"tpu_rt_torch/csrc/{kern.name}.cu",
+                "replaces": replaces(kern.name, tables.residency,
+                                     getattr(tables, "bf16_nodes", False), any_hit),
+                "path": f"{DRAGON} primary frame and AO batches, {label} ({kind})",
+                "launches": fctx["runs"][label].get(form, 0),
+                "max_abs_err": fctx["err"][label],
+                "ms": times[label][1 if any_hit else 0],
+                "plain_ms": plain_ms[tree][1 if any_hit else 0],
+                **bound(name, tables, r, cnt, fctx["plains"][tree]["seen"][which], boxes),
+                "library_ms": None,
+            })
+    return entries
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -771,10 +1323,16 @@ def main() -> None:
     kernel, flat_k = quad_kernel.KERNEL, flat_kernel.KERNEL
     with ThreadPoolExecutor(2) as pool:
         list(pool.map(lambda k: k.load(), (kernel, flat_k)))
+    built = {}
     for k in (kernel, flat_k):
         print(f"build: {k.name}.cu in {k.build_s:.2f} s")
-        for ln in ptxas_forms(k.build_log):
+        for name, regs, stack_b, ln in ptxas_forms(k.build_log):
             print(f"  ptxas {ln}")
+            built[name] = (regs, stack_b)
+    check(len(built) == 72, f"{len(built)} kernel forms compiled, want 24 quad + 48 binary")
+    for name, want in PTXAS_VMEM_F32.items():
+        check(built.get(name) == want, f"ptxas {name}: {built.get(name)} (registers, stack + "
+              f"spill bytes), want {want} as before the layout flags")
     phase("kernels built", t0)
 
     closest, bctx = bunny_primary(t0, kernel, dev)
@@ -784,20 +1342,46 @@ def main() -> None:
     forms = uv_and_stats(t0, kernel, flat_k, bctx, fb, cctx, fc)
     xla_route(t0, fb, bctx)
     times = binary_timing(t0, kernel, flat_k, bctx, fb, cctx, fc)
+    dctx = dragon_setup(t0, kernel, flat_k, dev)
+    fctx = dragon_frames(t0, kernel, flat_k, dev, dctx)
+    d_times, d_plain = dragon_timing(t0, kernel, flat_k, dctx, fctx)
+    d_entries = dragon_entries(kernel, flat_k, fctx, d_times, d_plain)
+
+    # The bound of each earlier entry, on the rays it was timed on, from
+    # the plain version's counters on those rays.
+    b_rays, b_quad = bctx["renderer"].primary.rays, bctx["renderer"].tracer_tables
+    b_flat, ao_b1 = fb["renderer"].tracer_tables, cctx["ao"]._batches[0].rays
+    f_b1_rays = fc["ao"]._batches[0].rays
+    bounds = {"quad": bound("quad_trace", b_quad, b_rays, bctx["plain"][1], bctx["seen"], 4),
+              "quad_any": bound("quad_trace_anyhit", cctx["ao"].tracer_tables, ao_b1,
+                                cctx["b1_plain"][1], cctx["b1_seen"], 4),
+              "flat": bound("flat_trace", b_flat, b_rays, fb["plain"][1], fb["seen"], 2),
+              "flat_any": bound("flat_trace_anyhit", fc["ao"].tracer_tables, f_b1_rays,
+                                fc["plain"][1], fc["seen"], 2)}
 
     def form_entries(name, src, base):
         f = forms[name]
+        tables, counts, seen, boxes = ((b_quad, bctx["plain"][1], bctx["seen"], 4) if name == "quad"
+                                       else (b_flat, fb["plain"][1], fb["seen"], 2))
+        prefer = "packet4" if name == "quad" else "packet"
         return [{
             "name": f"{base}_uv", "route": "cuda", "source": src,
             "replaces": f"{PACKET2} (want_uv=True, :466-468, :568-571, :891-893, :902-904)",
+            "path": f"{SCENE} primary rays, make_routing_tracer({prefer!r}, want_uv=True), "
+                    "closest and any hit",
             "launches": f["uv_launches"], "max_abs_err": f["uv_err"],
             "ms": times[(name, False, True, False)], "plain_ms": times[(name, "plain", True, False)],
+            **bound(f"{base}_uv", tables, b_rays, counts, seen, boxes, want_uv=True),
+            "library_ms": None,
         }, {
             "name": f"{base}_stats", "route": "cuda", "source": src,
             "replaces": f"{PACKET2} (count_iters, :432-433, :921-933, :1006-1011, :1034-1036)",
+            "path": f"{SCENE} primary rays, make_routing_tracer({prefer!r}), with_stats=True",
             "launches": f["stats_launches"], "max_abs_err": f["stats_err"],
             "ms": times[(name, False, False, True)],
             "plain_ms": times[(name, "plain", False, True)],
+            **bound(f"{base}_stats", tables, b_rays, counts, seen, boxes, with_stats=True),
+            "library_ms": None,
         }]
 
     quad_src, flat_src = "tpu_rt_torch/csrc/quad_trace.cu", "tpu_rt_torch/csrc/flat_trace.cu"
@@ -808,25 +1392,30 @@ def main() -> None:
         "route": "cuda",
         "source": quad_src,
         "replaces": PACKET2,
-        "launches": closest["launches"] + closest_secondary["launches"],
+        "path": closest["path"],
+        "launches": closest["launches"],
         "max_abs_err": max(closest["max_abs_err"], closest_secondary["max_abs_err"]),
         "ms": closest["ms"],
         "plain_ms": closest["plain_ms"],
+        **bounds["quad"], "library_ms": None,
     }, {
         "name": "quad_trace_anyhit",
         "route": "cuda",
         "source": quad_src,
         "replaces": f"{PACKET2} (any_hit=True, :552-567, :881-883)",
         **anyhit,
+        **bounds["quad_any"], "library_ms": None,
     }, *form_entries("quad", quad_src, "quad_trace"), {
         "name": "flat_trace",
         "route": "cuda",
         "source": flat_src,
         "replaces": f"{PACKET2} (binary f32 node unit :704-770, via trace_packet2 :1052)",
-        "launches": f_closest["launches"] + f_closest_secondary["launches"],
+        "path": f_closest["path"],
+        "launches": f_closest["launches"],
         "max_abs_err": max(f_closest["max_abs_err"], f_closest_secondary["max_abs_err"]),
         "ms": f_bunny[0],
         "plain_ms": f_bunny[1],
+        **bounds["flat"], "library_ms": None,
     }, {
         "name": "flat_trace_anyhit",
         "route": "cuda",
@@ -835,7 +1424,8 @@ def main() -> None:
         **f_anyhit,
         "ms": f_b1[0],
         "plain_ms": f_b1[1],
-    }, *form_entries("flat", flat_src, "flat_trace")]}))
+        **bounds["flat_any"], "library_ms": None,
+    }, *form_entries("flat", flat_src, "flat_trace"), *d_entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -105,8 +105,8 @@ def test_plain_equals_flat_oracle(setup, any_hit):
     o, d, tmin, tmax = _rays(scene, 1200, seed=21)
     st = RayStats()
     s_id, s_t, s_u, s_v = trace_flat_scalar(flat, o, d, tmin, tmax, any_hit=any_hit, stats=st)
-    hits, counts = trace_flat_plain(tables, make_rays(o, d, tmin, tmax), any_hit=any_hit,
-                                    want_uv=True, with_stats=True)
+    hits, counts = trace_flat_plain(tables, make_rays(o, d, tmin, tmax, device="cpu"),
+                                    any_hit=any_hit, want_uv=True, with_stats=True)
     # tri (for any hit: the same occluder), t, u and v bit-equal; the
     # counters count what RayStats counts.
     np.testing.assert_array_equal(hits.tri.numpy(), s_id)
@@ -119,7 +119,7 @@ def test_plain_equals_flat_oracle(setup, any_hit):
     assert np.all(hits.tri.numpy()[dead] == -1) and not counts["node_tests"].numpy()[dead].any()
     assert 0.1 < np.mean(s_id >= 0) < 0.95
     # The frame form returns the same (tri, t) and u = v = 0.
-    frame = trace_flat_plain(tables, make_rays(o, d, tmin, tmax), any_hit=any_hit)
+    frame = trace_flat_plain(tables, make_rays(o, d, tmin, tmax, device="cpu"), any_hit=any_hit)
     assert torch.equal(frame.tri, hits.tri) and torch.equal(frame.t, hits.t)
     assert not frame.u.any() and not frame.v.any()
 
@@ -130,7 +130,7 @@ def test_plain_matches_packet2_kernel(setup, any_hit):
     o, d, tmin, tmax = _rays(scene, 700, seed=22)
     want = trace_packet2(flat, t_make_rays(o, d, tmin, tmax), any_hit=any_hit, interpret=True,
                          tile=512, k=2)
-    got = trace_flat_plain(tables, make_rays(o, d, tmin, tmax), any_hit=any_hit)
+    got = trace_flat_plain(tables, make_rays(o, d, tmin, tmax, device="cpu"), any_hit=any_hit)
     want_tri = np.asarray(want.tri)
     if any_hit:
         # The packet kernel orders children by a split-axis vote, so only
@@ -205,8 +205,8 @@ def test_deep_tree_refused_and_traced():
     for any_hit in (False, True):
         st = RayStats()
         s_id, s_t, _, _ = trace_flat_scalar(flat, o, d, tmin, tmax, any_hit=any_hit, stats=st)
-        hits, counts = trace_flat_plain(tables, make_rays(o, d, tmin, tmax), any_hit=any_hit,
-                                        with_stats=True)
+        hits, counts = trace_flat_plain(tables, make_rays(o, d, tmin, tmax, device="cpu"),
+                                        any_hit=any_hit, with_stats=True)
         np.testing.assert_array_equal(hits.tri.numpy(), s_id)
         np.testing.assert_array_equal(_bits(hits.t.numpy()), _bits(s_t))
         np.testing.assert_array_equal(counts["node_tests"].numpy(), st.per_ray_node_tests)
@@ -226,10 +226,10 @@ def test_auto_falls_to_binary_only_for_a_deep_quad_tree():
     flat, _ = _chain_flat(STACK_SIZE, per_leaf=9)
     for prefer in ("auto", "pallas"):
         with pytest.warns(RuntimeWarning, match="flat-plain"):
-            fn, kind, tables = make_routing_tracer(flat, prefer=prefer)
+            fn, kind, tables = make_routing_tracer(flat, prefer=prefer, device="cpu")
         assert kind == "flat-plain" and fn.func is trace_flat and tables.depth == STACK_SIZE
     with pytest.raises(StackDepthError, match="quad"):
-        make_routing_tracer(flat, prefer="packet4")
+        make_routing_tracer(flat, prefer="packet4", device="cpu")
     # A tree neither stack holds raises: "auto" never falls to the
     # wavefront, whose stack is no deeper.
     deep, _ = _chain_flat(STACK_SIZE + 1, per_leaf=9)
@@ -237,7 +237,7 @@ def test_auto_falls_to_binary_only_for_a_deep_quad_tree():
         warnings.simplefilter("ignore", RuntimeWarning)
         for prefer in TRACERS:
             with pytest.raises(StackDepthError):
-                make_routing_tracer(deep, prefer=prefer)
+                make_routing_tracer(deep, prefer=prefer, device="cpu")
 
 
 def test_empty_tree_and_degenerate_rays():
@@ -245,7 +245,7 @@ def test_empty_tree_and_degenerate_rays():
                     tri_index=np.zeros(0, np.int32), leaf_counts=np.zeros(1, np.int32))
     tables = upload_flat(empty, "cpu")
     assert tables.depth == 0 and tables.woop.shape == (1, 16)
-    rays = make_rays(np.zeros((3, 3)), np.ones((3, 3)), np.zeros(3), [1.0, 2.0, -1.0])
+    rays = make_rays(np.zeros((3, 3)), np.ones((3, 3)), np.zeros(3), [1.0, 2.0, -1.0], device="cpu")
     for any_hit in (False, True):
         hits, counts = trace_flat_plain(tables, rays, any_hit=any_hit, want_uv=True,
                                         with_stats=True)
@@ -271,7 +271,7 @@ def test_port_flat_uploads_alike():
 def test_cpu_dispatch_and_routing(setup):
     scene, flat, tables = setup
     o, d, tmin, tmax = _rays(scene, 64, seed=25)
-    rays = make_rays(o, d, tmin, tmax)
+    rays = make_rays(o, d, tmin, tmax, device="cpu")
     before = flat_kernel.KERNEL.launches, quad_kernel.KERNEL.launches
     fn, kind, routed = make_routing_tracer(flat, prefer="packet", device="cpu", want_uv=True)
     assert kind == "flat-plain" and fn.func is trace_flat
@@ -290,4 +290,19 @@ def test_cpu_dispatch_and_routing(setup):
         with pytest.raises(ValueError, match="CUDA"):
             flat_kernel.KERNEL(tables, rays, any_hit=any_hit)
     with pytest.raises(ValueError, match="unknown tracer"):
-        make_routing_tracer(flat, prefer="bvh8")
+        make_routing_tracer(flat, prefer="bvh8", device="cpu")
+
+
+def test_upload_bf16_records(setup):
+    # bf16 tables: the node records of tables.pack_bf16_nodes, the same
+    # Woop rows, leaf counts and depth as the f32 tables.
+    from tpu_rt_torch.trace.tables import pack_bf16_nodes
+
+    _, flat, f32 = setup
+    for residency in ("vmem", "mixed", "hbm"):
+        t = upload_flat(flat, "cpu", residency=residency, bf16_nodes=True)
+        assert (t.residency, t.bf16_nodes, t.depth) == (residency, True, f32.depth)
+        assert t.nodes.dtype == torch.int32 and t.nodes.shape == (flat.nodes.shape[0], 8)
+        np.testing.assert_array_equal(t.nodes.numpy(), pack_bf16_nodes(flat.nodes))
+        assert torch.equal(t.woop.view(torch.int32), f32.woop.view(torch.int32))
+        assert torch.equal(t.leaf_counts, f32.leaf_counts)

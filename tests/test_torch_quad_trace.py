@@ -59,7 +59,7 @@ def test_plain_equals_quad_oracle(setup):
     d[:40] = np.array([0.0, -0.0, -1.0], np.float32)
     d[40:80] = np.array([-0.0, 1.0, 0.0], np.float32)
     s_id, s_t, _, _ = trace_quad_scalar(quad, o, d, tmin, tmax)
-    hits = trace_quad_plain(tables, make_rays(o, d, tmin, tmax))
+    hits = trace_quad_plain(tables, make_rays(o, d, tmin, tmax, device="cpu"))
     np.testing.assert_array_equal(hits.tri.numpy(), s_id)
     np.testing.assert_array_equal(hits.t.numpy().view(np.int32), s_t.view(np.int32))
     assert np.all(hits.tri.numpy()[::7] == -1)
@@ -87,7 +87,7 @@ def test_plain_any_hit_equals_quad_oracle(setup):
     scene, _, quad, tables = setup
     o, d, tmin, tmax = _any_hit_rays(scene, 1200, seed=13)
     s_id, s_t, _, _ = trace_quad_scalar(quad, o, d, tmin, tmax, any_hit=True)
-    hits = trace_quad_plain(tables, make_rays(o, d, tmin, tmax), any_hit=True)
+    hits = trace_quad_plain(tables, make_rays(o, d, tmin, tmax, device="cpu"), any_hit=True)
     # The first accepted hit in the oracle's visit order: tri equal (which
     # occluder, too) and t bit-equal.
     np.testing.assert_array_equal(hits.tri.numpy(), s_id)
@@ -106,7 +106,7 @@ def test_plain_any_hit_matches_packet4_kernel(setup):
     o, d, tmin, tmax = _any_hit_rays(scene, 1000, seed=14)
     want = trace_packet4(quad, t_make_rays(o, d, tmin, tmax), any_hit=True, interpret=True,
                          tile=512, k=2)
-    got = trace_quad_plain(tables, make_rays(o, d, tmin, tmax), any_hit=True)
+    got = trace_quad_plain(tables, make_rays(o, d, tmin, tmax, device="cpu"), any_hit=True)
     # The packet kernel orders children by a packet vote, so only hit vs
     # miss is held equal (as tests/test_pallas.py holds it).
     np.testing.assert_array_equal(got.tri.numpy() >= 0, np.asarray(want.tri) >= 0)
@@ -117,7 +117,7 @@ def test_plain_matches_packet4_kernel(setup):
     o, d, tmin, tmax = _rays(scene, 600, seed=11)
     want = trace_packet4(quad, t_make_rays(o, d, tmin, tmax), interpret=True,
                          tile=512, k=2)
-    got = trace_quad_plain(tables, make_rays(o, d, tmin, tmax))
+    got = trace_quad_plain(tables, make_rays(o, d, tmin, tmax, device="cpu"))
     want_tri = np.asarray(want.tri)
     np.testing.assert_array_equal(got.tri.numpy(), want_tri)
     hit = want_tri >= 0
@@ -130,7 +130,7 @@ def test_plain_uv_and_counters(setup, any_hit):
     scene, _, quad, tables = setup
     o, d, tmin, tmax = _any_hit_rays(scene, 1000, seed=15)
     s_id, s_t, s_u, s_v = trace_quad_scalar(quad, o, d, tmin, tmax, any_hit=any_hit)
-    rays = make_rays(o, d, tmin, tmax)
+    rays = make_rays(o, d, tmin, tmax, device="cpu")
     hits, counts = trace_quad_plain(tables, rays, any_hit=any_hit, want_uv=True,
                                     with_stats=True)
     # u, v of the accepted hit bit-equal to the oracle's, as t is.
@@ -164,7 +164,7 @@ def test_plain_uv_matches_packet4_kernel(setup):
     o, d, tmin, tmax = _rays(scene, 600, seed=16)
     want = trace_packet4(quad, t_make_rays(o, d, tmin, tmax), interpret=True, tile=512, k=2,
                          want_uv=True)
-    got = trace_quad_plain(tables, make_rays(o, d, tmin, tmax), want_uv=True)
+    got = trace_quad_plain(tables, make_rays(o, d, tmin, tmax, device="cpu"), want_uv=True)
     want_tri = np.asarray(want.tri)
     np.testing.assert_array_equal(got.tri.numpy(), want_tri)
     hit = want_tri >= 0
@@ -207,7 +207,7 @@ def test_upload_depth_check():
 def test_cpu_dispatch_and_routing(setup):
     scene, flat, quad, tables = setup
     o, d, tmin, tmax = _rays(scene, 64, seed=12)
-    rays = make_rays(o, d, tmin, tmax)
+    rays = make_rays(o, d, tmin, tmax, device="cpu")
     before = quad_kernel.KERNEL.launches
     fn, kind, routed = make_routing_tracer(flat, device="cpu")
     assert kind == "quad-plain" and fn.func is trace_quad
@@ -221,11 +221,11 @@ def test_cpu_dispatch_and_routing(setup):
     # The binary kernel and the wavefront run and name their route.
     for prefer, want_kind in (("packet", "flat-plain"), ("xla", "wavefront"),
                               ("pallas", "quad-plain"), ("packet4", "quad-plain")):
-        fn2, kind2, tables2 = make_routing_tracer(flat, prefer=prefer)
+        fn2, kind2, tables2 = make_routing_tracer(flat, prefer=prefer, device="cpu")
         assert kind2 == want_kind
         assert torch.equal(fn2(tables2, rays).tri, a.tri)
     with pytest.raises(ValueError, match="unknown tracer"):
-        make_routing_tracer(flat, prefer="packet8")
+        make_routing_tracer(flat, prefer="packet8", device="cpu")
     with pytest.raises(ValueError):
         quad_kernel.KERNEL(tables, rays)
     with pytest.raises(ValueError):
@@ -237,8 +237,26 @@ def test_empty_tree_misses():
                              "tri_woop": np.zeros((0, 12), np.float32),
                              "tri_index": np.zeros(0, np.int32)})()
     tables = upload_quad(quad, "cpu")
-    rays = make_rays(np.zeros((3, 3)), np.ones((3, 3)), np.zeros(3), [1.0, 2.0, -1.0])
+    rays = make_rays(np.zeros((3, 3)), np.ones((3, 3)), np.zeros(3), [1.0, 2.0, -1.0], device="cpu")
     for any_hit in (False, True):
         hits = trace_quad_plain(tables, rays, any_hit=any_hit)
         assert hits.tri.tolist() == [-1, -1, -1]
         assert hits.t.tolist() == [1.0, 2.0, -1.0]
+
+
+@pytest.mark.parametrize("residency", ["mixed", "hbm"])
+def test_wide_leaves_plain_equals_quad_oracle(setup, residency):
+    # The large-scene collapse (quad_policy's 32-wide leaves) in a streamed
+    # residency: the plain version still equals tpu_rt's oracle on that
+    # tree bit for bit, closest and any hit.
+    scene, flat, _, _ = setup
+    quad = collapse4(flat, leaf_max=32)
+    tables = upload_quad(quad, "cpu", residency=residency)
+    assert tables.residency == residency
+    o, d, tmin, tmax = _rays(scene, 800, seed=14)
+    for any_hit in (False, True):
+        s_id, s_t, _, _ = trace_quad_scalar(quad, o, d, tmin, tmax, any_hit=any_hit)
+        hits = trace_quad_plain(tables, make_rays(o, d, tmin, tmax, device="cpu"), any_hit=any_hit)
+        np.testing.assert_array_equal(hits.tri.numpy(), s_id)
+        np.testing.assert_array_equal(hits.t.numpy().view(np.int32),
+                                      np.asarray(s_t, np.float32).view(np.int32))

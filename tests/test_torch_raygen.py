@@ -60,7 +60,8 @@ def test_gen_primary_rays_matches(cameras, framing, size, atol):
 
 def test_pad_rays_marks_padding_degenerate():
     rng = np.random.default_rng(0)
-    rays = make_rays(rng.normal(size=(5, 3)), rng.normal(size=(5, 3)), np.zeros(5), np.ones(5))
+    rays = make_rays(rng.normal(size=(5, 3)), rng.normal(size=(5, 3)), np.zeros(5), np.ones(5),
+                     device="cpu")
     padded, n = pad_rays(rays, 4)
     assert n == 5 and padded.num == 8
     assert padded.tmax[5:].tolist() == [-1.0] * 3
@@ -180,7 +181,7 @@ def test_raygen_ao_batching_matches(max_rays, n, n_batches):
     o, d, t, tri, nrm = _hits(n, 40, seed=9)
     zeros = np.zeros(n, np.float32)
     t_rays = t_make_rays(o, d, zeros, t)
-    p_rays = make_rays(o, d, zeros, t)
+    p_rays = make_rays(o, d, zeros, t, device="cpu")
     t_hits = THits(tri=tri, t=t, u=zeros, v=zeros)
     p_hits = Hits(*_torch(tri, t, zeros, zeros))
     t_gen, p_gen = TRayGen(max_rays), PRayGen(max_rays)

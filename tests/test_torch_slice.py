@@ -185,7 +185,7 @@ def test_empty_scene_frame_is_background(ray_type):
     from tpu_rt_torch.scene.objio import Mesh
     from tpu_rt_torch.shade.reconstruct import BG_COLOR
 
-    r = PRenderer(8, 6, PParams(ray_type=ray_type, num_samples=2, cache_dir=None))
+    r = PRenderer(8, 6, PParams(ray_type=ray_type, num_samples=2, cache_dir=None, device="cpu"))
     r.set_mesh(Mesh(np.zeros((0, 3), np.float32), None, None, [], []))
     stats = r.render_frame(Camera.for_bbox(np.zeros(3), np.ones(3)))
     assert stats["total_rays"] == (48 if ray_type == "primary" else 0)
@@ -197,17 +197,18 @@ def test_secondary_ray_types_not_ported():
     # not ported; they raise instead of being ignored.
     for flag in ("sort_secondary", "compact_degenerate"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PRenderer(8, 8, PParams(ray_type="ao", **{flag: True}))
+            PRenderer(8, 8, PParams(ray_type="ao", **{flag: True}, device="cpu"))
     with pytest.raises(ValueError):
-        PRenderer(8, 8, PParams(ray_type="shadow"))
+        PRenderer(8, 8, PParams(ray_type="shadow", device="cpu"))
     with pytest.raises(ValueError, match="tracer"):
-        PRenderer(8, 8, PParams(tracer="bvh8"))
+        PRenderer(8, 8, PParams(tracer="bvh8", device="cpu"))
     # Every tracer route runs and names itself.
     images = {}
     for tracer, kind in (("auto", "quad-plain"), ("packet4", "quad-plain"),
                          ("pallas", "quad-plain"), ("packet", "flat-plain"),
                          ("xla", "wavefront")):
-        r = PRenderer(8, 8, PParams(ray_type="diffuse", tracer=tracer, cache_dir=None))
+        r = PRenderer(8, 8, PParams(ray_type="diffuse", tracer=tracer, cache_dir=None,
+                                    device="cpu"))
         r.set_mesh(p_proc.make_blob(200, seed=3))
         stats = r.render_frame(p_suite_camera("bunny", r.scene))
         assert stats["tracer"] == r.active_tracer == kind
@@ -261,13 +262,13 @@ def test_port_imports_no_jax():
         import tpu_rt_torch
         from tpu_rt_torch.renderer import Renderer, RendererParams
         from tpu_rt_torch.scene import Camera, procedural
-        r = Renderer(16, 12, RendererParams(cache_dir=None))
+        r = Renderer(16, 12, RendererParams(cache_dir=None, device="cpu"))
         r.set_mesh(procedural.make_blob(200, seed=3))
         stats = r.render_frame(Camera.for_bbox(*r.scene.bbox()))
         img = r.update_result()
         assert img.shape == (12, 16, 4) and stats["total_rays"] == 192
         ao = Renderer(16, 12, RendererParams(ray_type="ao", num_samples=2, max_batch=256,
-                                             ao_radius=0.5, cache_dir=None))
+                                             ao_radius=0.5, cache_dir=None, device="cpu"))
         ao.set_scene(r.scene)
         stats = ao.render_frame(Camera.for_bbox(*r.scene.bbox()))
         img = ao.update_result()
@@ -276,7 +277,7 @@ def test_port_imports_no_jax():
         import tpu_rt_torch.trace.flat_kernel, tpu_rt_torch.trace.wavefront
         for tracer in ("packet", "xla"):
             rr = Renderer(16, 12, RendererParams(ray_type="ao", num_samples=2, ao_radius=0.5,
-                                                 cache_dir=None, tracer=tracer))
+                                                 cache_dir=None, tracer=tracer, device="cpu"))
             rr.set_scene(r.scene)
             assert rr.render_frame(Camera.for_bbox(*r.scene.bbox()))["total_rays"] > 0
         bad = sorted(m for m in sys.modules

@@ -61,8 +61,8 @@ def test_wavefront_matches_tpu_rt(setup, any_hit):
     o, d, tmin, tmax = _rays(scene, 600, seed=30)
     want, want_st = t_trace_wavefront(t_dbvh, t_make_rays(o, d, tmin, tmax), any_hit=any_hit,
                                       with_stats=True)
-    got, got_st = trace_wavefront(p_dbvh, make_rays(o, d, tmin, tmax), any_hit=any_hit,
-                                  with_stats=True)
+    got, got_st = trace_wavefront(p_dbvh, make_rays(o, d, tmin, tmax, device="cpu"),
+                                  any_hit=any_hit, with_stats=True)
     w_tri = np.asarray(want.tri)
     np.testing.assert_array_equal(got.tri.numpy(), w_tri)
     hit = w_tri >= 0
@@ -86,7 +86,7 @@ def test_wavefront_matches_oracle_and_binary_plain(setup, any_hit):
     o, d, tmin, tmax = _rays(scene, 500, seed=31)
     st = RayStats()
     s_id, s_t, s_u, s_v = trace_flat_scalar(flat, o, d, tmin, tmax, any_hit=any_hit, stats=st)
-    rays = make_rays(o, d, tmin, tmax)
+    rays = make_rays(o, d, tmin, tmax, device="cpu")
     got, counts = trace_wavefront(p_dbvh, rays, any_hit=any_hit, with_stats=True)
     # tests/test_trace.py's tolerances (test_wavefront_matches_scalar).
     np.testing.assert_array_equal(got.tri.numpy(), s_id)
@@ -124,19 +124,20 @@ def test_device_bvh_keeps_bits_and_refuses_deep_trees(setup):
     deep = FlatBVH(nodes=nodes, tri_woop=np.zeros((1, 12), np.float32),
                    tri_index=np.zeros(1, np.int32), leaf_counts=np.array([1, 0], np.int32))
     with pytest.raises(StackDepthError, match="STACK_SIZE"):
-        device_bvh(deep)
+        device_bvh(deep, device="cpu")
     shallow = FlatBVH(nodes[1:].copy(), deep.tri_woop, deep.tri_index, deep.leaf_counts)
     links[1:, 1] -= 1
     shallow.nodes[:, 12:16] = links[1:].view(np.float32)
-    assert device_bvh(shallow).nodes.shape == (STACK_DEPTH, 16)
+    assert device_bvh(shallow, device="cpu").nodes.shape == (STACK_DEPTH, 16)
 
 
 def test_empty_tree_and_degenerate_rays():
     empty = FlatBVH(nodes=np.zeros((0, 16), np.float32), tri_woop=np.zeros((0, 12), np.float32),
                     tri_index=np.zeros(0, np.int32), leaf_counts=np.zeros(1, np.int32))
-    rays = make_rays(np.zeros((3, 3)), np.ones((3, 3)), np.zeros(3), [1.0, 2.0, -1.0])
+    rays = make_rays(np.zeros((3, 3)), np.ones((3, 3)), np.zeros(3), [1.0, 2.0, -1.0], device="cpu")
     for any_hit in (False, True):
-        hits, counts = trace_wavefront(device_bvh(empty), rays, any_hit=any_hit, with_stats=True)
+        hits, counts = trace_wavefront(device_bvh(empty, device="cpu"), rays, any_hit=any_hit,
+                                       with_stats=True)
         assert hits.tri.tolist() == [-1, -1, -1] and hits.t.tolist() == [1.0, 2.0, -1.0]
         assert not counts["node_tests"].any() and not counts["tri_tests"].any()
 
@@ -144,7 +145,7 @@ def test_empty_tree_and_degenerate_rays():
 def test_xla_route(setup):
     scene, flat, _, p_dbvh = setup
     o, d, tmin, tmax = _rays(scene, 64, seed=32)
-    rays = make_rays(o, d, tmin, tmax)
+    rays = make_rays(o, d, tmin, tmax, device="cpu")
     fn, kind, tables = make_routing_tracer(flat, prefer="xla", device="cpu")
     assert kind == "wavefront" and fn is trace_wavefront
     for a, b in zip(tables, p_dbvh):

@@ -118,7 +118,7 @@ class AABB:
         return f"AABB(lo={self.lo.tolist()}, hi={self.hi.tolist()})"
 
 
-def make_rays(origin, dirn, tmin, tmax, device="cpu") -> Rays:
+def make_rays(origin, dirn, tmin, tmax, device="cuda") -> Rays:
     """Build a Rays batch from array-likes on ``device``, casting to the
     canonical dtypes."""
 

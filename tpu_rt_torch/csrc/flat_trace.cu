@@ -27,13 +27,38 @@
 // `per_ray_tri_tests`.  With -fmad=false and no fast math, every float op
 // is the oracle's in its order, so (tri, t, u, v) equal it bit for bit.
 //
+// Node formats and residencies (row 6 of the kernel table, the large-scene
+// variants of `_kernel2`):
+//   - kBf16Nodes replaces the bf16 node unit (packet2.py:680-703) on
+//     `pack_tables2`'s bf16 records (:238-255), in the port's own layout
+//     (tpu_rt_torch/trace/tables.py pack_bf16_nodes): 32 bytes per node,
+//     two int4 loads instead of four float4 loads.  Each bound is widened
+//     exactly (__int_as_float(w << 16), __int_as_float(w & 0xFFFF0000)) and
+//     tested with the f32 slab test.  The bounds were rounded outward, so a
+//     box only grows: no hit is lost, (t, and tri up to exact-t ties) stay
+//     the f32 tree's, but entry distances, and with them the visit order
+//     and the counters, are the bf16 tree's.  Its bit-exact reference is
+//     the plain version on the same record (trace_flat_plain decodes it
+//     with the same integer ops).
+//   - kStreamNodes / kStreamTris: the "mixed" and "hbm" residencies
+//     (packet2.py:501-515, :906-944; tables2_residency :361-373), load
+//     cache hints plus, for mixed, an L2 window over the node table
+//     (trace_common.cuh).  Same function, bit-equal results.
+//
 // What bounds it: a data-dependent walk, as in quad_trace.cu, but with
 // half-line nodes: each node is 64 bytes (4 float4 loads), a binary tree is
 // about twice as deep as the quad tree, and leaves hold a few triangles, so
-// a ray makes about 2-3x as many dependent node loads.  Both scenes' tables
-// fit the 50 MB L2.  First version: one ray per thread, a per-thread stack
-// of STACK_SIZE entries in local memory (one per level: upload_flat refuses
-// a deeper tree).
+// a ray makes about 2-3x as many dependent node loads.  Bunny's and
+// conference's tables fit the 50 MB L2; dragon's do not (nodes 19.7 MB f32
+// or 9.8 MB bf16, Woop rows 58.3 MB), which is what the bf16 records and
+// the mixed residency address: fewer node bytes per visit, and node
+// records kept in L2 while triangle rows stream past them.  Measured on
+// an H100 (PERF.md): every form runs at 2-7% of the bound from the rows
+// its rays read, so dependent-load latency and divergence bound it, not
+// bytes; the bf16 records cost time (twice the triangle tests) and the
+// streamed forms were never faster than plain loads.  First version:
+// one ray per thread, a per-thread stack of STACK_SIZE entries in local
+// memory (one per level: upload_flat refuses a deeper tree).
 //
 // Layouts (row-major, contiguous):
 //   nodes [N,16] f32: cols 0..3 child 0 (lo.x, hi.x, lo.y, hi.y), cols 4..7
@@ -43,6 +68,9 @@
 //     read with __float_as_int.
 //   woop [R,16] f32: cols 0..11 the Woop rows (z, u, v), col 12 the
 //     original triangle id as int32 bits.
+//   or, with bf16 nodes, nodes [N,8] i32: words 0..5 the 12 bounds as bf16
+//     pairs (column 2j in the low half, 2j + 1 in the high half, columns as
+//     above), words 6, 7 the child links.
 //   leaf_counts [C] i32: the triangle count of the leaf starting at row
 //     first is leaf_counts[min(first, C - 1)] (C = R + 1; the last entry is
 //     the empty leaf).
@@ -59,7 +87,14 @@ namespace {
 
 using namespace tpu_rt_torch;
 
-template <bool kAnyHit, bool kWantUv, bool kStats>
+// bf16 halves of one node word, widened exactly to f32.
+__device__ __forceinline__ float bf16_lo(int w) { return __int_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(int w) {
+    return __int_as_float(w & static_cast<int>(0xFFFF0000u));
+}
+
+template <bool kAnyHit, bool kWantUv, bool kStats, bool kBf16Nodes, bool kStreamNodes,
+          bool kStreamTris>
 __global__ void __launch_bounds__(kBlock)
 flat_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
                   const float4* __restrict__ woop,
@@ -83,13 +118,29 @@ flat_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
         for (;;) {
             if (node >= 0) {
                 if constexpr (kStats) ++h.node_tests;
-                const float4* rec = nodes + static_cast<size_t>(node) * 4;
-                const float4 q0 = rec[0], q1 = rec[1], q2 = rec[2], q3 = rec[3];
                 float near0, near1;
-                const bool hit0 = slab_near(r, h.t, q0.x, q0.y, q0.z, q0.w, q2.x, q2.y, near0);
-                const bool hit1 = slab_near(r, h.t, q1.x, q1.y, q1.z, q1.w, q2.z, q2.w, near1);
-                int c0 = __float_as_int(q3.x);
-                int c1 = __float_as_int(q3.y);
+                bool hit0, hit1;
+                int c0, c1;
+                if constexpr (kBf16Nodes) {
+                    const int4* rec = reinterpret_cast<const int4*>(nodes) +
+                                      static_cast<size_t>(node) * 2;
+                    const int4 a = load<kStreamNodes>(rec), b = load<kStreamNodes>(rec + 1);
+                    hit0 = slab_near(r, h.t, bf16_lo(a.x), bf16_hi(a.x), bf16_lo(a.y),
+                                     bf16_hi(a.y), bf16_lo(b.x), bf16_hi(b.x), near0);
+                    hit1 = slab_near(r, h.t, bf16_lo(a.z), bf16_hi(a.z), bf16_lo(a.w),
+                                     bf16_hi(a.w), bf16_lo(b.y), bf16_hi(b.y), near1);
+                    c0 = b.z;
+                    c1 = b.w;
+                } else {
+                    const float4* rec = nodes + static_cast<size_t>(node) * 4;
+                    const float4 q0 = load<kStreamNodes>(rec), q1 = load<kStreamNodes>(rec + 1);
+                    const float4 q2 = load<kStreamNodes>(rec + 2);
+                    const float4 q3 = load<kStreamNodes>(rec + 3);
+                    hit0 = slab_near(r, h.t, q0.x, q0.y, q0.z, q0.w, q2.x, q2.y, near0);
+                    hit1 = slab_near(r, h.t, q1.x, q1.y, q1.z, q1.w, q2.z, q2.w, near1);
+                    c0 = __float_as_int(q3.x);
+                    c1 = __float_as_int(q3.y);
+                }
                 if (hit0 && hit1) {
                     // Nearer entry first; the other waits on the stack.
                     if (near1 < near0) {
@@ -107,8 +158,8 @@ flat_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
                 }
             } else {
                 const int first = ~node;
-                const int count = leaf_counts[min(first, n_counts - 1)];
-                if (drain<kAnyHit, kWantUv, kStats>(woop, first, count, r, h)) break;
+                const int count = load<kStreamTris>(leaf_counts + min(first, n_counts - 1));
+                if (drain<kAnyHit, kWantUv, kStats, kStreamTris>(woop, first, count, r, h)) break;
             }
             if (sp == 0) break;
             node = stack[--sp];
@@ -120,28 +171,43 @@ flat_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
 
 }  // namespace
 
-// C ABI for ctypes, as quad_trace_launch with the leaf-count table added.
-extern "C" int flat_trace_launch(const void* nodes, int n_nodes, const void* woop,
-                                 const void* leaf_counts, int n_counts,
+// C ABI for ctypes, as quad_trace_launch with the node format (`bf16_nodes`)
+// and the leaf-count table added.
+extern "C" int flat_trace_launch(const void* nodes, int n_nodes, int bf16_nodes,
+                                 const void* woop, const void* leaf_counts, int n_counts,
                                  const void* origin, const void* dirn,
                                  const void* tmin, const void* tmax,
                                  void* out_tri, void* out_t, void* out_u, void* out_v,
                                  void* out_node_tests, void* out_tri_tests, int n_rays,
-                                 int any_hit, int want_uv, int stats, void* stream) {
+                                 int any_hit, int want_uv, int stats, int stream_nodes,
+                                 int stream_tris, size_t window_bytes, size_t set_aside,
+                                 void* stream) {
+    cudaError_t err = cudaSuccess;
     if (n_rays > 0) {
         const cudaStream_t s = static_cast<cudaStream_t>(stream);
         const int grid = (n_rays + kBlock - 1) / kBlock;
         dispatch_form(any_hit != 0, want_uv != 0, stats != 0, [&](auto a, auto u, auto c) {
-            flat_trace_kernel<decltype(a)::value, decltype(u)::value, decltype(c)::value>
-                <<<grid, kBlock, 0, s>>>(
-                    static_cast<const float4*>(nodes), n_nodes, static_cast<const float4*>(woop),
-                    static_cast<const int*>(leaf_counts), n_counts,
-                    static_cast<const float*>(origin), static_cast<const float*>(dirn),
-                    static_cast<const float*>(tmin), static_cast<const float*>(tmax),
-                    static_cast<int*>(out_tri), static_cast<float*>(out_t),
-                    static_cast<float*>(out_u), static_cast<float*>(out_v),
-                    static_cast<int*>(out_node_tests), static_cast<int*>(out_tri_tests), n_rays);
+            const auto launch = [&](auto bf) {
+                return dispatch_residency(stream_nodes != 0, stream_tris != 0,
+                                          [&](auto sn, auto st) {
+                    err = launch_window(
+                        flat_trace_kernel<decltype(a)::value, decltype(u)::value,
+                                          decltype(c)::value, decltype(bf)::value,
+                                          decltype(sn)::value, decltype(st)::value>,
+                        grid, s, nodes, window_bytes, set_aside,
+                        static_cast<const float4*>(nodes), n_nodes,
+                        static_cast<const float4*>(woop), static_cast<const int*>(leaf_counts),
+                        n_counts, static_cast<const float*>(origin),
+                        static_cast<const float*>(dirn), static_cast<const float*>(tmin),
+                        static_cast<const float*>(tmax), static_cast<int*>(out_tri),
+                        static_cast<float*>(out_t), static_cast<float*>(out_u),
+                        static_cast<float*>(out_v), static_cast<int*>(out_node_tests),
+                        static_cast<int*>(out_tri_tests), n_rays);
+                });
+            };
+            const bool ok = bf16_nodes ? launch(std::true_type{}) : launch(std::false_type{});
+            if (!ok) err = cudaErrorInvalidValue;
         });
     }
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(err);
 }

@@ -32,20 +32,34 @@
 //     SIMT quantity.
 // The three forms are template flags (trace_common.cuh), one instantiation
 // each, so the frame forms carry no any-hit, uv or counter code.
+//
+// Residencies (tpu_rt/trace/packet2.py:501-515, :906-944, the "mixed" and
+// "hbm" DMA paths of `_kernel2`; trace_packet4's rule :1168-1175): two more
+// template flags pick the cache policy of the node and Woop loads
+// (trace_common.cuh).  "vmem" is the code above; "mixed" streams the Woop
+// rows and runs under an L2 access-policy window that keeps the node table
+// persisting; "hbm" streams both.  All three compute the same function, so
+// their results are bit-equal to the plain version's.
 // With -fmad=false and no fast math, every float op below is the oracle's
 // op in the oracle's order, so (tri, t, u, v) equal the plain PyTorch
 // version's (tpu_rt_torch/trace/quad_kernel.py) bit for bit.
 //
-// What bounds it: a data-dependent walk.  Each node is one 128-byte record
-// (8 float4 loads, one cache line) and each triangle one 64-byte Woop row
+// What bounds it: a data-dependent walk.  On a large scene (dragon: quad
+// nodes 2.6-5.2 MB, Woop rows 58 MB) the triangle table no longer fits the
+// L2 with everything else, and streamed triangle rows could evict the node
+// records every ray needs first; the mixed residency keeps the nodes in the
+// persisting part of the L2 and lets triangle rows pass through.  Each node
+// is one 128-byte record (8 float4 loads, one cache line) and each triangle one 64-byte Woop row
 // (up to 4 float4 loads); for the bunny both tables (0.8 MB + 9 MB) sit in
 // the 50 MB L2, so the bound is load latency and warp divergence, not
 // device-memory bandwidth (conference: 2.1 MB + 23.6 MB, in L2 too).  Any
 // hit ends a ray at its first occluder, so short AO rays visit few nodes;
 // an AO batch's cost is its unoccluded rays, which walk every node their
-// segment crosses.  This first version is simple and exact: one ray per
-// thread, a per-thread stack in local memory, no packet or
-// persistent-thread scheduling yet.
+// segment crosses.  Measured on an H100 (PERF.md): 1-3% of the bound from
+// the rows its rays read, and on dragon the streamed forms (mixed, hbm)
+// were 11-21% slower than plain loads.  This first version is simple and
+// exact: one ray per thread, a per-thread stack in local memory, no packet
+// or persistent-thread scheduling yet.
 //
 // Layouts (row-major, contiguous):
 //   nodes [Q,32] f32: cols 6j..6j+5 child j box (lo.x,hi.x,lo.y,hi.y,lo.z,
@@ -74,14 +88,15 @@ constexpr int kCountShift = 24;
 constexpr int kFirstMask = (1 << kCountShift) - 1;
 
 // Drain the leaf behind `link` = ~(first | count << 24).
-template <bool kAnyHit, bool kWantUv, bool kStats>
+template <bool kAnyHit, bool kWantUv, bool kStats, bool kStreamTris>
 __device__ __forceinline__ bool drain_leaf(const float4* __restrict__ woop, int link,
                                            const Ray& r, Hit& h) {
     const int c = ~link;
-    return drain<kAnyHit, kWantUv, kStats>(woop, c & kFirstMask, (c >> kCountShift) & 0xFF, r, h);
+    return drain<kAnyHit, kWantUv, kStats, kStreamTris>(woop, c & kFirstMask,
+                                                        (c >> kCountShift) & 0xFF, r, h);
 }
 
-template <bool kAnyHit, bool kWantUv, bool kStats>
+template <bool kAnyHit, bool kWantUv, bool kStats, bool kStreamNodes, bool kStreamTris>
 __global__ void __launch_bounds__(kBlock)
 quad_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
                   const float4* __restrict__ woop,
@@ -104,8 +119,10 @@ quad_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
         for (;;) {
             if constexpr (kStats) ++h.node_tests;
             const float4* rec = nodes + static_cast<size_t>(node) * 8;
-            const float4 q0 = rec[0], q1 = rec[1], q2 = rec[2], q3 = rec[3];
-            const float4 q4 = rec[4], q5 = rec[5], q6 = rec[6], q7 = rec[7];
+            const float4 q0 = load<kStreamNodes>(rec), q1 = load<kStreamNodes>(rec + 1);
+            const float4 q2 = load<kStreamNodes>(rec + 2), q3 = load<kStreamNodes>(rec + 3);
+            const float4 q4 = load<kStreamNodes>(rec + 4), q5 = load<kStreamNodes>(rec + 5);
+            const float4 q6 = load<kStreamNodes>(rec + 6), q7 = load<kStreamNodes>(rec + 7);
             const int l0 = __float_as_int(q6.x), l1 = __float_as_int(q6.y);
             const int l2 = __float_as_int(q6.z), l3 = __float_as_int(q6.w);
             const int hint = __float_as_int(q7.x);
@@ -128,17 +145,17 @@ quad_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
 
             if constexpr (kAnyHit) {
                 // Stop at the first accepted hit: write it and return.
-                if ((v0 && k0 < 0 && drain_leaf<true, kWantUv, kStats>(woop, k0, r, h)) ||
-                    (v1 && k1 < 0 && drain_leaf<true, kWantUv, kStats>(woop, k1, r, h)) ||
-                    (v2 && k2 < 0 && drain_leaf<true, kWantUv, kStats>(woop, k2, r, h)) ||
-                    (v3 && k3 < 0 && drain_leaf<true, kWantUv, kStats>(woop, k3, r, h))) {
+                if ((v0 && k0 < 0 && drain_leaf<true, kWantUv, kStats, kStreamTris>(woop, k0, r, h)) ||
+                    (v1 && k1 < 0 && drain_leaf<true, kWantUv, kStats, kStreamTris>(woop, k1, r, h)) ||
+                    (v2 && k2 < 0 && drain_leaf<true, kWantUv, kStats, kStreamTris>(woop, k2, r, h)) ||
+                    (v3 && k3 < 0 && drain_leaf<true, kWantUv, kStats, kStreamTris>(woop, k3, r, h))) {
                     break;
                 }
             } else {
-                if (v0 && k0 < 0) drain_leaf<false, kWantUv, kStats>(woop, k0, r, h);
-                if (v1 && k1 < 0) drain_leaf<false, kWantUv, kStats>(woop, k1, r, h);
-                if (v2 && k2 < 0) drain_leaf<false, kWantUv, kStats>(woop, k2, r, h);
-                if (v3 && k3 < 0) drain_leaf<false, kWantUv, kStats>(woop, k3, r, h);
+                if (v0 && k0 < 0) drain_leaf<false, kWantUv, kStats, kStreamTris>(woop, k0, r, h);
+                if (v1 && k1 < 0) drain_leaf<false, kWantUv, kStats, kStreamTris>(woop, k1, r, h);
+                if (v2 && k2 < 0) drain_leaf<false, kWantUv, kStats, kStreamTris>(woop, k2, r, h);
+                if (v3 && k3 < 0) drain_leaf<false, kWantUv, kStats, kStreamTris>(woop, k3, r, h);
             }
 
             // Inner children: continue with the first in visit order; push
@@ -163,28 +180,40 @@ quad_trace_kernel(const float4* __restrict__ nodes, int n_nodes,
 
 }  // namespace
 
-// C ABI for ctypes.  `any_hit`, `want_uv` and `stats` pick the instantiation
-// on the host; u, v and the counters may be null in the forms that do not
-// write them.  Launches on `stream` and returns cudaGetLastError().
+// C ABI for ctypes.  `any_hit`, `want_uv` and `stats` pick the form and
+// `stream_nodes`, `stream_tris` the residency (trace_common.cuh); u, v and
+// the counters may be null in the forms that do not write them.
+// `window_bytes` > 0 attaches the mixed residency's L2 window over the node
+// table, with the persisting set-aside `set_aside` (launch_window).
+// Launches on `stream` and returns the first CUDA error.
 extern "C" int quad_trace_launch(const void* nodes, int n_nodes, const void* woop,
                                  const void* origin, const void* dirn,
                                  const void* tmin, const void* tmax,
                                  void* out_tri, void* out_t, void* out_u, void* out_v,
                                  void* out_node_tests, void* out_tri_tests, int n_rays,
-                                 int any_hit, int want_uv, int stats, void* stream) {
+                                 int any_hit, int want_uv, int stats, int stream_nodes,
+                                 int stream_tris, size_t window_bytes, size_t set_aside,
+                                 void* stream) {
+    cudaError_t err = cudaSuccess;
     if (n_rays > 0) {
         const cudaStream_t s = static_cast<cudaStream_t>(stream);
         const int grid = (n_rays + kBlock - 1) / kBlock;
         dispatch_form(any_hit != 0, want_uv != 0, stats != 0, [&](auto a, auto u, auto c) {
-            quad_trace_kernel<decltype(a)::value, decltype(u)::value, decltype(c)::value>
-                <<<grid, kBlock, 0, s>>>(
+            const bool ok = dispatch_residency(stream_nodes != 0, stream_tris != 0,
+                                               [&](auto sn, auto st) {
+                err = launch_window(
+                    quad_trace_kernel<decltype(a)::value, decltype(u)::value, decltype(c)::value,
+                                      decltype(sn)::value, decltype(st)::value>,
+                    grid, s, nodes, window_bytes, set_aside,
                     static_cast<const float4*>(nodes), n_nodes, static_cast<const float4*>(woop),
                     static_cast<const float*>(origin), static_cast<const float*>(dirn),
                     static_cast<const float*>(tmin), static_cast<const float*>(tmax),
                     static_cast<int*>(out_tri), static_cast<float*>(out_t),
                     static_cast<float*>(out_u), static_cast<float*>(out_v),
                     static_cast<int*>(out_node_tests), static_cast<int*>(out_tri_tests), n_rays);
+            });
+            if (!ok) err = cudaErrorInvalidValue;
         });
     }
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(err);
 }

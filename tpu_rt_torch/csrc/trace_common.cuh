@@ -11,6 +11,19 @@
 //   kStats   count node visits and triangle tests per ray.
 // A flag that is false compiles to nothing, so the frame forms (kWantUv =
 // kStats = false) carry no uv or counter code.
+//
+// The tables' residency (tpu_rt's names; tpu_rt_torch/trace/tables.py) is
+// two more flags, the cache policy of the loads:
+//   kStreamNodes  node records read with the streaming hint (ld.global.cs,
+//                 evict first);
+//   kStreamTris   Woop rows (and leaf counts) read with the streaming hint.
+// "vmem" is (false, false): plain loads, the code of the first versions.
+// "mixed" is (false, true), launched with an L2 access-policy window over
+// the node table (persisting on hit, streaming on miss; launch_window
+// below); "hbm" is (true, true), no window.  Node fetches are the
+// traversal's chain of dependent loads, so the node table is what the L2
+// should keep; a triangle row is read once per leaf visit and should not
+// evict it.
 
 #pragma once
 
@@ -30,6 +43,16 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 }
 __device__ __forceinline__ float max_nan(float a, float b) {
     return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+// One load of a table element, with the streaming hint when kStream.
+template <bool kStream, typename T>
+__device__ __forceinline__ T load(const T* p) {
+    if constexpr (kStream) {
+        return __ldcs(p);
+    } else {
+        return *p;
+    }
 }
 
 struct Ray {
@@ -105,30 +128,30 @@ __device__ __forceinline__ bool slab(const Ray& r, float hit_t,
 // and the original triangle id as int32 bits in slot 12.  The any-hit form
 // returns true at the first accepted triangle; the closest-hit form tests
 // them all and returns false.
-template <bool kAnyHit, bool kWantUv, bool kStats>
+template <bool kAnyHit, bool kWantUv, bool kStats, bool kStreamTris>
 __device__ __forceinline__ bool drain(const float4* __restrict__ woop, int first, int count,
                                       const Ray& r, Hit& h) {
     for (int i = first; i < first + count; ++i) {
         if constexpr (kStats) ++h.tri_tests;
         const float4* w = woop + static_cast<size_t>(i) * 4;
-        const float4 wz = w[0];
+        const float4 wz = load<kStreamTris>(w);
         const float Oz = wz.w - r.ox * wz.x - r.oy * wz.y - r.oz * wz.z;
         const float Dz = r.dx * wz.x + r.dy * wz.y + r.dz * wz.z;
         const float inv_dz = 1.0f / Dz;
         const float t = Oz * inv_dz;
         if (t > r.t_min && t < h.t) {
-            const float4 wu = w[1];
+            const float4 wu = load<kStreamTris>(w + 1);
             const float Ox = wu.w + r.ox * wu.x + r.oy * wu.y + r.oz * wu.z;
             const float Dx = r.dx * wu.x + r.dy * wu.y + r.dz * wu.z;
             const float u = Ox + t * Dx;
             if (u >= 0.0f) {
-                const float4 wv = w[2];
+                const float4 wv = load<kStreamTris>(w + 2);
                 const float Oy = wv.w + r.ox * wv.x + r.oy * wv.y + r.oz * wv.z;
                 const float Dy = r.dx * wv.x + r.dy * wv.y + r.dz * wv.z;
                 const float v = Oy + t * Dy;
                 if (v >= 0.0f && u + v <= 1.0f) {
                     h.t = t;
-                    h.tri = __float_as_int(w[3].x);
+                    h.tri = __float_as_int(load<kStreamTris>(&w[3].x));
                     if constexpr (kWantUv) {
                         h.u = u;
                         h.v = v;
@@ -183,4 +206,92 @@ void dispatch_form(bool any_hit, bool want_uv, bool stats, F&& f) {
     }
 }
 
+// Picks the residency's instantiation: calls f(stream_nodes, stream_tris)
+// as std::integral_constants for "vmem", "mixed" and "hbm"; false for the
+// one pair that is no residency (nodes streamed, triangles not).
+template <typename F>
+bool dispatch_residency(bool stream_nodes, bool stream_tris, F&& f) {
+    using T = std::true_type;
+    using N = std::false_type;
+    if (!stream_nodes && !stream_tris) {
+        f(N{}, N{});
+    } else if (!stream_nodes) {
+        f(N{}, T{});
+    } else if (stream_tris) {
+        f(T{}, T{});
+    } else {
+        return false;
+    }
+    return true;
+}
+
+// Launches kernel<<<grid, kBlock, 0, stream>>>(args...) through
+// cudaLaunchKernelEx.  With window_bytes > 0 (the mixed residency) the
+// launch carries an L2 access-policy window over [window_base,
+// window_base + window_bytes): persisting on hit, streaming on miss,
+// hitRatio = min(1, set_aside / window_bytes).  The device's persisting
+// set-aside is set to set_aside first when it differs; it stays set until
+// trace_l2_release.  The caller clips window_bytes to
+// cudaDevAttrMaxAccessPolicyWindowSize.  Every CUDA error is returned:
+// there is no launch without the window it asked for.
+template <typename... Params, typename... Args>
+cudaError_t launch_window(void (*kernel)(Params...), int grid, cudaStream_t stream,
+                          const void* window_base, size_t window_bytes, size_t set_aside,
+                          Args... args) {
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(grid);
+    config.blockDim = dim3(kBlock);
+    config.dynamicSmemBytes = 0;
+    config.stream = stream;
+    cudaLaunchAttribute attr[1];
+    if (window_bytes > 0) {
+        size_t current = 0;
+        cudaError_t err = cudaDeviceGetLimit(&current, cudaLimitPersistingL2CacheSize);
+        if (err == cudaSuccess && current != set_aside) {
+            err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, set_aside);
+        }
+        if (err != cudaSuccess) {
+            cudaGetLastError();  // clear it: the error is returned here
+            return err;
+        }
+        attr[0].id = cudaLaunchAttributeAccessPolicyWindow;
+        attr[0].val.accessPolicyWindow.base_ptr = const_cast<void*>(window_base);
+        attr[0].val.accessPolicyWindow.num_bytes = window_bytes;
+        const float ratio = static_cast<float>(static_cast<double>(set_aside) /
+                                               static_cast<double>(window_bytes));
+        attr[0].val.accessPolicyWindow.hitRatio = ratio < 1.0f ? ratio : 1.0f;
+        attr[0].val.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
+        attr[0].val.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
+        config.attrs = attr;
+        config.numAttrs = 1;
+    }
+    const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
+    const cudaError_t last = cudaGetLastError();
+    return err != cudaSuccess ? err : last;
+}
+
 }  // namespace tpu_rt_torch
+
+// The card's L2 attributes for the placement policy (tpu_rt_torch/trace/
+// common.py): out[0] the L2 size, out[1] the largest persisting set-aside,
+// out[2] the largest access-policy window, in bytes.  Each kernel library
+// is one translation unit and defines these once.
+extern "C" int trace_l2_info(int device, long long* out) {
+    int v[3] = {0, 0, 0};
+    const cudaDeviceAttr attrs[3] = {cudaDevAttrL2CacheSize, cudaDevAttrMaxPersistingL2CacheSize,
+                                     cudaDevAttrMaxAccessPolicyWindowSize};
+    for (int i = 0; i < 3; ++i) {
+        const cudaError_t err = cudaDeviceGetAttribute(&v[i], attrs[i], device);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        out[i] = v[i];
+    }
+    return 0;
+}
+
+// After a frame: drop the persisting lines and give the set-aside back to
+// the normal L2 (tpu_rt_torch.trace.common.release_persisting_l2).
+extern "C" int trace_l2_release() {
+    cudaError_t err = cudaCtxResetPersistingL2Cache();
+    if (err == cudaSuccess) err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, 0);
+    return static_cast<int>(err);
+}

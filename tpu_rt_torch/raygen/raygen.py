@@ -26,7 +26,7 @@ class RayGen:
 
     # -- primary -------------------------------------------------------------
 
-    def primary(self, camera, width: int, height: int, device="cpu"):
+    def primary(self, camera, width: int, height: int, device="cuda"):
         """Morton-ordered primary rays for the camera (RayGen.cc:50-73) on
         ``device``.  Returns (Rays, slot_to_id, id_to_slot)."""
         self.pixel_table.set_size(width, height)

@@ -54,7 +54,9 @@ class RendererParams:
     # a CUDA device, its plain PyTorch version on the CPU -- or "xla" the
     # wavefront tracer (tpu_rt_torch.trace.make_routing_tracer).
     tracer: str = "auto"
-    device: str = "cpu"
+    # "cuda" launches the kernels; "cpu" runs their plain versions (no
+    # fallback from one to the other).
+    device: str = "cuda"
 
 
 @dataclass

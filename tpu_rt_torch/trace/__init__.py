@@ -14,7 +14,7 @@ import warnings
 
 import torch
 
-from tpu_rt_torch.trace.common import StackDepthError
+from tpu_rt_torch.trace.common import StackDepthError, release_persisting_l2
 from tpu_rt_torch.trace.cpu_reference import (
     RayStats,
     assign_treelets,
@@ -23,6 +23,14 @@ from tpu_rt_torch.trace.cpu_reference import (
 )
 from tpu_rt_torch.trace.flat_kernel import FlatTables, trace_flat, upload_flat
 from tpu_rt_torch.trace.quad_kernel import QuadTables, trace_quad, upload_quad
+from tpu_rt_torch.trace.tables import (
+    RESIDENCIES,
+    TABLE_BUDGET,
+    VMEM_TABLE_BUDGET,
+    choose_node_format,
+    quad_policy,
+    tables2_residency,
+)
 from tpu_rt_torch.trace.wavefront import device_bvh, trace_wavefront
 
 __all__ = [
@@ -41,36 +49,73 @@ __all__ = [
     "FlatTables",
     "StackDepthError",
     "TRACERS",
+    "RESIDENCIES",
+    "TABLE_BUDGET",
+    "VMEM_TABLE_BUDGET",
+    "choose_node_format",
+    "quad_policy",
+    "tables2_residency",
+    "release_persisting_l2",
+    "route_kind",
 ]
 
 TRACERS = ("auto", "packet4", "pallas", "packet", "xla")
 
 
-def make_routing_tracer(flat, prefer: str = "auto", device="cpu", want_uv: bool = False,
-                        cache_dir: str | None = None):
+def route_kind(tables, route: str) -> str:
+    """``kind`` of a kernel route: "quad-" or "flat-", then "cuda" or
+    "plain", then ``tpu_rt``'s suffixes for a residency other than vmem
+    ("-mixed", "-hbm") and for bf16 nodes ("-bf16")."""
+    kind = ("flat" if isinstance(tables, FlatTables) else "quad") + f"-{route}"
+    if tables.residency != "vmem":
+        kind += f"-{tables.residency}"
+    return kind + ("-bf16" if getattr(tables, "bf16_nodes", False) else "")
+
+
+def make_routing_tracer(flat, prefer: str = "auto", device="cuda", want_uv: bool = False,
+                        cache_dir: str | None = None, budget_bytes: int | None = None,
+                        residency: str | None = None, bf16_nodes: bool | None = None):
     """Returns (fn, kind, tables): fn(tables, rays, any_hit=False,
     with_stats=False) -> Hits (closest hit, or with ``any_hit`` the first
     accepted hit), or ``(Hits, {"node_tests", "tri_tests"})`` with
     ``with_stats``; ``kind`` names the route; ``tables`` are the scene's
     device tables.
 
+    device: "cuda" (the default) launches the kernels; "cpu" runs their
+    plain PyTorch versions.  There is no fallback from one to the other.
+
     want_uv: a config of the tracer, as in ``tpu_rt``: without it the
     kernels return u = v = 0 (the frame path reads only tri and t); the
     wavefront always fills u, v.
 
     prefer:
-      "packet4" — the 4-wide BVH (collapse4, leaf_max = MAX_LEAF4 = 16),
-                  kind "quad-cuda" (the CUDA kernel) or "quad-plain" (its
-                  plain PyTorch version, on the CPU); raises if the quad
-                  tree is too deep for the kernel's stack;
-      "packet"  — the binary FlatBVH, kind "flat-cuda" / "flat-plain";
+      "packet4" — the 4-wide BVH (collapse4 with ``quad_policy``'s leaf
+                  width: 16, or 32 when the binary f32 node table exceeds
+                  the budget), kind "quad-cuda" (the CUDA kernel) or
+                  "quad-plain" (its plain PyTorch version, on the CPU),
+                  with "-mixed" / "-hbm" for those residencies; raises if
+                  the quad tree is too deep for the kernel's stack;
+      "packet"  — the binary FlatBVH in ``choose_node_format``'s residency
+                  and node format, kind "flat-cuda" / "flat-plain" with
+                  "-mixed" / "-hbm" and "-bf16" (e.g.
+                  "flat-cuda-mixed-bf16");
       "pallas"  — packet4, then packet;
       "auto"    — packet4; only a quad tree too deep for the quad stack
                   falls to packet, with a RuntimeWarning (``tpu_rt`` falls
                   further to the wavefront; the port never does: a tree
                   neither kernel's stack holds raises);
       "xla"     — the wavefront tracer on ``device``, kind "wavefront".
-    cache_dir: consult/populate the quad-collapse cache (bvh.cache).
+    cache_dir: consult/populate the quad-collapse cache (bvh.cache) and the
+    leaf-width tune file (``tables._tune_path``).
+    budget_bytes: the placement policy's budget; default ``TABLE_BUDGET``
+    on every device (none: vmem f32 tables, 16-wide leaves);
+    ``VMEM_TABLE_BUDGET`` gives ``tpu_rt``'s decisions.  A caller whose
+    tables come out ``mixed`` calls ``release_persisting_l2()`` after its
+    frame.
+    residency, bf16_nodes: force the tables' residency (either kernel) and
+    the binary kernel's node format, as ``trace_packet2``'s and
+    ``trace_packet4``'s ``hbm=`` and ``bf16_nodes=``; None applies the
+    policy.
     """
     if prefer not in TRACERS:
         raise ValueError(f"unknown tracer {prefer!r}; one of {TRACERS}")
@@ -80,17 +125,19 @@ def make_routing_tracer(flat, prefer: str = "auto", device="cpu", want_uv: bool 
         return trace_wavefront, "wavefront", device_bvh(flat, device)
     if prefer != "packet":
         from tpu_rt_torch.bvh.cache import load_or_collapse_quad
-        from tpu_rt_torch.bvh.collapse import MAX_LEAF4
 
-        quad = load_or_collapse_quad(flat, leaf_max=MAX_LEAF4, cache_dir=cache_dir)
+        budget = TABLE_BUDGET if budget_bytes is None else budget_bytes
+        leaf_max = quad_policy(flat, cache_dir, budget)
+        quad = load_or_collapse_quad(flat, leaf_max=leaf_max, cache_dir=cache_dir)
         try:
-            tables = upload_quad(quad, device)
+            tables = upload_quad(quad, device, residency=residency, budget_bytes=budget)
         except StackDepthError as e:
             if prefer == "packet4":
                 raise
             warnings.warn(f"tpu_rt_torch: {e}; {prefer!r} falls to the binary kernel "
                           f"(flat-{route})", RuntimeWarning, stacklevel=2)
         else:
-            return functools.partial(trace_quad, want_uv=want_uv), f"quad-{route}", tables
-    return (functools.partial(trace_flat, want_uv=want_uv), f"flat-{route}",
-            upload_flat(flat, device))
+            return functools.partial(trace_quad, want_uv=want_uv), route_kind(tables, route), tables
+    tables = upload_flat(flat, device, residency=residency, bf16_nodes=bf16_nodes,
+                         budget_bytes=budget_bytes)
+    return functools.partial(trace_flat, want_uv=want_uv), route_kind(tables, route), tables

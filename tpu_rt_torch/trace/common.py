@@ -2,13 +2,22 @@
 tables, the plain PyTorch version's per-ray state and Woop drain, and the
 ctypes wrapper that builds, checks, launches and counts a kernel.
 
-Each kernel has eight forms, the instantiations of ``template <bool
-kAnyHit, bool kWantUv, bool kStats>`` in ``tpu_rt_torch/csrc/`` (see
-``trace_common.cuh``): closest or any hit, with or without the barycentrics
-u, v, with or without the per-ray counters ``node_tests`` and
-``tri_tests``.  A tracer returns ``Hits`` (u = v = 0 unless ``want_uv``),
-or ``(Hits, {"node_tests", "tri_tests"})`` with ``with_stats``, the form of
-``trace_wavefront``.
+Each kernel has eight forms for each table layout, the instantiations of
+``template <bool kAnyHit, bool kWantUv, bool kStats, ...>`` in
+``tpu_rt_torch/csrc/`` (see ``trace_common.cuh``): closest or any hit,
+with or without the barycentrics u, v, with or without the per-ray counters
+``node_tests`` and ``tri_tests``.  A tracer returns ``Hits`` (u = v = 0
+unless ``want_uv``), or ``(Hits, {"node_tests", "tri_tests"})`` with
+``with_stats``, the form of ``trace_wavefront``.  The layouts are the
+tables' residency (``tables.RESIDENCIES``: the cache policy of their loads)
+and, for the binary kernel, its node format (f32 or bf16).
+
+The ``mixed`` residency holds the node table in a persisting L2
+access-policy window attached to each launch.  Its set-aside (the device's
+``cudaLimitPersistingL2CacheSize``) is set by the first mixed launch and
+shrinks the L2 for every other kernel until ``release_persisting_l2``
+resets the persisting lines and sets it back to 0: a caller that forces
+the mixed tables calls it after its frame.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import ctypes
 import os
 import shutil
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -25,6 +35,7 @@ import torch
 from tpu_rt_torch._build import build_shared
 from tpu_rt_torch.bvh.collapse import OOEPS, SENT
 from tpu_rt_torch.core.types import Hits, Rays
+from tpu_rt_torch.trace.tables import _residency_flags
 
 # Per-ray traversal stack depth, a compile-time constant of both kernels
 # (the reference's STACK_SIZE, kepler_dynamic_fetch.cu:47).  The tables'
@@ -117,13 +128,25 @@ class TraceState(NamedTuple):
         return hits
 
 
+def visit_masks(visited: dict | None, dev, **rows: int) -> dict | None:
+    """The rows of each table that a plain trace reads: fills ``visited``
+    (if given) with an all-False [n] bool mask on ``dev`` per table named in
+    ``rows`` (name=n), which the trace sets where it reads a row.  Returns
+    ``visited``."""
+    if visited is not None:
+        visited.update({k: torch.zeros((n,), dtype=torch.bool, device=dev)
+                        for k, n in rows.items()})
+    return visited
+
+
 def drain_plain(woop, woop_i, first, count, ray_ids, rays: Rays, st: TraceState,
-                any_hit: bool) -> None:
+                any_hit: bool, seen: torch.Tensor | None = None) -> None:
     """Test the Woop rows first .. first + count - 1 of rays ``ray_ids``
     (each ray at most once per call), row k of every leaf in step k, as the
     kernels' ``drain`` does: a hit must be strictly nearer, and with
     ``any_hit`` a ray tests no triangle after its first accepted one.
-    Updates ``st`` in place."""
+    Updates ``st`` in place, and marks the rows tested in ``seen`` ([R]
+    bool) if given."""
     first, count = first.long(), count.long()
     ox, oy, oz = rays.origin[ray_ids].unbind(1)
     dx, dy, dz = rays.dirn[ray_ids].unbind(1)
@@ -149,6 +172,8 @@ def drain_plain(woop, woop_i, first, count, ray_ids, rays: Rays, st: TraceState,
         take = (valid & (t > t_min) & (t < best_t) & (u >= 0)
                 & (v >= 0) & (u + v <= 1.0))
         tested += valid.to(torch.int32)
+        if seen is not None:
+            seen[row[valid]] = True
         best_t = torch.where(take, t, best_t)
         best_tri = torch.where(take, woop_i[row, 12], best_tri)
         best_u = torch.where(take, u, best_u)
@@ -185,15 +210,41 @@ FORMS = tuple(form_name(a, u, s) for a in (False, True) for u in (False, True)
               for s in (False, True))
 
 
+def layout_name(residency: str, bf16_nodes: bool = False) -> str:
+    """"" for the vmem f32 tables, else "@" + residency (+ "-bf16")."""
+    if residency == "vmem" and not bf16_nodes:
+        return ""
+    return f"@{residency}" + ("-bf16" if bf16_nodes else "")
+
+
+# Kernels whose mixed launches set a persisting-L2 set-aside since the last
+# release_persisting_l2().
+_L2_HELD: set = set()
+
+
+def release_persisting_l2() -> None:
+    """After a frame: reset the persisting L2 lines and the set-aside that
+    mixed launches took, so that other kernels get the whole L2 back.  A
+    no-op when no mixed launch ran since the last call."""
+    while _L2_HELD:
+        kernel = _L2_HELD.pop()
+        err = kernel._lib.trace_l2_release()
+        if err != 0:
+            raise RuntimeError(f"{kernel.name}: resetting the persisting L2 failed: "
+                               f"cudaError {err}")
+
+
 class CudaTraceKernel:
     """Wrapper of one traversal kernel source: builds and loads it at first
     use, checks its arguments, launches it on the current stream, and
     counts launches of all forms in ``launches`` and of each in
-    ``launches_by_form`` (keys ``FORMS``).
+    ``launches_by_form`` (keys ``FORMS``, then each form with its
+    ``layout_name``, such as ``closest@mixed-bf16``).
 
     The C entry point takes the table arguments, then origin, dirn, tmin,
     tmax, out_tri, out_t, out_u, out_v, out_node_tests, out_tri_tests,
-    n_rays, any_hit, want_uv, stats, stream."""
+    n_rays, any_hit, want_uv, stats, nodes_stream, tris_stream,
+    window_bytes, set_aside, stream."""
 
     def __init__(self, name: str, table_argtypes: list):
         self.name = name
@@ -204,6 +255,9 @@ class CudaTraceKernel:
         self.build_log = ""
         self.build_s = 0.0
         self._fn = None
+        self._lib = None
+        self._l2 = {}
+        self._warned_clip = False
 
     def load(self):
         if self._fn is None:
@@ -211,23 +265,63 @@ class CudaTraceKernel:
             path, self.build_log = build_shared(
                 self.name, [self.source], [nvcc()] + NVCC_FLAGS,
                 deps=[os.path.join(CSRC, "trace_common.cuh")])
-            fn = getattr(ctypes.CDLL(path), f"{self.name}_launch")
+            lib = ctypes.CDLL(path)
+            fn = getattr(lib, f"{self.name}_launch")
             self.build_s = time.perf_counter() - t0
-            vp, ci = ctypes.c_void_p, ctypes.c_int
+            vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
             fn.restype = ci
-            fn.argtypes = self.table_argtypes + [vp] * 10 + [ci] * 4 + [vp]
+            fn.argtypes = self.table_argtypes + [vp] * 10 + [ci] * 6 + [sz, sz, vp]
+            lib.trace_l2_info.restype = ci
+            lib.trace_l2_info.argtypes = [ci, ctypes.POINTER(ctypes.c_longlong)]
+            lib.trace_l2_release.restype = ci
+            lib.trace_l2_release.argtypes = []
+            self._lib = lib
             self._fn = fn
         return self._fn
+
+    def l2_info(self, device) -> dict:
+        """The card's L2 size, its largest persisting set-aside and largest
+        access-policy window, in bytes (cudaDevAttrL2CacheSize,
+        cudaDevAttrMaxPersistingL2CacheSize,
+        cudaDevAttrMaxAccessPolicyWindowSize), read once per device."""
+        device = torch.device(device)
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        if index not in self._l2:
+            self.load()
+            out = (ctypes.c_longlong * 3)()
+            err = self._lib.trace_l2_info(index, out)
+            if err != 0:
+                raise RuntimeError(f"{self.name}: reading the L2 attributes failed: "
+                                   f"cudaError {err}")
+            self._l2[index] = {"l2_bytes": out[0], "max_persisting_l2": out[1],
+                               "max_window": out[2]}
+        return self._l2[index]
+
+    def l2_window(self, table_bytes: int, device) -> tuple[int, int]:
+        """(window bytes, set-aside bytes) of a mixed launch over a node
+        table of ``table_bytes``: the window clipped to the card's largest,
+        the set-aside the smaller of the window and the card's largest
+        set-aside (hitRatio = set-aside / window)."""
+        info = self.l2_info(device)
+        window = min(table_bytes, info["max_window"])
+        if window < table_bytes and not self._warned_clip:
+            self._warned_clip = True
+            warnings.warn(f"{self.name}: node table of {table_bytes} B exceeds the largest "
+                          f"access-policy window; clipped to {window} B", RuntimeWarning,
+                          stacklevel=3)
+        return window, min(window, info["max_persisting_l2"])
 
     def reset_counts(self) -> None:
         self.launches = 0
         self.launches_by_form = dict.fromkeys(FORMS, 0)
 
     def launch(self, tables: list, table_args: list, rays: Rays, any_hit: bool,
-               want_uv: bool, with_stats: bool):
-        """Check ``tables`` ([(name, tensor, dtype, shape)]; float32 tables
-        are read as float4 rows) and ``rays``, launch the form, and return
-        what the plain version returns."""
+               want_uv: bool, with_stats: bool, residency: str = "vmem",
+               bf16_nodes: bool = False):
+        """Check ``tables`` ([(name, tensor, dtype, shape)]; the first is
+        the node table, and float32 and int32 tables are read as 16-byte
+        rows) and ``rays``, launch the form on tables of ``residency``, and
+        return what the plain version returns."""
         dev = rays.origin.device
         if dev.type != "cuda":
             raise ValueError(f"{self.name} needs CUDA tensors, got {dev}")
@@ -241,11 +335,16 @@ class CudaTraceKernel:
                                  f"{x.dtype} {tuple(x.shape)} on {x.device}")
             if not x.is_contiguous():
                 raise ValueError(f"{name}: must be contiguous")
-            if i < len(tables) and dtype == f32 and x.data_ptr() % 16:
-                raise ValueError(f"{name}: the kernel reads float4 rows, need 16-byte alignment")
+            if i < len(tables) and x.dim() == 2 and x.data_ptr() % 16:
+                raise ValueError(f"{name}: the kernel reads 16-byte rows, need 16-byte "
+                                 "alignment")
         if n >= 2**31:
             raise ValueError(f"{self.name} indexes rays with int32")
+        nodes_stream, tris_stream = _residency_flags(residency)
         fn = self.load()
+        window = set_aside = 0
+        if tris_stream and not nodes_stream and tables[0][1].numel():
+            window, set_aside = self.l2_window(tables[0][1].numel() * 4, dev)
         tri = torch.empty((n,), dtype=i32, device=dev)
         t = torch.empty((n,), dtype=f32, device=dev)
         uv = [torch.empty((n,), dtype=f32, device=dev) for _ in range(2)] if want_uv else None
@@ -258,11 +357,15 @@ class CudaTraceKernel:
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(*table_args, rays.origin.data_ptr(), rays.dirn.data_ptr(),
                      rays.tmin.data_ptr(), rays.tmax.data_ptr(), *outs, n, int(bool(any_hit)),
-                     int(bool(want_uv)), int(bool(with_stats)), stream)
+                     int(bool(want_uv)), int(bool(with_stats)), int(nodes_stream),
+                     int(tris_stream), window, set_aside, stream)
+        if set_aside:
+            _L2_HELD.add(self)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: cudaError {err}")
         self.launches += 1
-        self.launches_by_form[form_name(any_hit, want_uv, with_stats)] += 1
+        key = form_name(any_hit, want_uv, with_stats) + layout_name(residency, bf16_nodes)
+        self.launches_by_form[key] = self.launches_by_form.get(key, 0) + 1
         if not want_uv:
             # The frame forms write no u, v: zeros, enqueued after the
             # kernel so that their fills run behind it, not before it.

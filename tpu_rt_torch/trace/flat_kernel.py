@@ -20,7 +20,14 @@ miss of an any-hit ray is comparable.)
 - ``trace_flat_plain`` is a wavefront loop over the batch in PyTorch ops:
   each step moves every live ray by one node or one whole leaf.
 - ``upload_flat`` turns ``tpu_rt``'s or the port's FlatBVH (numpy) into
-  device tables with the same bits.
+  device tables with the same bits, or with bf16 node records
+  (``tables.pack_bf16_nodes``), in a residency (``tables.RESIDENCIES``):
+  the counterpart of ``trace_packet2``'s ``bf16_nodes=`` and ``hbm=``.
+
+With bf16 node records the boxes are rounded outward, so the hits keep the
+f32 tree's ``t`` (and ``tri`` up to exact-``t`` ties) while the visit order
+and counters are the bf16 tree's; the kernel's bf16 forms equal the plain
+version's bit for bit, the oracle's only in ``t``.
 """
 
 from __future__ import annotations
@@ -40,25 +47,42 @@ from tpu_rt_torch.trace.common import (
     drain_plain,
     safe_inv,
     tree_depth,
+    visit_masks,
     woop_rows,
+)
+from tpu_rt_torch.trace.tables import (
+    TABLE_BUDGET,
+    choose_node_format,
+    pack_bf16_nodes,
+    check_residency,
+    tables2_residency,
 )
 
 
 class FlatTables(NamedTuple):
     """Device tables of one FlatBVH."""
 
-    nodes: torch.Tensor        # [N, 16] f32, cols 12..15 int32 bits
+    nodes: torch.Tensor        # [N, 16] f32, cols 12..15 int32 bits; bf16: [N, 8] i32
     woop: torch.Tensor         # [max(R, 1), 16] f32, col 12 the triangle id bits
     leaf_counts: torch.Tensor  # [R + 1] i32, the last entry the empty leaf
     depth: int                 # inner-node levels (0 when empty)
+    residency: str = "vmem"    # one of tables.RESIDENCIES
+    bf16_nodes: bool = False   # nodes as bf16 records (tables.pack_bf16_nodes)
 
 
-def upload_flat(flat, device) -> FlatTables:
-    """Device tables for a FlatBVH: the node rows and leaf counts byte for
-    byte, and the Woop rows padded to 16 floats with the original triangle
-    id in slot 12 (so no ``tri_index`` gather is needed).  The binary stack
-    holds at most one entry per level, so a tree deeper than ``STACK_SIZE``
-    raises ``StackDepthError``."""
+def upload_flat(flat, device, residency=None, bf16_nodes: bool | None = None,
+                budget_bytes: int | None = None) -> FlatTables:
+    """Device tables for a FlatBVH: the node rows (or their bf16 records)
+    and leaf counts byte for byte, and the Woop rows padded to 16 floats
+    with the original triangle id in slot 12 (so no ``tri_index`` gather is
+    needed).  The binary stack holds at most one entry per level, so a tree
+    deeper than ``STACK_SIZE`` raises ``StackDepthError``.
+
+    As ``trace_packet2``: ``bf16_nodes=None`` takes the node format (and,
+    unless given, the residency) from ``choose_node_format``; a given
+    format with ``residency=None`` takes ``tables2_residency``.  The policy's
+    budget is ``budget_bytes``, by default ``tables.TABLE_BUDGET`` (none:
+    vmem f32) on every device."""
     nodes = np.ascontiguousarray(flat.nodes, np.float32)
     if nodes.ndim != 2 or nodes.shape[1] != 16:
         raise ValueError(f"flat nodes must be [N, 16], got {nodes.shape}")
@@ -69,10 +93,33 @@ def upload_flat(flat, device) -> FlatTables:
         raise ValueError("flat_trace indexes nodes and leaves with int32")
     if counts.shape[0] == 0:
         counts = np.zeros(1, np.int32)
+    if bf16_nodes is None or residency is None:
+        budget = TABLE_BUDGET if budget_bytes is None else budget_bytes
+        if bf16_nodes is None:
+            auto, bf16_nodes = choose_node_format(flat, budget)
+            residency = auto if residency is None else residency
+        elif residency is None:
+            residency = tables2_residency(flat, bf16_nodes, budget)
+    residency = check_residency(residency)
+    if bf16_nodes:
+        nodes = pack_bf16_nodes(nodes)
     woop = woop_rows(flat.tri_woop, flat.tri_index)
     return FlatTables(nodes=torch.tensor(nodes, device=device),
                       woop=torch.tensor(woop, device=device),
-                      leaf_counts=torch.tensor(counts, device=device), depth=depth)
+                      leaf_counts=torch.tensor(counts, device=device), depth=depth,
+                      residency=residency, bf16_nodes=bool(bf16_nodes))
+
+
+def decode_bf16_nodes(nodes: torch.Tensor) -> torch.Tensor:
+    """bf16 node records [N, 8] i32 as f32 node rows [N, 16]: each bound
+    widened exactly (low half ``w << 16``, high half ``w & 0xFFFF0000``),
+    the links in cols 12, 13 as int32 bits, cols 14, 15 zero."""
+    words = nodes[:, :6]
+    lo = (words << 16).view(torch.float32)
+    hi = (words & -65536).view(torch.float32)
+    bounds = torch.stack((lo, hi), dim=2).reshape(-1, 12)
+    links = nodes[:, 6:8].contiguous().view(torch.float32)
+    return torch.cat((bounds, links, torch.zeros_like(links)), dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -85,21 +132,31 @@ _HI = ((1, 3, 9), (5, 7, 11))
 
 
 def trace_flat_plain(tables: FlatTables, rays: Rays, any_hit: bool = False,
-                     want_uv: bool = False, with_stats: bool = False):
+                     want_uv: bool = False, with_stats: bool = False,
+                     visited: dict | None = None):
     """Closest hit per ray, or with ``any_hit`` the first accepted hit in
     visit order, as ``trace_flat_scalar``, in PyTorch ops on the device of
-    ``rays``.  Every float op is the oracle's, in its order.  In each step a
+    ``rays``.  Every float op is the oracle's, in its order, on the f32
+    rows or on the bf16 records widened as the kernel widens them (the
+    residency does not change the function).  In each step a
     ray at an inner node tests both children and goes to the nearer hit one
     (pushing the other) or pops; a ray at a leaf link drains the leaf and
-    pops.  Returns what ``trace_flat`` returns."""
+    pops.  Returns what ``trace_flat`` returns.  With ``visited`` (a dict)
+    it also records the rows the trace reads, as the kernel reads them:
+    ``visited["nodes"]``, ``["woop"]`` and ``["leaf_counts"]``, bool masks
+    over the tables' rows (``common.visit_masks``)."""
     dev = rays.origin.device
     n = rays.origin.shape[0]
     nodes = tables.nodes.to(dev)
+    if tables.bf16_nodes:
+        nodes = decode_bf16_nodes(nodes)
     links = nodes.view(torch.int32)[:, 12:14]
     woop = tables.woop.to(dev)
     woop_i = woop.view(torch.int32)
     counts = tables.leaf_counts.to(dev)
     st = TraceState.start(rays)
+    seen = visit_masks(visited, dev, nodes=nodes.shape[0], woop=woop.shape[0],
+                       leaf_counts=counts.shape[0])
     if nodes.shape[0] == 0 or n == 0:
         return st.result(want_uv, with_stats)
 
@@ -125,6 +182,8 @@ def trace_flat_plain(tables: FlatTables, rays: Rays, any_hit: bool = False,
             r = ids[sel]
             nd = node[sel]
             st.node_tests[r] += 1
+            if seen is not None:
+                seen["nodes"][nd] = True
             box = nodes[nd]
             ia = idir[r][:, None, :]
             oa = ood[r][:, None, :]
@@ -154,8 +213,12 @@ def trace_flat_plain(tables: FlatTables, rays: Rays, any_hit: bool = False,
         sel = at_leaf
         if sel.numel():
             first = ~node[sel]
-            count = counts[first.clamp(max=counts.shape[0] - 1)]
-            drain_plain(woop, woop_i, first, count, ids[sel], rays, st, any_hit)
+            leaf = first.clamp(max=counts.shape[0] - 1)
+            count = counts[leaf]
+            if seen is not None:
+                seen["leaf_counts"][leaf] = True
+            drain_plain(woop, woop_i, first, count, ids[sel], rays, st, any_hit,
+                        None if seen is None else seen["woop"])
             pop[sel] = True
 
         can = pop & (sp > 0)
@@ -177,18 +240,20 @@ class FlatTraceKernel(CudaTraceKernel):
 
     def __init__(self):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        super().__init__("flat_trace", [vp, ci, vp, vp, ci])
+        super().__init__("flat_trace", [vp, ci, ci, vp, vp, ci])
 
     def __call__(self, tables: FlatTables, rays: Rays, any_hit: bool = False,
                  want_uv: bool = False, with_stats: bool = False):
         f32 = torch.float32
         nc = tables.leaf_counts.shape[0]
-        checks = [("nodes", tables.nodes, f32, (tables.nodes.shape[0], 16)),
+        node_spec = (torch.int32, 8) if tables.bf16_nodes else (f32, 16)
+        checks = [("nodes", tables.nodes, node_spec[0], (tables.nodes.shape[0], node_spec[1])),
                   ("woop", tables.woop, f32, (tables.woop.shape[0], 16)),
                   ("leaf_counts", tables.leaf_counts, torch.int32, (nc,))]
-        args = [tables.nodes.data_ptr(), tables.nodes.shape[0], tables.woop.data_ptr(),
-                tables.leaf_counts.data_ptr(), nc]
-        return self.launch(checks, args, rays, any_hit, want_uv, with_stats)
+        args = [tables.nodes.data_ptr(), tables.nodes.shape[0], int(tables.bf16_nodes),
+                tables.woop.data_ptr(), tables.leaf_counts.data_ptr(), nc]
+        return self.launch(checks, args, rays, any_hit, want_uv, with_stats, tables.residency,
+                           tables.bf16_nodes)
 
 
 KERNEL = FlatTraceKernel()

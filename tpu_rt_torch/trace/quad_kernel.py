@@ -20,7 +20,9 @@ is held to the plain version's).
   each step processes the current node of every live ray.
 - ``upload_quad`` turns any object with numpy ``nodes``/``tri_woop``/
   ``tri_index`` (``tpu_rt``'s QuadBVH or the port's) into device tables
-  with the same bits.
+  with the same bits, in a residency (``tables.RESIDENCIES``; the
+  counterpart of ``trace_packet4``'s ``hbm=``).  The residency changes only
+  the kernel's load hints, never the function.
 
 The kernel is built with nvcc for sm_90a at first launch into the port's
 git-ignored build directory and loaded with ctypes; ``KERNEL.launches``
@@ -46,23 +48,37 @@ from tpu_rt_torch.trace.common import (
     drain_plain,
     safe_inv,
     tree_depth,
+    visit_masks,
     woop_rows,
+)
+from tpu_rt_torch.trace.tables import (
+    QUAD_NODE_BYTES,
+    TABLE_BUDGET,
+    WOOP_ROW_BYTES,
+    quad_residency,
+    check_residency,
 )
 
 
 class QuadTables(NamedTuple):
     """Device tables of one QuadBVH."""
 
-    nodes: torch.Tensor  # [Q, 32] f32, cols 24..28 int32 bits
-    woop: torch.Tensor   # [max(R, 1), 16] f32, col 12 the triangle id bits
-    depth: int           # levels of the quad tree (0 when empty)
+    nodes: torch.Tensor      # [Q, 32] f32, cols 24..28 int32 bits
+    woop: torch.Tensor       # [max(R, 1), 16] f32, col 12 the triangle id bits
+    depth: int               # levels of the quad tree (0 when empty)
+    residency: str = "vmem"  # one of tables.RESIDENCIES
 
 
-def upload_quad(quad, device) -> QuadTables:
+def upload_quad(quad, device, residency=None, budget_bytes: int | None = None) -> QuadTables:
     """Device tables for a QuadBVH: the node records byte for byte, and the
     Woop rows padded to 16 floats with the original triangle id in slot 12.
     A node pushes at most 3 children, so a tree of depth D needs a stack of
-    3 * D; a deeper tree raises ``StackDepthError``."""
+    3 * D; a deeper tree raises ``StackDepthError``.
+
+    ``residency=None`` applies ``trace_packet4``'s rule
+    (``tables.quad_residency``) to these tables' bytes (128 per node, 64
+    per Woop row; ``tpu_rt`` counts its 128-lane-padded tables) within
+    ``budget_bytes``, by default ``tables.TABLE_BUDGET`` (none: vmem)."""
     nodes = np.ascontiguousarray(quad.nodes, np.float32)
     if nodes.ndim != 2 or nodes.shape[1] != 32:
         raise ValueError(f"quad nodes must be [Q, 32], got {nodes.shape}")
@@ -71,9 +87,14 @@ def upload_quad(quad, device) -> QuadTables:
     if nodes.shape[0] >= 2**31:
         raise ValueError("quad_trace indexes nodes with int32")
     woop = woop_rows(quad.tri_woop, quad.tri_index)
+    if residency is None:
+        budget = TABLE_BUDGET if budget_bytes is None else budget_bytes
+        residency = quad_residency(nodes.shape[0] * QUAD_NODE_BYTES,
+                                   woop.shape[0] * WOOP_ROW_BYTES, budget)
     # torch.tensor copies the bytes: NaN boxes and link bits stay as built.
     return QuadTables(nodes=torch.tensor(nodes, device=device),
-                      woop=torch.tensor(woop, device=device), depth=depth)
+                      woop=torch.tensor(woop, device=device), depth=depth,
+                      residency=check_residency(residency))
 
 
 # ---------------------------------------------------------------------------
@@ -81,13 +102,17 @@ def upload_quad(quad, device) -> QuadTables:
 # ---------------------------------------------------------------------------
 
 def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
-                     want_uv: bool = False, with_stats: bool = False):
+                     want_uv: bool = False, with_stats: bool = False,
+                     visited: dict | None = None):
     """Closest hit per ray, or with ``any_hit`` the first accepted hit in
     visit order, as ``trace_quad_scalar``, in PyTorch ops on the device of
     ``rays``.  Every float op is the oracle's, in its order: explicit
     three-term sums, NaN-propagating min/max, 1/d then multiply.  An any-hit
     ray that holds a hit drains no later leaf and leaves the live set.
-    Returns what ``trace_quad`` returns."""
+    Returns what ``trace_quad`` returns.  With ``visited`` (a dict) it also
+    records the rows the trace reads, as the kernel reads them:
+    ``visited["nodes"]`` and ``["woop"]``, bool masks over the tables' rows
+    (``common.visit_masks``)."""
     dev = rays.origin.device
     n = rays.origin.shape[0]
     nodes = tables.nodes.to(dev)
@@ -95,6 +120,7 @@ def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
     woop = tables.woop.to(dev)
     woop_i = woop.view(torch.int32)
     st = TraceState.start(rays)
+    seen = visit_masks(visited, dev, nodes=nodes.shape[0], woop=woop.shape[0])
     if nodes.shape[0] == 0 or n == 0:
         return st.result(want_uv, with_stats)
 
@@ -112,6 +138,8 @@ def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
         a = ids.shape[0]
         rows = torch.arange(a, device=dev)
         st.node_tests[ids] += 1
+        if seen is not None:
+            seen["nodes"][node] = True
         # Slab tests of the four children in stored order.
         box = nodes[node, :24].reshape(a, 4, 6)
         lk = nodes_i[node, 24:28].long()
@@ -145,7 +173,7 @@ def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
             if sel.numel():
                 c = ~lk_v[sel, p]
                 drain_plain(woop, woop_i, c & FIRST_MASK, (c >> COUNT_SHIFT) & 0xFF, ids[sel],
-                            rays, st, any_hit)
+                            rays, st, any_hit, None if seen is None else seen["woop"])
 
         # Inner children: go to the first in visit order, push the others
         # last-first so the second pops next.
@@ -185,7 +213,7 @@ class QuadTraceKernel(CudaTraceKernel):
         checks = [("nodes", tables.nodes, f32, (tables.nodes.shape[0], 32)),
                   ("woop", tables.woop, f32, (tables.woop.shape[0], 16))]
         args = [tables.nodes.data_ptr(), tables.nodes.shape[0], tables.woop.data_ptr()]
-        return self.launch(checks, args, rays, any_hit, want_uv, with_stats)
+        return self.launch(checks, args, rays, any_hit, want_uv, with_stats, tables.residency)
 
 
 KERNEL = QuadTraceKernel()

@@ -29,7 +29,7 @@ from tpu_rt_torch.trace.common import STACK_SIZE, check_stack, safe_inv, tree_de
 STACK_DEPTH = STACK_SIZE  # tpu_rt's name; the reference's STACK_SIZE (kepler_dynamic_fetch.cu:47)
 
 
-def device_bvh(flat: FlatBVH, device="cpu") -> FlatBVH:
+def device_bvh(flat: FlatBVH, device="cuda") -> FlatBVH:
     """Upload a host FlatBVH to ``device`` as a FlatBVH of tensors (nodes
     f32 [N,16], tri_woop f32 [R,12], tri_index and leaf_counts i32).  A tree
     deeper than ``STACK_DEPTH`` levels raises ``StackDepthError``."""
