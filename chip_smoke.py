@@ -5,10 +5,13 @@ Drives the port's main paths once through the entry points a user calls,
 and holds every kernel form against its plain PyTorch version and the host
 oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 
-1.   builds both kernels (quad_trace.cu, flat_trace.cu; one nvcc each, run
-     together; 24 + 48 forms) and prints ptxas' registers, stack and spills
-     per form; the vmem f32 frame forms must keep their registers from
-     before the layout flags.
+1.   builds every kernel library (quad_trace.cu, quad_trace_c.cu,
+     flat_trace.cu, flat_trace_c.cu, flat_trace_mxu.cu, mxu_ablate.cu; one
+     nvcc each, all run together; 24 + 24 + 48 + 48 + 48 + 5 forms) and
+     prints ptxas' registers, stack and spills per form; the vmem f32 frame
+     forms must keep their registers from before the layout and
+     postponed-leaf flags, and the tensor-core forms' SASS (cuobjdump) must
+     hold DMMA.
 2-5. bunny (144,500 triangles), SBVH build, 4-wide collapse, Morton-ordered
      primary rays at 640x480, the closest-hit trace through
      ``Renderer(tracer="auto")`` (the CUDA quad kernel) and the image; the
@@ -64,6 +67,22 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      reverse order, the persisting L2 released after each form), and of
      the plain versions, and the census (node and triangle tests per ray,
      f32 against bf16, warp efficiency).
+20.  the triangle phase on bunny: the primary frame through
+     ``Renderer(tracer="packet", mxu=True)`` (the tensor-core leaf test)
+     and ``Renderer(tracer="packet", cursors=2)`` (postponed leaves), each
+     a path of its own, against the binary frame of phase 10.
+21.  the conference AO frame (8 samples, 2 batches) through "packet" with
+     mxu=True, "packet" with cursors=3 and "packet4" with cursors=2, each
+     a path of its own, against the first versions' AO frames.
+22.  every form of the three new libraries (frame, uv, stats; closest hit
+     on the bunny primary frame's rays, any hit on AO batch 1) against its
+     plain version on every ray, the first versions' results and the
+     oracles on 8,192 rays; the census at 1, 2 and 3 cursors and with mxu.
+23.  kernel times of the first versions' and the new forms on the same
+     rays, in two passes, the second in reverse order.
+24.  the MXU ablation probe (``tpu_rt_torch.probes.mxu_ablate``) at 16,384
+     and 262,144 rays: ns per iteration of each variant, each checked
+     against its plain version.
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
@@ -74,9 +93,13 @@ the run with a nonzero exit and no result line.  The last line is
 form with the path it was counted on and its launches in that path's run,
 its largest deviation from the plain version, both versions' times, and
 its bound: the larger of the operations its node and triangle tests need
-over the f32 peak and the table rows its rays read, rays and hits over the
-memory rate (``bound``).  No single PyTorch
-call computes a BVH traversal, so ``library_ms`` is null.
+over the peak of their type (f32; the tensor-core form's dot products at
+the FP64 tensor rate) and the table rows its rays read, rays and hits over
+the memory rate (``bound``).  The new forms' entries say in ``timed_on``
+which rays their times were taken on; their ``plain_ms`` is one call of
+the plain version's full form (u, v and counters), timed with CUDA events
+in phase 22; the probe's times are per iteration.  No single PyTorch call
+computes a BVH traversal, so ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -106,6 +129,7 @@ ORACLE_RAYS = 8192
 DEVICE = "cuda"
 CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_bvhcache")
 PACKET2 = "tpu_rt/trace/packet2.py:404"
+PROBE_VARIANTS = ("scalar", "full", "noL", "noM", "epi0")   # mxu_ablate.cu's order
 
 
 def check(ok: bool, what: str) -> None:
@@ -164,29 +188,42 @@ def strided(n: int, dev) -> torch.Tensor:
     return torch.arange(0, n, max(n // ORACLE_RAYS, 1), device=dev)[:ORACLE_RAYS]
 
 
-# ptxas of the vmem f32 frame forms before the layout flags: the residency and
-# node-format flags must leave their code as it was.
+# ptxas of the vmem f32 frame forms before the layout flags: the residency,
+# node-format and postponed-leaf flags must leave their code as it was.
 PTXAS_VMEM_F32 = {"quad_trace<any=0,uv=0,stats=0>": (53, 256),
                   "quad_trace<any=1,uv=0,stats=0>": (48, 256),
                   "flat_trace<any=0,uv=0,stats=0>": (32, 256),
                   "flat_trace<any=1,uv=0,stats=0>": (36, 256)}
+# The template flags of each traversal kernel, in order.
+KERNEL_FLAGS = {"quad_trace": ("any", "uv", "stats", "sn", "st", "c"),
+                "flat_trace": ("any", "uv", "stats", "bf16", "sn", "st", "c"),
+                "flat_trace_mxu": ("any", "uv", "stats", "bf16", "sn", "st")}
+N_FORMS = 24 + 24 + 48 + 48 + 48 + 5   # quad, quad_c, flat, flat_c, flat_mxu, the probe
 
 
 def ptxas_forms(log: str) -> list[tuple[str, int, int, str]]:
     """One entry per compiled kernel form: (name, registers, stack bytes,
-    the line to print).  The name is the kernel, its three form flags, then
-    the layout: "@" + residency (+ "-bf16"), nothing for vmem f32."""
+    the line to print).  The name is the library (the kernel, "_c" for its
+    postponed-leaf forms), its three form flags, then the layout: "@" +
+    residency (+ "-bf16"), nothing for vmem f32; the probe's are
+    "mxu_ablate<variant>"."""
     out, name, stack, stack_b = [], None, "", 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            flags = re.search(r"([a-z]+_trace)_kernelI((?:Lb[01]E)+)E", m.group(1))
+            flags = re.search(r"(quad_trace|flat_trace_mxu|flat_trace)_kernelI((?:Lb[01]E)+)E",
+                              m.group(1))
+            probe = re.search(r"mxu_ablate_kernelILi(\d)E", m.group(1))
             if flags:
-                b = [int(x) for x in re.findall(r"Lb([01])E", flags.group(2))]
-                bf16 = len(b) == 6 and b[3] == 1
-                res = ("hbm" if b[-2] else "mixed") if b[-1] else "vmem"
+                f = dict(zip(KERNEL_FLAGS[flags.group(1)],
+                             (int(x) for x in re.findall(r"Lb([01])E", flags.group(2)))))
+                res = ("hbm" if f["sn"] else "mixed") if f["st"] else "vmem"
+                bf16 = f.get("bf16", 0) == 1
                 lay = "" if res == "vmem" and not bf16 else f"@{res}" + ("-bf16" if bf16 else "")
-                name = f"{flags.group(1)}<any={b[0]},uv={b[1]},stats={b[2]}>{lay}"
+                lib = flags.group(1) + ("_c" if f.get("c") else "")
+                name = f"{lib}<any={f['any']},uv={f['uv']},stats={f['stats']}>{lay}"
+            elif probe:
+                name = f"mxu_ablate<{PROBE_VARIANTS[int(probe.group(1))]}>"
             else:
                 name = m.group(1)
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -823,19 +860,31 @@ def binary_timing(t0, quad_k, flat_k, bctx, fb, cctx, fc):
 # tests (the plain version's counters).
 SLAB_OPS, WOOP_OPS, RAY_OPS = 25, 15, 6
 PEAK_F32_FLOPS = 67e12      # H100 SXM, f32 outside the tensor cores
+PEAK_F64_TENSOR_FLOPS = 67e12   # H100 SXM, FP64 tensor cores (DMMA)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 RAY_IN_BYTES, HIT_OUT_BYTES = 32, 8
+# The tensor-core leaf test per candidate: 6 dot products of 4 terms (48
+# f64 operations on the tensor cores), then the f32 epilogue (a division,
+# 2 multiplies, 3 adds and 6 compares).
+MXU_DOT_OPS, MXU_EPI_OPS = 48, 12
 
 
-def bound(what, tables, rays, counts, seen, boxes, want_uv=False, with_stats=False):
+def bound(what, tables, rays, counts, seen, boxes, want_uv=False, with_stats=False, mxu=False):
     """The least time of one trace (ms) and what bounds it: the larger of
-    the operations its node and triangle tests need over the f32 peak, and
-    the bytes it must move over the memory rate: each table row that this
-    run's rays read (``seen``, the plain version's ``visited`` masks), once,
-    plus rays in and hits out.  Prints both terms."""
+    the operations its node and triangle tests need over the peak of their
+    type (f32; with ``mxu`` the triangle tests' dot products at the FP64
+    tensor rate), and the bytes it must move over the memory rate: each
+    table row that this run's rays read (``seen``, the plain version's
+    ``visited`` masks), once, plus rays in and hits out.  Prints both
+    terms."""
     nt = float(counts["node_tests"].double().sum())
     tt = float(counts["tri_tests"].double().sum())
-    ops = nt * boxes * SLAB_OPS + tt * WOOP_OPS + rays.num * RAY_OPS
+    if mxu:
+        ops = nt * boxes * SLAB_OPS + tt * MXU_EPI_OPS + rays.num * RAY_OPS
+        t_dots = tt * MXU_DOT_OPS / PEAK_F64_TENSOR_FLOPS * 1e3
+    else:
+        ops = nt * boxes * SLAB_OPS + tt * WOOP_OPS + rays.num * RAY_OPS
+        t_dots = 0.0
     rows = {}
     for name, mask in seen.items():
         x = getattr(tables, name)
@@ -844,10 +893,12 @@ def bound(what, tables, rays, counts, seen, boxes, want_uv=False, with_stats=Fal
     table_b = sum(r * b for r, _, b in rows.values())
     out_b = HIT_OUT_BYTES + (8 if want_uv else 0) + (8 if with_stats else 0)
     nbytes = table_b + rays.num * (RAY_IN_BYTES + out_b)
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3 + t_dots, nbytes / PEAK_BYTES * 1e3
     print(f"bound {what}: rows read " + ", ".join(f"{k} {r} of {n} ({r * b} B)"
                                                   for k, (r, n, b) in rows.items())
-          + f"; {nbytes} B in all -> {t_bytes:.6f} ms; {ops:.6g} operations -> {t_ops:.6f} ms")
+          + f"; {nbytes} B in all -> {t_bytes:.6f} ms; {ops:.6g} f32 operations"
+          + (f" + {tt * MXU_DOT_OPS:.6g} f64 tensor operations" if mxu else "")
+          + f" -> {t_ops:.6f} ms")
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops > t_bytes
             else "bytes"}
 
@@ -1305,10 +1356,405 @@ def dragon_entries(quad_k, flat_k, fctx, times, plain_ms):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-24: the triangle phase (postponed leaves, the tensor-core leaf
+# test) and its ablation probe
+# ---------------------------------------------------------------------------
+
+LEAF_CURSORS = f"{PACKET2} (C > 1 leaf cursors :72-77, refill :572-587, drain :783-897"
+MXU_UNIT = f"{PACKET2} (MXU triangle unit :792-862, ray matrix :978-993, U = MAX_LEAF :1110-1111"
+
+
+def trace_kernels():
+    from tpu_rt_torch.trace import flat_kernel, quad_kernel
+
+    return (*quad_kernel.KERNELS, *flat_kernel.KERNELS)
+
+
+def render_path(renderer, camera):
+    """One frame through the user's entry points, every traversal library's
+    launch counts set to 0 just before and read just after.  Returns
+    (stats, image, {library: {form: launches}} (nonzero only), wall s)."""
+    kernels = trace_kernels()
+    for k in kernels:
+        k.reset_counts()
+    t0 = time.perf_counter()
+    stats = renderer.render_frame(camera)
+    image = renderer.update_result()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: {f: v for f, v in k.launches_by_form.items() if v} for k in kernels}
+    return stats, image, {k: v for k, v in counts.items() if v}, wall
+
+
+def rays_equal(a, b) -> torch.Tensor:
+    """Per ray: all of origin, dirn, tmin, tmax the same bits."""
+    same = torch.ones(a.num, dtype=torch.bool, device=a.origin.device)
+    for x, y in zip(a, b):
+        eq = x.view(torch.int32) == y.view(torch.int32)
+        same &= eq.all(1) if eq.dim() > 1 else eq
+    return same
+
+
+def triangle_paths(t0, bctx, fb, cctx, fc):
+    """Phases 20-21: the triangle-phase options through the Renderer, each a
+    path of its own: bunny primary with tracer="packet" and mxu=True, and
+    with cursors=2; conference AO (8 samples, 2 batches) with "packet" and
+    mxu=True, with cursors=3, and "packet4" with cursors=2.  Each frame
+    against the same kernel's first-versions frame of phases 2-11: t
+    bit-equal for postponed leaves (tri at exact-t ties only), the AO
+    samples' hit / miss equal on every ray both frames share; the MXU form
+    the same but for rays that graze an edge."""
+    from tpu_rt_torch.renderer import Renderer, RendererParams
+
+    paths = {}
+    for label, kw, lib, kind in (("packet, mxu=True", {"mxu": True}, "flat_trace_mxu",
+                                  "flat-cuda-mxu"),
+                                 ("packet, cursors=2", {"cursors": 2}, "flat_trace_c",
+                                  "flat-cuda-c2")):
+        r = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE, tracer="packet",
+                                                   **kw))
+        r.set_scene(bctx["scene"])
+        stats, image, counts, wall = render_path(r, bctx["camera"])
+        frame_line(f"{SCENE} primary frame, {label}", r, stats, counts, wall)
+        form = "closest" + ("_mxu" if "mxu" in kw else "_c")
+        check(stats["tracer"] == kind, f"{label}: tracer {stats['tracer']}, want {kind}")
+        check(counts == {lib: {form: 1}}, f"{label}: the primary path launched {counts}")
+        check_image(image, f"{SCENE} primary, {label}")
+        base, hits = fb["renderer"].primary.hits, r.primary.hits
+        t_bad = bits_differ(hits.t, base.t)
+        tri_bad = int((hits.tri != base.tri).sum())
+        print(f"{label} vs the binary kernel's frame (phase 10): t bit mismatches {t_bad}, tri "
+              f"mismatches {tri_bad} of {hits.t.numel()}")
+        if "cursors" in kw:
+            check(t_bad == 0, f"{label}: t differs from the first versions' frame")
+        else:
+            check(tri_bad <= 1e-3 * hits.t.numel(), f"{label}: tri differs on {tri_bad} rays")
+        paths[(SCENE, label)] = {"renderer": r, "counts": counts}
+    phase("bunny triangle-phase frames done", t0)
+
+    for label, prefer, kw, lib, kind in (
+            ("packet, mxu=True", "packet", {"mxu": True}, "flat_trace_mxu", "flat-cuda-mxu"),
+            ("packet, cursors=3", "packet", {"cursors": 3}, "flat_trace_c", "flat-cuda-c3"),
+            ("packet4, cursors=2", "packet4", {"cursors": 2}, "quad_trace_c", "quad-cuda-c2")):
+        ao = Renderer(WIDTH, HEIGHT, RendererParams(
+            ray_type="ao", num_samples=AO_SAMPLES, ao_radius=cctx["radius"],
+            max_batch=AO_MAX_BATCH, cache_dir=CACHE, device=DEVICE, tracer=prefer, **kw))
+        ao.set_scene(cctx["scene"])
+        stats, image, counts, wall = render_path(ao, cctx["camera"])
+        frame_line(f"{SECONDARY_SCENE} AO frame, {label}", ao, stats, counts, wall)
+        suffix = "_mxu" if "mxu" in kw else "_c"
+        want = {lib: {"closest" + suffix: 1, "any" + suffix: stats["batches"]}}
+        check(stats["tracer"] == kind, f"{label}: tracer {stats['tracer']}, want {kind}")
+        check(counts == want, f"{label}: the AO path launched {counts}, want {want}")
+        check_image(image, f"{SECONDARY_SCENE} AO, {label}")
+        base = fc["ao"] if prefer == "packet" else cctx["ao"]
+        p_t_bad = bits_differ(ao.primary.hits.t, base.primary.hits.t)
+        p_tri_bad = int((ao.primary.hits.tri != base.primary.hits.tri).sum())
+        shared = hm_bad = 0
+        for b, bb in zip(ao._batches, base._batches):
+            same = rays_equal(b.rays, bb.rays)
+            shared += int(same.sum())
+            hm_bad += int((((b.hits.tri >= 0) != (bb.hits.tri >= 0)) & same).sum())
+        print(f"{label} AO vs the first versions' frame: primary t bit mismatches {p_t_bad}, tri "
+              f"mismatches {p_tri_bad}; hit / miss mismatches {hm_bad} on the {shared} of "
+              f"{ao.rays_traced} AO rays both frames share")
+        if "cursors" in kw:
+            check(p_t_bad == 0 and hm_bad == 0, f"{label}: AO frame differs from the first "
+                  "versions'")
+        else:
+            check(hm_bad <= 1e-3 * shared, f"{label}: AO hit / miss differs on {hm_bad} rays")
+        paths[(SECONDARY_SCENE, label)] = {"renderer": ao, "counts": counts}
+    phase("conference triangle-phase AO frames done", t0)
+    return paths
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Units in the last place between f32 values of one sign."""
+    return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+
+def agree_mxu(got_tri, got_t, s_id, s_t, what):
+    """test_pallas.py's rule for the MXU unit against the oracle: more than
+    0.999 of the ids equal, t to rtol 1e-4, atol 1e-5 where they agree on
+    a hit."""
+    agree = got_tri == s_id
+    hit = agree & (s_id >= 0)
+    dt = np.abs(got_t[hit] - s_t[hit])
+    bad_t = int((dt > 1e-5 + 1e-4 * np.abs(s_t[hit])).sum())
+    print(f"{what}: vs trace_flat_scalar on {len(s_id)} rays: id agreement "
+          f"{float(agree.mean()):.6f} ({int((~agree).sum())} disputed), t outside rtol 1e-4 / "
+          f"atol 1e-5 {bad_t}, max |dt| {float(dt.max()) if dt.size else 0.0}")
+    check(agree.mean() > 0.999 and bad_t == 0, f"{what}: differs from the oracle")
+
+
+def triangle_checks(t0, bctx, fb, cctx, fc, dev):
+    """Phase 22: every form of the new libraries (frame, uv and stats;
+    closest hit on the bunny primary frame's rays, any hit on conference AO
+    batch 1) against its plain version on every ray, against the first
+    versions' results, and against the oracles on their 8,192-ray subsets;
+    then the census.  Postponed leaves (flat_trace_c at 2 cursors on bunny,
+    3 on AO; quad_trace_c at 2): tri, t, u, v and counters equal to plain,
+    t bit-equal to the first versions' and the oracle's (tri disputes only
+    at exact-t ties).  The tensor-core form (flat_trace_mxu, 1 cursor):
+    tri equal to plain, t within 1 ulp (the rays that are not bit-equal,
+    the largest u, v deviation and the counter mismatches printed); against
+    the oracle test_pallas.py's rule."""
+    from tpu_rt_torch.trace import flat_kernel, make_routing_tracer, quad_kernel
+
+    bunny, conf = f"{SCENE} primary", f"{SECONDARY_SCENE} AO batch 1"
+    ray_sets = {("flat", bunny): (fb["renderer"].primary.rays, fb["renderer"].flat, bctx["idx"]),
+                ("flat", conf): (fc["ao"]._batches[0].rays, fc["ao"].flat, cctx["b1_idx"]),
+                ("quad", bunny): (bctx["renderer"].primary.rays, fb["renderer"].flat, bctx["idx"]),
+                ("quad", conf): (cctx["ao"]._batches[0].rays, fc["ao"].flat, cctx["b1_idx"])}
+    first = {("flat", bunny): fb["plain"][0], ("flat", conf): fc["plain"][0],
+             ("quad", bunny): bctx["plain"][0], ("quad", conf): cctx["b1_plain"][0]}
+    oracles = {("flat", bunny): fb["oracle"], ("flat", conf): fc["oracle"],
+               ("quad", bunny): fb["oracle"], ("quad", conf): cctx["b1_oracle"]}
+    families = (
+        ("flat_trace_mxu", flat_kernel.KERNEL_MXU, "flat", "packet", {"mxu": True},
+         {"mxu": True}),
+        ("flat_trace_c", flat_kernel.KERNEL_C, "flat", "packet", {"cursors": 2}, {"cursors": 3}),
+        ("quad_trace_c", quad_kernel.KERNEL_C, "quad", "packet4", {"cursors": 2},
+         {"cursors": 2}),
+    )
+    out = {}
+    for name, kern, tree, prefer, kw_b, kw_a in families:
+        plain_fn = (flat_kernel.trace_flat_plain if tree == "flat"
+                    else quad_kernel.trace_quad_plain)
+        for label, any_hit, kw in ((bunny, False, kw_b), (conf, True, kw_a)):
+            rays, flat, idx = ray_sets[(tree, label)]
+            cursors = kw.get("cursors", 1)
+            mxu = kw.get("mxu", False)
+            fn, kind, tables = make_routing_tracer(flat, prefer, dev, cache_dir=CACHE, **kw)
+            plain = partial(plain_fn, **kw)
+            seen = {}
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want, want_cnt = plain(tables, rays, any_hit, True, True, visited=seen)
+            end.record()
+            end.synchronize()
+            plain_ms = start.elapsed_time(end)
+            frame = fn(tables, rays, any_hit=any_hit)
+            uv = kern(tables, rays, any_hit, True, False, cursors)
+            hits_s, cnt = kern(tables, rays, any_hit, False, True, cursors)
+            torch.cuda.synchronize()
+            bad = {"tri": sum(int((h.tri != want.tri).sum()) for h in (frame, uv, hits_s))}
+            if mxu:
+                t_ulps = max(int(ulps(h.t, want.t).max()) for h in (frame, uv, hits_s))
+                not_equal = bits_differ(frame.t, want.t)
+                uv_err = max(float((uv.u - want.u).abs().max()), float((uv.v - want.v).abs().max()))
+                counts_bad = sum(int((cnt[k] != want_cnt[k]).sum()) for k in cnt)
+                print(f"{name} ({kind}) {label}, any_hit={any_hit}: vs plain on {rays.num} rays: "
+                      f"tri mismatches {bad['tri']}, t at most {t_ulps} ulp apart, rays not "
+                      f"bit-equal {not_equal}, max |du|, |dv| {uv_err}, counter mismatches "
+                      f"{counts_bad}")
+                check(bad["tri"] == 0 and t_ulps <= 1,
+                      f"{name} {label}: differs from its plain version")
+            else:
+                bad.update({f: bits_differ(getattr(uv, f), getattr(want, f)) for f in "tuv"})
+                bad["t_frame"] = bits_differ(frame.t, want.t)
+                bad["t_stats"] = bits_differ(hits_s.t, want.t)
+                bad.update({k: int((cnt[k] != want_cnt[k]).sum()) for k in cnt})
+                # Against the first versions (cursors = 1): closest hit t
+                # bit-equal; any hit, hit / miss.
+                base = first[(tree, label)]
+                bad["vs_first"] = (int(((frame.tri >= 0) != (base.tri >= 0)).sum()) if any_hit
+                                   else bits_differ(frame.t, base.t))
+                print(f"{name} ({kind}) {label}, any_hit={any_hit}: vs plain (and the first "
+                      f"versions) on {rays.num} rays: mismatches {bad}")
+                check(not any(bad.values()), f"{name} {label}: differs from its plain version")
+            # The oracles on the subset.
+            s = oracles[(tree, label)]
+            k_tri, k_t = frame.tri[idx].cpu().numpy(), frame.t[idx].cpu().numpy()
+            if any_hit:
+                hm = (k_tri >= 0) == (s[0] >= 0)
+                print(f"{name} {label}: any hit vs the oracle on {len(k_tri)} rays: hit / miss "
+                      f"mismatches {int((~hm).sum())}")
+                check(hm.all() if not mxu else hm.mean() > 0.999,
+                      f"{name} {label}: any hit differs from the oracle")
+            elif mxu:
+                agree_mxu(k_tri, k_t, s[0], s[1], f"{name} {label}")
+            else:
+                adjudicate(flat, [x.cpu().numpy() for x in subset(rays, idx)], k_tri, k_t, s[0],
+                           s[1], f"{name} {label}")
+            err = float((frame.t - want.t).abs().max())
+            out[(name, label)] = {"err": err, "plain_ms": plain_ms, "counts": want_cnt,
+                                  "seen": seen, "tables": tables, "rays": rays, "kind": kind}
+    phase("triangle-phase forms == plain, first versions, oracles", t0)
+
+    # The census: node and triangle tests per ray and warp efficiency, at
+    # 1, 2 and 3 cursors and with the tensor-core leaf test (the plain
+    # versions' counters, which the stats forms equal).
+    census = {}
+    for tree, label in (("flat", bunny), ("flat", conf), ("quad", bunny), ("quad", conf)):
+        rays = ray_sets[(tree, label)][0]
+        any_hit = label == conf
+        runs = {"1": {("flat", bunny): fb["plain"][1], ("flat", conf): fc["plain"][1],
+                      ("quad", bunny): bctx["plain"][1],
+                      ("quad", conf): cctx["b1_plain"][1]}[(tree, label)]}
+        if tree == "flat":
+            tables = out[("flat_trace_c", label)]["tables"]
+            for c in (2, 3):
+                key = (("flat_trace_c", label) if c == (2 if label == bunny else 3) else None)
+                runs[str(c)] = (out[key]["counts"] if key else flat_kernel.trace_flat_plain(
+                    tables, rays, any_hit, False, True, cursors=c)[1])
+            runs["mxu"] = out[("flat_trace_mxu", label)]["counts"]
+        else:
+            runs["2"] = out[("quad_trace_c", label)]["counts"]
+        parts = []
+        for c, cnt in runs.items():
+            nt, tt = cnt["node_tests"], cnt["tri_tests"]
+            census[(tree, label, c)] = (float(nt.float().mean()), float(tt.float().mean()),
+                                        warp_efficiency(nt + tt))
+            parts.append(f"{'mxu' if c == 'mxu' else 'C=' + c}: node_tests/ray "
+                         f"{census[(tree, label, c)][0]:.3f}, tri_tests/ray "
+                         f"{census[(tree, label, c)][1]:.3f}, warp efficiency "
+                         f"{census[(tree, label, c)][2]:.4f}")
+        print(f"census, {label}, {tree}: " + "; ".join(parts))
+    phase("triangle-phase census", t0)
+    return out
+
+
+def triangle_timing(t0, bctx, fb, cctx, fc):
+    """Phase 23: kernel times of the first versions' forms and of the new
+    ones on the same rays (closest hit on the bunny primary frame, any hit
+    on conference AO batch 1), in two passes, the second in reverse order;
+    a form's time is the median over both."""
+    from tpu_rt_torch.trace import trace_flat, trace_quad
+
+    f_tab = {False: fb["renderer"].tracer_tables, True: fc["ao"].tracer_tables}
+    q_tab = {False: bctx["renderer"].tracer_tables, True: cctx["ao"].tracer_tables}
+    f_rays = {False: fb["renderer"].primary.rays, True: fc["ao"]._batches[0].rays}
+    q_rays = {False: bctx["renderer"].primary.rays, True: cctx["ao"]._batches[0].rays}
+    forms = [("binary C=1", trace_flat, f_tab, f_rays, {}),
+             ("binary C=2", trace_flat, f_tab, f_rays, {"cursors": 2}),
+             ("binary C=3", trace_flat, f_tab, f_rays, {"cursors": 3}),
+             ("binary mxu", trace_flat, f_tab, f_rays, {"mxu": True}),
+             ("binary mxu C=2", trace_flat, f_tab, f_rays, {"mxu": True, "cursors": 2}),
+             ("quad C=1", trace_quad, q_tab, q_rays, {}),
+             ("quad C=2", trace_quad, q_tab, q_rays, {"cursors": 2})]
+    samples = {(f[0], a): [] for f in forms for a in (False, True)}
+    passes = {}
+    for n_pass, seq in enumerate((forms, forms[::-1]), 1):
+        for label, fn, tabs, rays, kw in seq:
+            for a in (False, True):
+                ms = time_ms(lambda: fn(tabs[a], rays[a], any_hit=a, **kw), WARMUP, REPEATS)
+                samples[(label, a)].extend(ms)
+                passes[(label, a, n_pass)] = median(ms)
+    times = {k: median(v) for k, v in samples.items()}
+    for label, *_ in forms:
+        print(f"timing {label}: bunny primary closest ms pass 1 {passes[(label, False, 1)]:.4f} "
+              f"pass 2 {passes[(label, False, 2)]:.4f} (median {times[(label, False)]:.4f}); AO "
+              f"batch 1 any hit ms pass 1 {passes[(label, True, 1)]:.4f} pass 2 "
+              f"{passes[(label, True, 2)]:.4f} (median {times[(label, True)]:.4f})")
+    phase("triangle-phase forms timed", t0)
+    return times
+
+
+def probe_phase(t0, fb, bctx, dev):
+    """Phase 24: the MXU ablation probe (python -m tpu_rt_torch.probes.
+    mxu_ablate) on bunny's Woop rows, at 16,384 rays and at its own 262,144:
+    ns per iteration of each variant, each checked against its plain
+    version; the launch counts are those of the timed runs."""
+    from tpu_rt_torch.probes import mxu_ablate
+
+    # A launch of 128 blocks (one per SM, 4 warps each) first, then the
+    # probe's own size (2,048 blocks, as many warps as the SMs hold); the
+    # kernels line takes the second.
+    for n_rays, hi, lo in ((1 << 14, 400, 100), (None, None, None)):
+        res = mxu_ablate.run(fb["renderer"].flat, bctx["scene"], dev, n_rays, hi, lo)
+        print(f"mxu_ablate: {res['n_rays']} rays, {res['n_rows']} Woop rows, trip counts "
+              f"{res['niter']}, launches {res['launches']}")
+        for variant, r in res["variants"].items():
+            print(f"  {variant:6s} {r['ns_per_iter']:10.1f} ns/iter (hi {r['ms_hi']:.4f} ms, lo "
+                  f"{r['ms_lo']:.4f} ms); vs plain on {r['check_rays']} rays x "
+                  f"{r['check_iters']}: t bits differ {r['t_bits_differ']}, max rel err "
+                  f"{r['max_rel_err']:.3g}, tri sums differ {r['tri_differ']}")
+        print(f"  plain full: {res['variants']['full']['plain_ns_per_iter']:.1f} ns/iter")
+        bad = mxu_ablate.check(res)
+        check(not bad, f"mxu_ablate variants differ from their plain versions: {bad}")
+        check(all(v > 0 for v in res["launches"].values()), f"mxu_ablate launches "
+              f"{res['launches']}")
+    phase("mxu_ablate probe done", t0)
+    return res
+
+
+def probe_bound(res) -> dict:
+    """The least time of one iteration of the probe's ``full`` variant: its
+    DMMA (24 per warp, 512 f64 operations each) at the FP64 tensor rate plus
+    its f32 epilogue, against the Woop rows one iteration reads (the warps'
+    8-row windows, a contiguous run of warps + 7 rows) and the accumulators
+    over the memory rate."""
+    warps = res["n_rays"] // 32
+    dots = warps * 24 * 512
+    epi = res["n_rays"] * 8 * MXU_EPI_OPS
+    t_ops = dots / PEAK_F64_TENSOR_FLOPS * 1e3 + epi / PEAK_F32_FLOPS * 1e3
+    nbytes = (warps + 7) * 64
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    print(f"bound mxu_ablate (per iteration): {dots} f64 tensor + {epi} f32 operations -> "
+          f"{t_ops:.6f} ms; {nbytes} B -> {t_bytes:.6f} ms")
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def triangle_entries(paths, checks, times, probe):
+    """The kernels-line entries of this slice: the frame forms of the three
+    new libraries (closest hit timed on the bunny primary frame, any hit on
+    conference AO batch 1), with the launches of their Renderer paths, and
+    the probe (times per iteration)."""
+    bunny, conf = f"{SCENE} primary", f"{SECONDARY_SCENE} AO batch 1"
+    rows = (
+        ("flat_trace_mxu", "closest_mxu", (SCENE, "packet, mxu=True"), "binary mxu",
+         f"{MXU_UNIT}, via trace_packet2(mxu=True) :1052-1114)", False),
+        ("flat_trace_mxu", "any_mxu", (SECONDARY_SCENE, "packet, mxu=True"), "binary mxu",
+         f"{MXU_UNIT}, any_hit=True :845-849)", True),
+        ("flat_trace_c", "closest_c", (SCENE, "packet, cursors=2"), "binary C=2",
+         f"{LEAF_CURSORS}, binary node unit :704-770)", False),
+        ("flat_trace_c", "any_c", (SECONDARY_SCENE, "packet, cursors=3"), "binary C=3",
+         f"{LEAF_CURSORS}, binary node unit, any_hit=True :552-567)", True),
+        ("quad_trace_c", "closest_c", (SECONDARY_SCENE, "packet4, cursors=2"), "quad C=2",
+         f"{LEAF_CURSORS}, 4-wide node unit :618-679, trace_packet4 c= :1188)", False),
+        ("quad_trace_c", "any_c", (SECONDARY_SCENE, "packet4, cursors=2"), "quad C=2",
+         f"{LEAF_CURSORS}, 4-wide node unit, any_hit=True :552-567)", True))
+    entries = []
+    for lib, form, path, timed, replaces_, any_hit in rows:
+        c = checks[(lib, conf if any_hit else bunny)]
+        p = paths[path]
+        what = f"{path[0]} {'AO' if path[0] == SECONDARY_SCENE else 'primary'} frame"
+        entries.append({
+            "name": lib + ("_anyhit" if any_hit else ""), "route": "cuda",
+            "source": f"tpu_rt_torch/csrc/{lib}.cu", "replaces": replaces_,
+            "path": f"{what}, Renderer(tracer={path[1].split(',')[0]!r},{path[1].split(',')[1]})",
+            "launches": p["counts"].get(lib, {}).get(form, 0),
+            "timed_on": f"{conf if any_hit else bunny} ({c['rays'].num} rays), {c['kind']}",
+            "max_abs_err": c["err"], "ms": times[(timed, any_hit)], "plain_ms": c["plain_ms"],
+            **bound(lib + ("_anyhit" if any_hit else ""), c["tables"], c["rays"], c["counts"],
+                    c["seen"], 2 if lib.startswith("flat") else 4, mxu=lib == "flat_trace_mxu"),
+            "library_ms": None,
+        })
+    full = probe["variants"]["full"]
+    entries.append({
+        "name": "mxu_ablate", "route": "cuda", "source": "tpu_rt_torch/csrc/mxu_ablate.cu",
+        "replaces": "tools/mxu_ablate.py:48 (make_kernel; timed :174)",
+        "path": f"python -m tpu_rt_torch.probes.mxu_ablate (run), {SCENE} Woop rows",
+        "launches": sum(probe["launches"].values()),
+        "timed_on": f"variant full, {probe['n_rays']} rays, per iteration "
+                    f"(t({probe['niter'][0]}) - t({probe['niter'][1]})) / "
+                    f"{probe['niter'][0] - probe['niter'][1]}",
+        "max_abs_err": max(r["max_abs_err"] for r in probe["variants"].values()),
+        "ms": full["ns_per_iter"] / 1e6, "plain_ms": full["plain_ns_per_iter"] / 1e6,
+        **probe_bound(probe), "library_ms": None,
+        "ns_per_iter": {v: r["ns_per_iter"] for v, r in probe["variants"].items()},
+    })
+    return entries
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
-    from tpu_rt_torch.trace import flat_kernel, quad_kernel
+    from tpu_rt_torch.probes import mxu_ablate
+    from tpu_rt_torch.trace import common, flat_kernel, quad_kernel
 
     t0 = time.perf_counter()
     dev = torch.device(DEVICE, 0)
@@ -1318,21 +1764,33 @@ def main() -> None:
     shutil.rmtree(CACHE, ignore_errors=True)
 
     # 1. Build every kernel of the paths from the checkout's sources, one
-    # nvcc per source, started together (the eight forms of each kernel are
+    # nvcc per library, all started together (the forms of each are
     # instantiations in one library).
     kernel, flat_k = quad_kernel.KERNEL, flat_kernel.KERNEL
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda k: k.load(), (kernel, flat_k)))
+    libs = (*quad_kernel.KERNELS, *flat_kernel.KERNELS, mxu_ablate.KERNEL)
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda k: k.load(), libs))
+    print(f"build: {len(libs)} libraries in {time.perf_counter() - t1:.2f} s of wall time")
     built = {}
-    for k in (kernel, flat_k):
+    for k in libs:
         print(f"build: {k.name}.cu in {k.build_s:.2f} s")
         for name, regs, stack_b, ln in ptxas_forms(k.build_log):
             print(f"  ptxas {ln}")
             built[name] = (regs, stack_b)
-    check(len(built) == 72, f"{len(built)} kernel forms compiled, want 24 quad + 48 binary")
+    check(len(built) == N_FORMS, f"{len(built)} kernel forms compiled, want {N_FORMS}: 24 + 24 "
+          "quad, 48 + 48 binary, 48 tensor-core binary, 5 probe variants")
     for name, want in PTXAS_VMEM_F32.items():
         check(built.get(name) == want, f"ptxas {name}: {built.get(name)} (registers, stack + "
-              f"spill bytes), want {want} as before the layout flags")
+              f"spill bytes), want {want} as before the layout and postponed-leaf flags")
+    # The tensor-core forms issue FP64 mma: DMMA in their SASS.
+    cuobjdump = os.path.join(os.path.dirname(common.nvcc()), "cuobjdump")
+    for k in (flat_kernel.KERNEL_MXU, mxu_ablate.KERNEL):
+        sass = subprocess.run([cuobjdump, "-sass", k.path], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        n_dmma = len(re.findall(r"\bDMMA\b", sass))
+        print(f"sass: {k.name}: {n_dmma} DMMA instructions")
+        check(n_dmma > 0, f"{k.name}: no DMMA in the SASS")
     phase("kernels built", t0)
 
     closest, bctx = bunny_primary(t0, kernel, dev)
@@ -1346,6 +1804,11 @@ def main() -> None:
     fctx = dragon_frames(t0, kernel, flat_k, dev, dctx)
     d_times, d_plain = dragon_timing(t0, kernel, flat_k, dctx, fctx)
     d_entries = dragon_entries(kernel, flat_k, fctx, d_times, d_plain)
+    tri_paths = triangle_paths(t0, bctx, fb, cctx, fc)
+    tri_checks = triangle_checks(t0, bctx, fb, cctx, fc, dev)
+    tri_times = triangle_timing(t0, bctx, fb, cctx, fc)
+    probe = probe_phase(t0, fb, bctx, dev)
+    t_entries = triangle_entries(tri_paths, tri_checks, tri_times, probe)
 
     # The bound of each earlier entry, on the rays it was timed on, from
     # the plain version's counters on those rays.
@@ -1425,7 +1888,7 @@ def main() -> None:
         "ms": f_b1[0],
         "plain_ms": f_b1[1],
         **bounds["flat_any"], "library_ms": None,
-    }, *form_entries("flat", flat_src, "flat_trace"), *d_entries]}))
+    }, *form_entries("flat", flat_src, "flat_trace"), *d_entries, *t_entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

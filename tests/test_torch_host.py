@@ -2,6 +2,7 @@
 is bit-equal to tpu_rt's on the same inputs."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -57,6 +58,22 @@ def test_scene_by_name_bit_equal():
     assert bits_equal(ts.vtx_pos, ps.vtx_pos)
     assert bits_equal(ts.tri_vtx_index, ps.tri_vtx_index)
     assert p_proc.suite_names() == t_proc.suite_names()
+
+
+def test_native_source_is_the_ports_own_copy():
+    # The port compiles its own sbvh.cc, never a file of the JAX package;
+    # below its header comment the code is tpu_rt's line for line.
+    import tpu_rt.native as t_native
+    import tpu_rt_torch.native as p_native
+
+    src = os.path.abspath(p_native.SRC)
+    assert src.startswith(os.path.dirname(os.path.abspath(p_native.__file__)))
+
+    def code(path):
+        lines = open(path).read().splitlines()
+        return lines[next(i for i, ln in enumerate(lines) if not ln.startswith("//")):]
+
+    assert code(src) == code(os.path.join(os.path.dirname(t_native.__file__), "sbvh.cc"))
 
 
 @pytest.mark.parametrize("backend", ["native", "numpy"])

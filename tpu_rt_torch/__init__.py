@@ -10,7 +10,7 @@ so the counterpart of every module is easy to find:
     bench/   reference-calibrated workload (suite cameras, AO radii)
     bvh/     SBVH builder (host), flatten + Woop transform, 4-wide collapse,
              hash-keyed build cache
-    native/  the C++ SBVH builder (tpu_rt/native/sbvh.cc) via ctypes
+    native/  the C++ SBVH builder (its own copy of sbvh.cc) via ctypes
     raygen/  primary, AO / diffuse and shadow ray generation, batching
     trace/   the 4-wide and binary BVH traversals, closest and any hit, with
              optional u, v and per-ray counters: CUDA kernels

@@ -24,6 +24,16 @@
 // traversal's chain of dependent loads, so the node table is what the L2
 // should keep; a triangle row is read once per leaf visit and should not
 // evict it.
+//
+// Postponed leaves (kPostpone, the counterpart of tpu_rt's C > 1 leaf
+// cursors, packet2.py:72-77): a ray that reaches a leaf keeps its link in
+// `Postponed` below and walks on in the oracle's order; it drains the leaves
+// it holds, in the order it found them, when it holds `cursors` of them
+// (2 <= cursors <= kMaxCursors, read at run time) or its stack is empty.
+// Each triangle is tested with the same f32 ops, so t stays the oracle's
+// bit for bit; only the drain order (tri at exact-t ties, the any-hit
+// occluder) and the culling distance (more node tests) change.  The forms
+// without the flag are the code of the first versions.
 
 #pragma once
 
@@ -163,6 +173,47 @@ __device__ __forceinline__ bool drain(const float4* __restrict__ woop, int first
     }
     return false;
 }
+
+constexpr int kMaxCursors = 4;
+
+// The leaf links a ray holds, oldest first.  Indexed only with constants
+// (unrolled loops), so the array stays in registers.
+struct Postponed {
+    int link[kMaxCursors] = {};
+    int n = 0;
+
+    // Keep one more leaf; returns how many are held.
+    __device__ __forceinline__ int add(int l) {
+#pragma unroll
+        for (int i = 0; i < kMaxCursors; ++i) {
+            if (i == n) link[i] = l;
+        }
+        return ++n;
+    }
+
+    // Drop the oldest leaf.
+    __device__ __forceinline__ void pop() {
+#pragma unroll
+        for (int i = 0; i + 1 < kMaxCursors; ++i) link[i] = link[i + 1];
+        --n;
+    }
+
+    // Drain the held leaves in the order they were found with
+    // drain_link(link), which returns true at an accepted any-hit
+    // triangle; then the rest are dropped and this returns true.
+    template <typename F>
+    __device__ __forceinline__ bool drain(F&& drain_link) {
+        while (n > 0) {
+            const int l = link[0];
+            pop();
+            if (drain_link(l)) {
+                n = 0;
+                return true;
+            }
+        }
+        return false;
+    }
+};
 
 // Outputs of one ray: (tri, t) always, u and v and the two counters only in
 // the forms that keep them.

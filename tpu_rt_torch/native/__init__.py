@@ -1,12 +1,13 @@
 """Native (C++) SBVH builder, loaded via ctypes.
 
-Counterpart of ``tpu_rt.native``.  The C++ source is the JAX package's own
-``tpu_rt/native/sbvh.cc``, read by path (it imports nothing of JAX), so both
-packages build bit-identical trees.  It is compiled with g++ at first use
-into the port's git-ignored build directory (``tpu_rt_torch._build``); the
-library tracked under ``tpu_rt/native/`` is never written.  When g++ is
-missing or fails, callers fall back to the numpy builder
-(``tpu_rt_torch.bvh.builder``), which is the semantic definition.
+Counterpart of ``tpu_rt.native``.  The C++ source ``sbvh.cc`` beside this
+module is the port's own copy of ``tpu_rt/native/sbvh.cc`` (code
+unchanged), so both packages build bit-identical trees
+(``tests/test_torch_host.py``); the port reads no file of the JAX package.
+It is compiled with g++ at first use into the port's git-ignored build
+directory (``tpu_rt_torch._build``).  When g++ is missing or fails, callers
+fall back to the numpy builder (``tpu_rt_torch.bvh.builder``), which is the
+semantic definition.
 """
 
 from __future__ import annotations
@@ -18,9 +19,9 @@ import threading
 
 import numpy as np
 
-from tpu_rt_torch._build import REPO_ROOT, build_shared
+from tpu_rt_torch._build import build_shared
 
-SRC = os.path.join(REPO_ROOT, "tpu_rt", "native", "sbvh.cc")
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sbvh.cc")
 _CMD = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()

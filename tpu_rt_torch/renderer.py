@@ -30,7 +30,7 @@ from tpu_rt_torch.core.types import Hits, Rays
 from tpu_rt_torch.raygen import RayGen
 from tpu_rt_torch.scene import Camera, Scene
 from tpu_rt_torch.shade import count_hits, reconstruct_image
-from tpu_rt_torch.trace import TRACERS, make_routing_tracer
+from tpu_rt_torch.trace import TRACERS, check_cursors, make_routing_tracer
 
 RAY_TYPES = ("primary", "ao", "diffuse")
 
@@ -57,6 +57,11 @@ class RendererParams:
     # "cuda" launches the kernels; "cpu" runs their plain versions (no
     # fallback from one to the other).
     device: str = "cuda"
+    # The triangle phase (tpu_rt's TPU_RT_MXU and TPU_RT_C): the binary
+    # kernel's tensor-core leaf test (tracer "packet" only), and the leaves
+    # a ray holds before it drains them (1..4; make_routing_tracer).
+    mxu: bool = False
+    cursors: int = 1
 
 
 @dataclass
@@ -78,6 +83,9 @@ class Renderer:
             raise ValueError(f"ray_type {p.ray_type!r} not in {RAY_TYPES}")
         if p.tracer not in TRACERS:
             raise ValueError(f"tracer {p.tracer!r} not in {TRACERS}")
+        check_cursors(p.cursors)
+        if p.mxu and p.tracer != "packet":
+            raise ValueError(f"mxu=True needs tracer='packet', not {p.tracer!r}")
         if p.sort_secondary or p.compact_degenerate:
             raise NotImplementedError(
                 "sort_secondary / compact_degenerate need rays/buffer.py, which is not "
@@ -116,7 +124,8 @@ class Renderer:
             self._tri_material_dev = torch.as_tensor(self.scene.tri_material, device=self.device)
             self.routing, self.active_tracer, self.tracer_tables = make_routing_tracer(
                 self.flat, prefer=self.params.tracer, device=self.device,
-                cache_dir=self.params.cache_dir)
+                cache_dir=self.params.cache_dir, mxu=self.params.mxu,
+                cursors=self.params.cursors)
             self._sync()
             # Host seconds of BVH build (or cache load), collapse and upload.
             self.setup_s = time.perf_counter() - t0

@@ -14,14 +14,20 @@ import warnings
 
 import torch
 
-from tpu_rt_torch.trace.common import StackDepthError, release_persisting_l2
+from tpu_rt_torch.trace.common import (
+    MAX_CURSORS,
+    MXU_LEAF,
+    StackDepthError,
+    check_cursors,
+    release_persisting_l2,
+)
 from tpu_rt_torch.trace.cpu_reference import (
     RayStats,
     assign_treelets,
     intersect_brute,
     trace_flat_scalar,
 )
-from tpu_rt_torch.trace.flat_kernel import FlatTables, trace_flat, upload_flat
+from tpu_rt_torch.trace.flat_kernel import FlatTables, check_mxu, trace_flat, upload_flat
 from tpu_rt_torch.trace.quad_kernel import QuadTables, trace_quad, upload_quad
 from tpu_rt_torch.trace.tables import (
     RESIDENCIES,
@@ -57,24 +63,31 @@ __all__ = [
     "tables2_residency",
     "release_persisting_l2",
     "route_kind",
+    "MAX_CURSORS",
+    "MXU_LEAF",
+    "check_cursors",
 ]
 
 TRACERS = ("auto", "packet4", "pallas", "packet", "xla")
 
 
-def route_kind(tables, route: str) -> str:
+def route_kind(tables, route: str, mxu: bool = False, cursors: int = 1) -> str:
     """``kind`` of a kernel route: "quad-" or "flat-", then "cuda" or
     "plain", then ``tpu_rt``'s suffixes for a residency other than vmem
-    ("-mixed", "-hbm") and for bf16 nodes ("-bf16")."""
+    ("-mixed", "-hbm") and for bf16 nodes ("-bf16"), then "-mxu" for the
+    tensor-core leaf test and "-c<cursors>" for more than one leaf held per
+    ray (e.g. "flat-cuda-mxu-c2")."""
     kind = ("flat" if isinstance(tables, FlatTables) else "quad") + f"-{route}"
     if tables.residency != "vmem":
         kind += f"-{tables.residency}"
-    return kind + ("-bf16" if getattr(tables, "bf16_nodes", False) else "")
+    kind += "-bf16" if getattr(tables, "bf16_nodes", False) else ""
+    return kind + ("-mxu" if mxu else "") + (f"-c{cursors}" if cursors > 1 else "")
 
 
 def make_routing_tracer(flat, prefer: str = "auto", device="cuda", want_uv: bool = False,
                         cache_dir: str | None = None, budget_bytes: int | None = None,
-                        residency: str | None = None, bf16_nodes: bool | None = None):
+                        residency: str | None = None, bf16_nodes: bool | None = None,
+                        mxu: bool = False, cursors: int = 1):
     """Returns (fn, kind, tables): fn(tables, rays, any_hit=False,
     with_stats=False) -> Hits (closest hit, or with ``any_hit`` the first
     accepted hit), or ``(Hits, {"node_tests", "tri_tests"})`` with
@@ -116,12 +129,25 @@ def make_routing_tracer(flat, prefer: str = "auto", device="cuda", want_uv: bool
     the binary kernel's node format, as ``trace_packet2``'s and
     ``trace_packet4``'s ``hbm=`` and ``bf16_nodes=``; None applies the
     policy.
+    mxu, cursors: the triangle phase, the counterparts of ``tpu_rt``'s
+    ``TPU_RT_MXU`` and ``TPU_RT_C`` (the port reads no environment
+    variable).  ``cursors`` (1..MAX_CURSORS): leaves a ray holds before it
+    drains them, on either kernel.  ``mxu=True``: the binary kernel's
+    tensor-core leaf test, on leaves of at most MXU_LEAF triangles; only
+    ``"packet"`` takes it (``tpu_rt``'s packet4 ignores ``TPU_RT_MXU``, and
+    an argument is not ignored: ``"packet4"``, ``"auto"`` and ``"pallas"``
+    raise ValueError).  The wavefront (``"xla"``) takes neither.
     """
     if prefer not in TRACERS:
         raise ValueError(f"unknown tracer {prefer!r}; one of {TRACERS}")
+    cursors = check_cursors(cursors)
+    if mxu and prefer != "packet":
+        raise ValueError(f"mxu=True needs the binary kernel (prefer='packet'), not {prefer!r}")
     device = torch.device(device)
     route = "cuda" if device.type == "cuda" else "plain"
     if prefer == "xla":
+        if cursors != 1:
+            raise ValueError("the wavefront tracer ('xla') has no leaf cursors")
         return trace_wavefront, "wavefront", device_bvh(flat, device)
     if prefer != "packet":
         from tpu_rt_torch.bvh.cache import load_or_collapse_quad
@@ -137,7 +163,11 @@ def make_routing_tracer(flat, prefer: str = "auto", device="cuda", want_uv: bool
             warnings.warn(f"tpu_rt_torch: {e}; {prefer!r} falls to the binary kernel "
                           f"(flat-{route})", RuntimeWarning, stacklevel=2)
         else:
-            return functools.partial(trace_quad, want_uv=want_uv), route_kind(tables, route), tables
+            return (functools.partial(trace_quad, want_uv=want_uv, cursors=cursors),
+                    route_kind(tables, route, cursors=cursors), tables)
     tables = upload_flat(flat, device, residency=residency, bf16_nodes=bf16_nodes,
                          budget_bytes=budget_bytes)
-    return functools.partial(trace_flat, want_uv=want_uv), route_kind(tables, route), tables
+    if mxu:
+        check_mxu(tables)
+    return (functools.partial(trace_flat, want_uv=want_uv, mxu=mxu, cursors=cursors),
+            route_kind(tables, route, mxu, cursors), tables)

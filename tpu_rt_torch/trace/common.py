@@ -1,5 +1,6 @@
 """What the two traversal kernels share: the stack-depth check of their
-tables, the plain PyTorch version's per-ray state and Woop drain, and the
+tables, the plain PyTorch version's per-ray state, its Woop drains (the
+scalar one and the tensor-core leaf test's) and postponed leaves, and the
 ctypes wrapper that builds, checks, launches and counts a kernel.
 
 Each kernel has eight forms for each table layout, the instantiations of
@@ -11,6 +12,14 @@ unless ``want_uv``), or ``(Hits, {"node_tests", "tri_tests"})`` with
 ``with_stats``, the form of ``trace_wavefront``.  The layouts are the
 tables' residency (``tables.RESIDENCIES``: the cache policy of their loads)
 and, for the binary kernel, its node format (f32 or bf16).
+
+Each kernel source is one library with its own launch counts: the first
+versions' forms (``quad_trace``, ``flat_trace``: one leaf drained when it
+is reached), the postponed-leaf forms (``quad_trace_c``, ``flat_trace_c``:
+``cursors`` = 2..``MAX_CURSORS`` leaves held per ray, tpu_rt's C > 1 leaf
+cursors; form names end in ``_c``) and the binary kernel's tensor-core leaf
+test (``flat_trace_mxu``: tpu_rt's ``mxu=True``, with 1..``MAX_CURSORS``
+cursors; ``_mxu``).
 
 The ``mixed`` residency holds the node table in a persisting L2
 access-policy window attached to each launch.  Its set-aside (the device's
@@ -41,6 +50,11 @@ from tpu_rt_torch.trace.tables import _residency_flags
 # (the reference's STACK_SIZE, kepler_dynamic_fetch.cu:47).  The tables'
 # uploads refuse a tree whose stack would not fit instead of clamping.
 STACK_SIZE = 64
+# Leaves a ray may hold before it drains them (trace_common.cuh kMaxCursors).
+MAX_CURSORS = 4
+# Triangles of one leaf the tensor-core leaf test takes (mxu_leaf.cuh
+# kMxuLeaf; tpu_rt's U = MAX_LEAF for mxu=True).
+MXU_LEAF = 8
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -75,6 +89,15 @@ def check_stack(depth: int, need: int, what: str) -> None:
     if need > STACK_SIZE:
         raise StackDepthError(f"{what} depth {depth} needs a stack of {need} "
                               f"> STACK_SIZE={STACK_SIZE}")
+
+
+def check_cursors(cursors) -> int:
+    """The number of leaves a ray may hold: an int, 1..MAX_CURSORS."""
+    if isinstance(cursors, bool) or not isinstance(cursors, (int, np.integer)):
+        raise TypeError(f"cursors must be an int, got {cursors!r}")
+    if not 1 <= cursors <= MAX_CURSORS:
+        raise ValueError(f"cursors must be in 1..{MAX_CURSORS}, got {cursors}")
+    return int(cursors)
 
 
 def woop_rows(tri_woop: np.ndarray, tri_index: np.ndarray) -> np.ndarray:
@@ -185,6 +208,116 @@ def drain_plain(woop, woop_i, first, count, ray_ids, rays: Rays, st: TraceState,
     st.tri_tests[ray_ids] += tested
 
 
+def _dot64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row dot products of f32 values taken in float64 (each product
+    exact), rounded once to f32."""
+    return (a.double() * b.double()).sum(1).float()
+
+
+def mxu_products(w: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+    """The six Woop dot products of the tensor-core leaf test
+    (``csrc/mxu_leaf.cuh``) for Woop rows ``w`` [A, 16] and rays ``o``,
+    ``d`` [A, 3]: (Oz, Dz, Ox, Dx, Oy, Dy), each in float64 and rounded
+    once to f32, the rows' L(4) against the rays' [o, 1] or [d, 0]."""
+    one = torch.ones_like(o[:, :1])
+    ro = torch.cat((o, one), 1)
+    wz, wx, wy = w[:, 0:4], w[:, 4:8], w[:, 8:12]
+    lz = torch.cat((-wz[:, :3], wz[:, 3:]), 1)
+    return (_dot64(lz, ro), _dot64(wz[:, :3], d), _dot64(wx, ro), _dot64(wx[:, :3], d),
+            _dot64(wy, ro), _dot64(wy[:, :3], d))
+
+
+class LeafBest:
+    """The running winner of a tensor-core leaf test: the smallest t of the
+    candidates that count, ties to the largest triangle id, u and v of that
+    same candidate (``mxu_leaf.cuh`` ``leaf_best``; packet2.py:831-862)."""
+
+    def __init__(self, n: int, dev):
+        self.t = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+        self.tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        self.u = torch.zeros((n,), dtype=torch.float32, device=dev)
+        self.v = torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    def offer(self, prods, tid, valid, t_min, t_max) -> None:
+        """One candidate per ray, from its six products (``mxu_products``),
+        triangle ids ``tid`` and ``valid`` mask: t = Oz / Dz (a true
+        division), u = Ox + t Dx, v = Oy + t Dy; it counts when
+        tmin < t < tmax and u, v >= 0, u + v <= 1."""
+        ozt, dzt, oxt, dxt, oyt, dyt = prods
+        t = ozt / dzt
+        u = oxt + t * dxt
+        v = oyt + t * dyt
+        ok = (valid & (t > t_min) & (t < t_max) & (u >= 0) & (v >= 0) & (u + v <= 1.0))
+        better = ok & ((t < self.t) | ((t == self.t) & (tid > self.tri)))
+        self.t = torch.where(better, t, self.t)
+        self.tri = torch.where(better, tid, self.tri)
+        self.u = torch.where(better, u, self.u)
+        self.v = torch.where(better, v, self.v)
+
+
+def drain_mxu_plain(woop, woop_i, first, count, ray_ids, rays: Rays, st: TraceState,
+                    any_hit: bool, seen: torch.Tensor | None = None) -> None:
+    """The tensor-core leaf test of ``csrc/flat_trace_mxu.cu`` on the leaves
+    first .. first + count - 1 (count <= MXU_LEAF) of rays ``ray_ids`` (each
+    ray at most once per call): every candidate's dot products in float64,
+    rounded once (``mxu_products``), the leaf's winner (``LeafBest``)
+    merged with a strict t < hit distance; with ``any_hit`` only rays that
+    hold no hit test the leaf, and only they take a hit.  Counts ``count``
+    triangle tests per ray that tests the leaf.  Updates ``st`` in place,
+    and marks the rows read in ``seen`` if given."""
+    first, count = first.long(), count.long()
+    o, d = rays.origin[ray_ids], rays.dirn[ray_ids]
+    t_min, t_max = rays.tmin[ray_ids], rays.tmax[ray_ids]
+    active = st.tri[ray_ids] < 0 if any_hit else torch.ones_like(count, dtype=torch.bool)
+    best = LeafBest(ray_ids.shape[0], o.device)
+    for k in range(int(count.max()) if count.numel() else 0):
+        valid = active & (k < count)
+        row = torch.where(valid, first + k, 0)
+        if seen is not None:
+            seen[row[valid]] = True
+        best.offer(mxu_products(woop[row], o, d), woop_i[row, 12], valid, t_min, t_max)
+    take = active & (best.t < st.t[ray_ids])
+    st.t[ray_ids] = torch.where(take, best.t, st.t[ray_ids])
+    st.tri[ray_ids] = torch.where(take, best.tri, st.tri[ray_ids])
+    st.u[ray_ids] = torch.where(take, best.u, st.u[ray_ids])
+    st.v[ray_ids] = torch.where(take, best.v, st.v[ray_ids])
+    st.tri_tests[ray_ids] += torch.where(active, count, 0).to(torch.int32)
+
+
+class HeldLeaves:
+    """Plain version of the kernels' postponed leaves (``trace_common.cuh``
+    ``Postponed``): up to ``cursors`` leaf links per live ray, oldest first.
+    Rows are positions in the plain loop's arrays of live rays."""
+
+    def __init__(self, n: int, cursors: int, dev):
+        self.cursors = cursors
+        self.link = torch.zeros((n, cursors), dtype=torch.int64, device=dev)
+        self.n = torch.zeros((n,), dtype=torch.int64, device=dev)
+
+    def add(self, rows: torch.Tensor, links: torch.Tensor) -> torch.Tensor:
+        """Hold one more leaf for each of ``rows`` (distinct); returns the
+        rows that now hold ``cursors`` leaves."""
+        self.link[rows, self.n[rows]] = links.long()
+        self.n[rows] += 1
+        return rows[self.n[rows] == self.cursors]
+
+    def drain(self, rows: torch.Tensor, drain_links) -> None:
+        """Drain the leaves ``rows`` hold, oldest first, with
+        ``drain_links(links, rows)`` (one leaf per row per call); then they
+        hold none."""
+        if rows.numel() == 0:
+            return
+        n = self.n[rows]
+        for k in range(int(n.max())):
+            r = rows[n > k]
+            drain_links(self.link[r, k], r)
+        self.n[rows] = 0
+
+    def keep(self, live: torch.Tensor) -> None:
+        """Follow the loop's compaction to the rays still live."""
+        self.link, self.n = self.link[live], self.n[live]
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrapper
 # ---------------------------------------------------------------------------
@@ -234,26 +367,38 @@ def release_persisting_l2() -> None:
                                f"cudaError {err}")
 
 
+def headers() -> list[str]:
+    """The headers the kernel sources include (they enter the build hash)."""
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh"))
+
+
 class CudaTraceKernel:
-    """Wrapper of one traversal kernel source: builds and loads it at first
-    use, checks its arguments, launches it on the current stream, and
-    counts launches of all forms in ``launches`` and of each in
-    ``launches_by_form`` (keys ``FORMS``, then each form with its
-    ``layout_name``, such as ``closest@mixed-bf16``).
+    """Wrapper of one traversal kernel library (``csrc/<name>.cu``): builds
+    and loads it at first use, checks its arguments, launches it on the
+    current stream, and counts launches of all forms in ``launches`` and of
+    each in ``launches_by_form`` (keys ``forms``: ``FORMS`` with the
+    library's ``suffix``, then each with its ``layout_name``, such as
+    ``closest_c@mixed-bf16``).  ``cursors`` is the range of leaves a ray
+    may hold that the library takes.
 
     The C entry point takes the table arguments, then origin, dirn, tmin,
     tmax, out_tri, out_t, out_u, out_v, out_node_tests, out_tri_tests,
-    n_rays, any_hit, want_uv, stats, nodes_stream, tris_stream,
+    n_rays, cursors, any_hit, want_uv, stats, nodes_stream, tris_stream,
     window_bytes, set_aside, stream."""
 
-    def __init__(self, name: str, table_argtypes: list):
+    def __init__(self, name: str, table_argtypes: list, suffix: str = "",
+                 cursors: tuple[int, int] = (1, 1)):
         self.name = name
         self.source = os.path.join(CSRC, f"{name}.cu")
         self.table_argtypes = table_argtypes
+        self.suffix = suffix
+        self.cursors = cursors
+        self.forms = tuple(f + suffix for f in FORMS)
         self.launches = 0
-        self.launches_by_form = dict.fromkeys(FORMS, 0)
+        self.launches_by_form = dict.fromkeys(self.forms, 0)
         self.build_log = ""
         self.build_s = 0.0
+        self.path = None
         self._fn = None
         self._lib = None
         self._l2 = {}
@@ -262,15 +407,14 @@ class CudaTraceKernel:
     def load(self):
         if self._fn is None:
             t0 = time.perf_counter()
-            path, self.build_log = build_shared(
-                self.name, [self.source], [nvcc()] + NVCC_FLAGS,
-                deps=[os.path.join(CSRC, "trace_common.cuh")])
-            lib = ctypes.CDLL(path)
+            self.path, self.build_log = build_shared(self.name, [self.source],
+                                                     [nvcc()] + NVCC_FLAGS, deps=headers())
+            lib = ctypes.CDLL(self.path)
             fn = getattr(lib, f"{self.name}_launch")
             self.build_s = time.perf_counter() - t0
             vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
             fn.restype = ci
-            fn.argtypes = self.table_argtypes + [vp] * 10 + [ci] * 6 + [sz, sz, vp]
+            fn.argtypes = self.table_argtypes + [vp] * 10 + [ci] * 7 + [sz, sz, vp]
             lib.trace_l2_info.restype = ci
             lib.trace_l2_info.argtypes = [ci, ctypes.POINTER(ctypes.c_longlong)]
             lib.trace_l2_release.restype = ci
@@ -313,18 +457,21 @@ class CudaTraceKernel:
 
     def reset_counts(self) -> None:
         self.launches = 0
-        self.launches_by_form = dict.fromkeys(FORMS, 0)
+        self.launches_by_form = dict.fromkeys(self.forms, 0)
 
     def launch(self, tables: list, table_args: list, rays: Rays, any_hit: bool,
                want_uv: bool, with_stats: bool, residency: str = "vmem",
-               bf16_nodes: bool = False):
+               bf16_nodes: bool = False, cursors: int = 1):
         """Check ``tables`` ([(name, tensor, dtype, shape)]; the first is
         the node table, and float32 and int32 tables are read as 16-byte
-        rows) and ``rays``, launch the form on tables of ``residency``, and
-        return what the plain version returns."""
+        rows), ``rays`` and ``cursors``, launch the form on tables of
+        ``residency``, and return what the plain version returns."""
         dev = rays.origin.device
         if dev.type != "cuda":
             raise ValueError(f"{self.name} needs CUDA tensors, got {dev}")
+        lo, hi = self.cursors
+        if not lo <= cursors <= hi:
+            raise ValueError(f"{self.name} takes cursors {lo}..{hi}, got {cursors}")
         n = rays.origin.shape[0]
         f32, i32 = torch.float32, torch.int32
         checks = tables + [("origin", rays.origin, f32, (n, 3)), ("dirn", rays.dirn, f32, (n, 3)),
@@ -356,15 +503,16 @@ class CudaTraceKernel:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(*table_args, rays.origin.data_ptr(), rays.dirn.data_ptr(),
-                     rays.tmin.data_ptr(), rays.tmax.data_ptr(), *outs, n, int(bool(any_hit)),
-                     int(bool(want_uv)), int(bool(with_stats)), int(nodes_stream),
-                     int(tris_stream), window, set_aside, stream)
+                     rays.tmin.data_ptr(), rays.tmax.data_ptr(), *outs, n, int(cursors),
+                     int(bool(any_hit)), int(bool(want_uv)), int(bool(with_stats)),
+                     int(nodes_stream), int(tris_stream), window, set_aside, stream)
         if set_aside:
             _L2_HELD.add(self)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: cudaError {err}")
         self.launches += 1
-        key = form_name(any_hit, want_uv, with_stats) + layout_name(residency, bf16_nodes)
+        key = (form_name(any_hit, want_uv, with_stats) + self.suffix
+               + layout_name(residency, bf16_nodes))
         self.launches_by_form[key] = self.launches_by_form.get(key, 0) + 1
         if not want_uv:
             # The frame forms write no u, v: zeros, enqueued after the

@@ -28,6 +28,14 @@ With bf16 node records the boxes are rounded outward, so the hits keep the
 f32 tree's ``t`` (and ``tri`` up to exact-``t`` ties) while the visit order
 and counters are the bf16 tree's; the kernel's bf16 forms equal the plain
 version's bit for bit, the oracle's only in ``t``.
+
+The triangle phase has two more forms, ``trace_packet2``'s ``c=`` and
+``mxu=``: ``cursors`` > 1 holds leaves and drains them later
+(``flat_trace_c.cu``; t still the oracle's bit for bit, tri but at exact-t
+ties, more node tests), and ``mxu=True`` tests each leaf whole with the
+tensor cores (``flat_trace_mxu.cu``; f32-class t, ties to the largest
+triangle id).  Each is held to its plain version here, which takes the
+same ``mxu`` and ``cursors``.
 """
 
 from __future__ import annotations
@@ -40,10 +48,15 @@ import torch
 
 from tpu_rt_torch.core.types import Rays
 from tpu_rt_torch.trace.common import (
+    MAX_CURSORS,
+    MXU_LEAF,
     STACK_SIZE,
     CudaTraceKernel,
+    HeldLeaves,
     TraceState,
+    check_cursors,
     check_stack,
+    drain_mxu_plain,
     drain_plain,
     safe_inv,
     tree_depth,
@@ -68,6 +81,7 @@ class FlatTables(NamedTuple):
     depth: int                 # inner-node levels (0 when empty)
     residency: str = "vmem"    # one of tables.RESIDENCIES
     bf16_nodes: bool = False   # nodes as bf16 records (tables.pack_bf16_nodes)
+    max_leaf: int = 0          # triangles of the widest leaf (mxu=True takes <= MXU_LEAF)
 
 
 def upload_flat(flat, device, residency=None, bf16_nodes: bool | None = None,
@@ -107,7 +121,8 @@ def upload_flat(flat, device, residency=None, bf16_nodes: bool | None = None,
     return FlatTables(nodes=torch.tensor(nodes, device=device),
                       woop=torch.tensor(woop, device=device),
                       leaf_counts=torch.tensor(counts, device=device), depth=depth,
-                      residency=residency, bf16_nodes=bool(bf16_nodes))
+                      residency=residency, bf16_nodes=bool(bf16_nodes),
+                      max_leaf=int(counts.max()))
 
 
 def decode_bf16_nodes(nodes: torch.Tensor) -> torch.Tensor:
@@ -131,9 +146,17 @@ _LO = ((0, 2, 8), (4, 6, 10))
 _HI = ((1, 3, 9), (5, 7, 11))
 
 
+def check_mxu(tables: FlatTables) -> None:
+    """The tensor-core leaf test takes leaves of at most MXU_LEAF triangles
+    (tpu_rt's ``pack_tables2`` refuses wider ones)."""
+    if tables.max_leaf > MXU_LEAF:
+        raise ValueError(f"mxu=True takes leaves of at most {MXU_LEAF} triangles; this tree "
+                         f"has a leaf of {tables.max_leaf}")
+
+
 def trace_flat_plain(tables: FlatTables, rays: Rays, any_hit: bool = False,
                      want_uv: bool = False, with_stats: bool = False,
-                     visited: dict | None = None):
+                     visited: dict | None = None, mxu: bool = False, cursors: int = 1):
     """Closest hit per ray, or with ``any_hit`` the first accepted hit in
     visit order, as ``trace_flat_scalar``, in PyTorch ops on the device of
     ``rays``.  Every float op is the oracle's, in its order, on the f32
@@ -144,7 +167,16 @@ def trace_flat_plain(tables: FlatTables, rays: Rays, any_hit: bool = False,
     pops.  Returns what ``trace_flat`` returns.  With ``visited`` (a dict)
     it also records the rows the trace reads, as the kernel reads them:
     ``visited["nodes"]``, ``["woop"]`` and ``["leaf_counts"]``, bool masks
-    over the tables' rows (``common.visit_masks``)."""
+    over the tables' rows (``common.visit_masks``).
+
+    ``cursors`` > 1: a ray at a leaf link holds it and pops instead
+    (``common.HeldLeaves``); it drains the leaves it holds, oldest first,
+    when it holds ``cursors`` of them or its stack is empty.  ``mxu``: each
+    leaf is tested whole by ``common.drain_mxu_plain``, the tensor-core
+    leaf test's function."""
+    cursors = check_cursors(cursors)
+    if mxu:
+        check_mxu(tables)
     dev = rays.origin.device
     n = rays.origin.shape[0]
     nodes = tables.nodes.to(dev)
@@ -165,12 +197,24 @@ def trace_flat_plain(tables: FlatTables, rays: Rays, any_hit: bool = False,
     lo_cols = torch.tensor(_LO, device=dev)
     hi_cols = torch.tensor(_HI, device=dev)
 
+    drain = drain_mxu_plain if mxu else drain_plain
+
+    def drain_links(link, r):
+        """Drain leaf ``link`` of live row ``r`` (one per row)."""
+        first = ~link
+        leaf = first.clamp(max=counts.shape[0] - 1)
+        if seen is not None:
+            seen["leaf_counts"][leaf] = True
+        drain(woop, woop_i, first, counts[leaf], ids[r], rays, st, any_hit,
+              None if seen is None else seen["woop"])
+
     # Live rays (ids), their current link (>= 0 inner, < 0 leaf), stack and
-    # stack pointer.
+    # stack pointer, and the leaves they hold.
     ids = torch.nonzero(~(rays.tmax < 0)).squeeze(1)
     node = torch.zeros_like(ids)
     stack = torch.zeros((ids.shape[0], STACK_SIZE), dtype=torch.int64, device=dev)
     sp = torch.zeros_like(ids)
+    held = HeldLeaves(ids.shape[0], cursors, dev) if cursors > 1 else None
     while ids.numel():
         rows = torch.arange(ids.shape[0], device=dev)
         pop = torch.zeros_like(ids, dtype=torch.bool)
@@ -209,25 +253,28 @@ def trace_flat_plain(tables: FlatTables, rays: Rays, any_hit: bool = False,
             node[sel] = torch.where(swap | ~h0, c1, c0)
             pop[sel] = ~h0 & ~h1
 
-        # Rays that started the step at a leaf link: drain it, then pop.
+        # Rays that started the step at a leaf link: drain it (or hold it,
+        # and drain what they hold once they hold ``cursors``), then pop.
         sel = at_leaf
         if sel.numel():
-            first = ~node[sel]
-            leaf = first.clamp(max=counts.shape[0] - 1)
-            count = counts[leaf]
-            if seen is not None:
-                seen["leaf_counts"][leaf] = True
-            drain_plain(woop, woop_i, first, count, ids[sel], rays, st, any_hit,
-                        None if seen is None else seen["woop"])
+            if held is None:
+                drain_links(node[sel], sel)
+            else:
+                held.drain(held.add(sel, node[sel]), drain_links)
             pop[sel] = True
 
         can = pop & (sp > 0)
+        if held is not None:
+            # An empty stack: drain what is held before the ray ends.
+            held.drain(torch.nonzero(pop & ~can).squeeze(1), drain_links)
         node = torch.where(can, stack[rows, (sp - 1).clamp(min=0)], node)
         sp = torch.where(can, sp - 1, sp)
         live = ~pop | can
         if any_hit:
             live &= st.tri[ids] < 0
         ids, node, stack, sp = ids[live], node[live], stack[live], sp[live]
+        if held is not None:
+            held.keep(live)
     return st.result(want_uv, with_stats)
 
 
@@ -236,14 +283,16 @@ def trace_flat_plain(tables: FlatTables, rays: Rays, any_hit: bool = False,
 # ---------------------------------------------------------------------------
 
 class FlatTraceKernel(CudaTraceKernel):
-    """Wrapper of ``flat_trace.cu`` (see ``CudaTraceKernel``)."""
+    """Wrapper of a binary kernel library (see ``CudaTraceKernel``):
+    ``flat_trace.cu`` or ``flat_trace_c.cu`` (postponed leaves)."""
 
-    def __init__(self):
+    def __init__(self, name: str = "flat_trace", suffix: str = "",
+                 cursors: tuple[int, int] = (1, 1)):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        super().__init__("flat_trace", [vp, ci, ci, vp, vp, ci])
+        super().__init__(name, [vp, ci, ci, vp, vp, ci], suffix, cursors)
 
     def __call__(self, tables: FlatTables, rays: Rays, any_hit: bool = False,
-                 want_uv: bool = False, with_stats: bool = False):
+                 want_uv: bool = False, with_stats: bool = False, cursors: int = 1):
         f32 = torch.float32
         nc = tables.leaf_counts.shape[0]
         node_spec = (torch.int32, 8) if tables.bf16_nodes else (f32, 16)
@@ -253,22 +302,53 @@ class FlatTraceKernel(CudaTraceKernel):
         args = [tables.nodes.data_ptr(), tables.nodes.shape[0], int(tables.bf16_nodes),
                 tables.woop.data_ptr(), tables.leaf_counts.data_ptr(), nc]
         return self.launch(checks, args, rays, any_hit, want_uv, with_stats, tables.residency,
-                           tables.bf16_nodes)
+                           tables.bf16_nodes, cursors)
+
+
+class FlatMxuKernel(FlatTraceKernel):
+    """Wrapper of ``flat_trace_mxu.cu``, the tensor-core leaf test with
+    1..MAX_CURSORS leaves held per ray; refuses leaves wider than
+    MXU_LEAF."""
+
+    def __init__(self):
+        super().__init__("flat_trace_mxu", "_mxu", (1, MAX_CURSORS))
+
+    def __call__(self, tables: FlatTables, rays: Rays, any_hit: bool = False,
+                 want_uv: bool = False, with_stats: bool = False, cursors: int = 1):
+        check_mxu(tables)
+        return super().__call__(tables, rays, any_hit, want_uv, with_stats, cursors)
 
 
 KERNEL = FlatTraceKernel()
+KERNEL_C = FlatTraceKernel("flat_trace_c", "_c", (2, MAX_CURSORS))
+KERNEL_MXU = FlatMxuKernel()
+KERNELS = (KERNEL, KERNEL_C, KERNEL_MXU)
+
+
+def kernel_for(mxu: bool, cursors: int) -> FlatTraceKernel:
+    """The library of a form: the tensor-core leaf test, postponed leaves
+    (cursors > 1) or the first versions' forms."""
+    return KERNEL_MXU if mxu else KERNEL_C if cursors > 1 else KERNEL
 
 
 def trace_flat(tables: FlatTables, rays: Rays, any_hit: bool = False,
-               want_uv: bool = False, with_stats: bool = False):
+               want_uv: bool = False, with_stats: bool = False, mxu: bool = False,
+               cursors: int = 1):
     """Closest hit per ray over the FlatBVH tables, or with ``any_hit`` the
     first accepted hit in visit order; u, v with ``want_uv`` (else 0) and
     ``(hits, {"node_tests", "tri_tests"})`` with ``with_stats``.  CPU rays
     take the plain version; CUDA rays launch the kernel (there is no
-    fallback).  Counterpart of ``tpu_rt`` ``trace_packet2``."""
+    fallback).  Counterpart of ``tpu_rt`` ``trace_packet2``, whose ``c=``
+    and ``mxu=`` are ``cursors`` (leaves a ray holds before it drains them,
+    1..MAX_CURSORS) and ``mxu`` (the tensor-core leaf test; leaves of at
+    most MXU_LEAF triangles, else ValueError)."""
+    cursors = check_cursors(cursors)
+    if mxu:
+        check_mxu(tables)
     dev = rays.origin.device
     if dev.type == "cpu":
-        return trace_flat_plain(tables, rays, any_hit, want_uv, with_stats)
+        return trace_flat_plain(tables, rays, any_hit, want_uv, with_stats, mxu=mxu,
+                                cursors=cursors)
     if dev.type == "cuda":
-        return KERNEL(tables, rays, any_hit, want_uv, with_stats)
+        return kernel_for(mxu, cursors)(tables, rays, any_hit, want_uv, with_stats, cursors)
     raise ValueError(f"trace_flat: unsupported device {dev}")

@@ -27,7 +27,10 @@ is held to the plain version's).
 The kernel is built with nvcc for sm_90a at first launch into the port's
 git-ignored build directory and loaded with ctypes; ``KERNEL.launches``
 counts its launches, ``KERNEL.launches_by_form`` those of each form
-(``common.FORMS``).
+(``common.FORMS``).  ``cursors`` > 1 (``trace_packet4``'s ``c=``) holds
+leaves and drains them later, in ``quad_trace_c.cu`` (``KERNEL_C``, forms
+``closest_c`` ...): t stays the oracle's bit for bit, tri but at exact-t
+ties.
 """
 
 from __future__ import annotations
@@ -41,9 +44,12 @@ import torch
 from tpu_rt_torch.bvh.collapse import COUNT_SHIFT, FIRST_MASK, SENT
 from tpu_rt_torch.core.types import Rays
 from tpu_rt_torch.trace.common import (
+    MAX_CURSORS,
     STACK_SIZE,
     CudaTraceKernel,
+    HeldLeaves,
     TraceState,
+    check_cursors,
     check_stack,
     drain_plain,
     safe_inv,
@@ -103,7 +109,7 @@ def upload_quad(quad, device, residency=None, budget_bytes: int | None = None) -
 
 def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
                      want_uv: bool = False, with_stats: bool = False,
-                     visited: dict | None = None):
+                     visited: dict | None = None, cursors: int = 1):
     """Closest hit per ray, or with ``any_hit`` the first accepted hit in
     visit order, as ``trace_quad_scalar``, in PyTorch ops on the device of
     ``rays``.  Every float op is the oracle's, in its order: explicit
@@ -112,7 +118,12 @@ def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
     Returns what ``trace_quad`` returns.  With ``visited`` (a dict) it also
     records the rows the trace reads, as the kernel reads them:
     ``visited["nodes"]`` and ``["woop"]``, bool masks over the tables' rows
-    (``common.visit_masks``)."""
+    (``common.visit_masks``).
+
+    ``cursors`` > 1: each hit leaf child, in visit order, is held
+    (``common.HeldLeaves``), and a ray drains the leaves it holds, oldest
+    first, when it holds ``cursors`` of them or its stack is empty."""
+    cursors = check_cursors(cursors)
     dev = rays.origin.device
     n = rays.origin.shape[0]
     nodes = tables.nodes.to(dev)
@@ -129,11 +140,19 @@ def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
     ood = rays.origin * idir
     pos = torch.arange(4, device=dev)
 
-    # Live rays (ids), their current node, stack and stack pointer.
+    def drain_links(link, r):
+        """Drain leaf ``link`` = ~(first | count << 24) of live row ``r``."""
+        c = ~link
+        drain_plain(woop, woop_i, c & FIRST_MASK, (c >> COUNT_SHIFT) & 0xFF, ids[r], rays, st,
+                    any_hit, None if seen is None else seen["woop"])
+
+    # Live rays (ids), their current node, stack and stack pointer, and the
+    # leaves they hold.
     ids = torch.nonzero(~(rays.tmax < 0)).squeeze(1)
     node = torch.zeros_like(ids)
     stack = torch.zeros((ids.shape[0], STACK_SIZE), dtype=torch.int64, device=dev)
     sp = torch.zeros_like(ids)
+    held = HeldLeaves(ids.shape[0], cursors, dev) if cursors > 1 else None
     while ids.numel():
         a = ids.shape[0]
         rows = torch.arange(a, device=dev)
@@ -164,16 +183,18 @@ def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
         hit_v = hit.gather(1, perm)
         lk_v = lk.gather(1, perm)
 
-        # Drain the hit leaves in visit order, each triangle in turn.
+        # Drain the hit leaves in visit order, each triangle in turn (or
+        # hold them, and drain what is held once ``cursors`` are held).
         for p in range(4):
             leaf = hit_v[:, p] & (lk_v[:, p] < 0)
             if any_hit:
                 leaf &= st.tri[ids] < 0
             sel = torch.nonzero(leaf).squeeze(1)
             if sel.numel():
-                c = ~lk_v[sel, p]
-                drain_plain(woop, woop_i, c & FIRST_MASK, (c >> COUNT_SHIFT) & 0xFF, ids[sel],
-                            rays, st, any_hit, None if seen is None else seen["woop"])
+                if held is None:
+                    drain_links(lk_v[sel, p], sel)
+                else:
+                    held.drain(held.add(sel, lk_v[sel, p]), drain_links)
 
         # Inner children: go to the first in visit order, push the others
         # last-first so the second pops next.
@@ -187,6 +208,9 @@ def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
             stack[w, sp[w] + i] = inn[w, q[w]]
         go = m > 0
         pop = ~go & (sp > 0)
+        if held is not None:
+            # An empty stack: drain what is held before the ray ends.
+            held.drain(torch.nonzero(~go & ~pop).squeeze(1), drain_links)
         node = torch.where(go, inn[:, 0], node)
         node = torch.where(pop, stack[rows, (sp - 1).clamp(min=0)], node)
         sp = torch.where(go, sp + (m - 1), torch.where(pop, sp - 1, sp))
@@ -194,6 +218,8 @@ def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
         if any_hit:
             live &= st.tri[ids] < 0
         ids, node, stack, sp = ids[live], node[live], stack[live], sp[live]
+        if held is not None:
+            held.keep(live)
     return st.result(want_uv, with_stats)
 
 
@@ -202,33 +228,42 @@ def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
 # ---------------------------------------------------------------------------
 
 class QuadTraceKernel(CudaTraceKernel):
-    """Wrapper of ``quad_trace.cu`` (see ``CudaTraceKernel``)."""
+    """Wrapper of ``quad_trace.cu`` or ``quad_trace_c.cu`` (postponed
+    leaves; see ``CudaTraceKernel``)."""
 
-    def __init__(self):
-        super().__init__("quad_trace", [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    def __init__(self, name: str = "quad_trace", suffix: str = "",
+                 cursors: tuple[int, int] = (1, 1)):
+        super().__init__(name, [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], suffix, cursors)
 
     def __call__(self, tables: QuadTables, rays: Rays, any_hit: bool = False,
-                 want_uv: bool = False, with_stats: bool = False):
+                 want_uv: bool = False, with_stats: bool = False, cursors: int = 1):
         f32 = torch.float32
         checks = [("nodes", tables.nodes, f32, (tables.nodes.shape[0], 32)),
                   ("woop", tables.woop, f32, (tables.woop.shape[0], 16))]
         args = [tables.nodes.data_ptr(), tables.nodes.shape[0], tables.woop.data_ptr()]
-        return self.launch(checks, args, rays, any_hit, want_uv, with_stats, tables.residency)
+        return self.launch(checks, args, rays, any_hit, want_uv, with_stats, tables.residency,
+                           cursors=cursors)
 
 
 KERNEL = QuadTraceKernel()
+KERNEL_C = QuadTraceKernel("quad_trace_c", "_c", (2, MAX_CURSORS))
+KERNELS = (KERNEL, KERNEL_C)
 
 
 def trace_quad(tables: QuadTables, rays: Rays, any_hit: bool = False,
-               want_uv: bool = False, with_stats: bool = False):
+               want_uv: bool = False, with_stats: bool = False, cursors: int = 1):
     """Closest hit per ray over the QuadBVH tables, or with ``any_hit`` the
     first accepted hit in visit order; u, v with ``want_uv`` (else 0) and
     ``(hits, {"node_tests", "tri_tests"})`` with ``with_stats``.  CPU rays
     take the plain version; CUDA rays launch the kernel (there is no
-    fallback).  Counterpart of ``tpu_rt`` ``trace_packet4``."""
+    fallback).  Counterpart of ``tpu_rt`` ``trace_packet4``, whose ``c=``
+    is ``cursors``: leaves a ray holds before it drains them,
+    1..MAX_CURSORS (``quad_trace_c.cu`` for more than 1)."""
+    cursors = check_cursors(cursors)
     dev = rays.origin.device
     if dev.type == "cpu":
-        return trace_quad_plain(tables, rays, any_hit, want_uv, with_stats)
+        return trace_quad_plain(tables, rays, any_hit, want_uv, with_stats, cursors=cursors)
     if dev.type == "cuda":
-        return KERNEL(tables, rays, any_hit, want_uv, with_stats)
+        kernel = KERNEL_C if cursors > 1 else KERNEL
+        return kernel(tables, rays, any_hit, want_uv, with_stats, cursors)
     raise ValueError(f"trace_quad: unsupported device {dev}")
