@@ -6,12 +6,13 @@ and holds every kernel form against its plain PyTorch version and the host
 oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 
 1.   builds every kernel library (quad_trace.cu, quad_trace_c.cu,
-     flat_trace.cu, flat_trace_c.cu, flat_trace_mxu.cu, mxu_ablate.cu; one
-     nvcc each, all run together; 24 + 24 + 48 + 48 + 48 + 5 forms) and
-     prints ptxas' registers, stack and spills per form; the vmem f32 frame
-     forms must keep their registers from before the layout and
-     postponed-leaf flags, and the tensor-core forms' SASS (cuobjdump) must
-     hold DMMA.
+     flat_trace.cu, flat_trace_c.cu, flat_trace_mxu.cu, mxu_ablate.cu,
+     ablate2.cu, mosaic_probe3.cu; one nvcc each, all run together;
+     24 + 24 + 48 + 48 + 48 + 5 + 10 + 9 forms) and prints ptxas' registers,
+     stack and spills per form; the vmem f32 frame forms must keep their
+     registers from before the layout and postponed-leaf flags, the
+     tensor-core forms' SASS (cuobjdump) must hold DMMA, and the probes'
+     SASS must hold each level's and mode's work (``sass_checks``).
 2-5. bunny (144,500 triangles), SBVH build, 4-wide collapse, Morton-ordered
      primary rays at 640x480, the closest-hit trace through
      ``Renderer(tracer="auto")`` (the CUDA quad kernel) and the image; the
@@ -83,6 +84,15 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 24.  the MXU ablation probe (``tpu_rt_torch.probes.mxu_ablate``) at 16,384
      and 262,144 rays: ns per iteration of each variant, each checked
      against its plain version.
+25.  the traversal-step ablation (``tpu_rt_torch.probes.ablate2``) on
+     bunny's node records and Woop rows, on a full card and at the tool's
+     8,192 rays: ns per iteration of each level, the output of each
+     level's timed launch against its plain version on every ray.
+26.  the row-cursor primitives (``tpu_rt_torch.probes.mosaic_probe3``) on a
+     full card and on the tool's one packet: ns per iteration and per row
+     step of each mode, the output of each mode's timed launch against its
+     plain version on every packet; and the gather and scatter-add rates
+     of PyTorch indexing at the tool's sizes.
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
@@ -98,8 +108,10 @@ the FP64 tensor rate) and the table rows its rays read, rays and hits over
 the memory rate (``bound``).  The new forms' entries say in ``timed_on``
 which rays their times were taken on; their ``plain_ms`` is one call of
 the plain version's full form (u, v and counters), timed with CUDA events
-in phase 22; the probe's times are per iteration.  No single PyTorch call
-computes a BVH traversal, so ``library_ms`` is null.
+in phase 22; the probes' times are per iteration (``ablate2``'s of its full
+step, level 8; ``mosaic_probe3``'s of ``rowstep``; both on a full card),
+with ``ns_per_iter`` of every variant, level or mode.  No single PyTorch call computes a BVH
+traversal or a probe, so ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -129,7 +141,16 @@ ORACLE_RAYS = 8192
 DEVICE = "cuda"
 CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_bvhcache")
 PACKET2 = "tpu_rt/trace/packet2.py:404"
-PROBE_VARIANTS = ("scalar", "full", "noL", "noM", "epi0")   # mxu_ablate.cu's order
+
+
+def probe_form(lib: str, index: int) -> str:
+    """The form name of instantiation ``index`` of a probe's kernel: the
+    module's variant, level or mode of that index."""
+    from tpu_rt_torch.probes import ablate2, mosaic_probe3, mxu_ablate
+
+    forms = {"mxu_ablate": mxu_ablate.VARIANTS, "ablate2": [f"level={lv}" for lv in ablate2.LEVELS],
+             "mosaic_probe3": mosaic_probe3.MODES}[lib]
+    return f"{lib}<{forms[index]}>"
 
 
 def check(ok: bool, what: str) -> None:
@@ -198,22 +219,23 @@ PTXAS_VMEM_F32 = {"quad_trace<any=0,uv=0,stats=0>": (53, 256),
 KERNEL_FLAGS = {"quad_trace": ("any", "uv", "stats", "sn", "st", "c"),
                 "flat_trace": ("any", "uv", "stats", "bf16", "sn", "st", "c"),
                 "flat_trace_mxu": ("any", "uv", "stats", "bf16", "sn", "st")}
-N_FORMS = 24 + 24 + 48 + 48 + 48 + 5   # quad, quad_c, flat, flat_c, flat_mxu, the probe
+# quad, quad_c, flat, flat_c, flat_mxu; the probes mxu_ablate, ablate2, mosaic_probe3
+N_FORMS = 24 + 24 + 48 + 48 + 48 + 5 + 10 + 9
 
 
 def ptxas_forms(log: str) -> list[tuple[str, int, int, str]]:
     """One entry per compiled kernel form: (name, registers, stack bytes,
     the line to print).  The name is the library (the kernel, "_c" for its
     postponed-leaf forms), its three form flags, then the layout: "@" +
-    residency (+ "-bf16"), nothing for vmem f32; the probe's are
-    "mxu_ablate<variant>"."""
+    residency (+ "-bf16"), nothing for vmem f32; the probes' are
+    "mxu_ablate<variant>", "ablate2<level=N>" and "mosaic_probe3<mode>"."""
     out, name, stack, stack_b = [], None, "", 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             flags = re.search(r"(quad_trace|flat_trace_mxu|flat_trace)_kernelI((?:Lb[01]E)+)E",
                               m.group(1))
-            probe = re.search(r"mxu_ablate_kernelILi(\d)E", m.group(1))
+            probe = re.search(r"(mxu_ablate|ablate2|mosaic_probe3)_kernelILi(\d)E", m.group(1))
             if flags:
                 f = dict(zip(KERNEL_FLAGS[flags.group(1)],
                              (int(x) for x in re.findall(r"Lb([01])E", flags.group(2)))))
@@ -223,7 +245,7 @@ def ptxas_forms(log: str) -> list[tuple[str, int, int, str]]:
                 lib = flags.group(1) + ("_c" if f.get("c") else "")
                 name = f"{lib}<any={f['any']},uv={f['uv']},stats={f['stats']}>{lay}"
             elif probe:
-                name = f"mxu_ablate<{PROBE_VARIANTS[int(probe.group(1))]}>"
+                name = probe_form(probe.group(1), int(probe.group(2)))
             else:
                 name = m.group(1)
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -236,6 +258,94 @@ def ptxas_forms(log: str) -> list[tuple[str, int, int, str]]:
             out.append((name, int(m.group(1)), stack_b, f"{name}: {m.group(1)} registers, {stack}"))
             name = None
     return out
+
+
+# SASS opcode classes counted per probe form (``sass_counts``).
+SASS_CLASSES = {
+    "LDG": ("LDG",), "local": ("LDL", "STL"), "LDS": ("LDS",), "STS": ("STS",),
+    "SHFL": ("SHFL",), "VOTE": ("VOTE", "VOTEU"), "BAR": ("BAR",), "F2I": ("F2I",),
+    "FP32": ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK"),
+}
+# What each ablate2 level adds to the SASS of the level below: its own class
+# of instruction, which must grow, while no class of ABLATE2_KEPT that the
+# level below has may vanish (counts of the others move a little with the
+# compiler's scheduling); level 9 differs from 8 in its loop and keeps 8's
+# classes.
+ABLATE2_MARKS = {1: "LDG", 2: "LDG", 3: "FP32", 4: "VOTE", 5: "local", 6: "LDG", 7: "MUFU.RCP",
+                 8: "FP32"}
+ABLATE2_KEPT = ("LDG", "local", "VOTE", "SHFL", "MUFU.RCP", "FP32")
+# (mode, class, mode it must have more of): each mosaic_probe3 mode's work.
+# fetch16 reads only row 0's M[0, 0]; its LDG is every warp's fetch.
+MOSAIC_MARKS = (("x16", "BAR", "empty"), ("x16", "F2I", "empty"), ("fetch16", "LDG", "empty"),
+                ("fetch16T", "SHFL", "fetch16"), ("onehot_stack", "STS", "empty"),
+                ("onehot_stack", "LDS", "empty"), ("rowstep", "LDG", "empty"),
+                ("rowstep", "VOTE", "empty"), ("rowstep", "SHFL", "fetch16"),
+                ("div8", "MUFU.RCP", "divmul"), ("divmul", "MUFU.RCP", "mul8"),
+                ("mul8", "FP32", "empty"))
+
+
+def sass_counts(path: str) -> dict[str, dict]:
+    """Per kernel function of the library at ``path`` (``cuobjdump -sass``):
+    the count of each SASS_CLASSES class, of MUFU.RCP and of all
+    instructions, and the opcodes in order (``ops``)."""
+    from tpu_rt_torch.trace import common
+
+    cuobjdump = os.path.join(os.path.dirname(common.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    ops, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = ops.setdefault(m.group(1), [])
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P(?:T|\d+)\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if m and cur is not None:
+            cur.append(m.group(1))
+    out = {}
+    for fn, seq in ops.items():
+        c = {k: sum(op.split(".")[0] in v for op in seq) for k, v in SASS_CLASSES.items()}
+        c.update({"MUFU.RCP": sum(op.startswith("MUFU.RCP") for op in seq), "all": len(seq),
+                  "ops": seq})
+        out[fn] = c
+    return out
+
+
+def sass_forms(path: str, lib: str) -> dict:
+    """``sass_counts`` of a probe library by form index."""
+    return {int(re.search(rf"{lib}_kernelILi(\d)E", fn).group(1)): c
+            for fn, c in sass_counts(path).items() if f"{lib}_kernel" in fn}
+
+
+def sass_checks(ablate_path: str, mosaic_path: str) -> None:
+    """Phase 1: the probes' SASS holds the work that each level and mode
+    times (the compiler folds x - x and closed-form loops; the sources keep
+    their terms live with a run-time zero): ABLATE2_MARKS / ABLATE2_KEPT,
+    MOSAIC_MARKS."""
+    from tpu_rt_torch.probes import mosaic_probe3
+
+    def line(name, c):
+        print(f"sass {name}: " + ", ".join(f"{k} {c[k]}" for k in (*SASS_CLASSES, "MUFU.RCP",
+                                                                     "all")))
+
+    ab = sass_forms(ablate_path, "ablate2")
+    check(sorted(ab) == list(range(10)), f"ablate2 SASS forms {sorted(ab)}")
+    for lv in range(10):
+        line(f"ablate2<level={lv}>", ab[lv])
+    for lv, mark in ABLATE2_MARKS.items():
+        check(ab[lv][mark] > ab[lv - 1][mark], f"ablate2 level {lv}: {mark} {ab[lv][mark]}, "
+              f"level {lv - 1} {ab[lv - 1][mark]}: the level's work is not in the SASS")
+    for lv in range(1, 10):
+        lost = [k for k in ABLATE2_KEPT if ab[lv - 1][k] and not ab[lv][k]]
+        check(not lost, f"ablate2 level {lv} has no {lost}, which level {lv - 1} has")
+    check(ab[9]["ops"] != ab[8]["ops"], "ablate2 level 9's SASS equals level 8's")
+    mp = {mosaic_probe3.MODES[i]: c for i, c in sass_forms(mosaic_path, "mosaic_probe3").items()}
+    check(sorted(mp) == sorted(mosaic_probe3.MODES), f"mosaic_probe3 SASS forms {sorted(mp)}")
+    for mode in mosaic_probe3.MODES:
+        line(f"mosaic_probe3<{mode}>", mp[mode])
+    for mode, cls, than in MOSAIC_MARKS:
+        check(mp[mode][cls] > mp[than][cls], f"mosaic_probe3 {mode}: {cls} {mp[mode][cls]}, "
+              f"{than} {mp[than][cls]}: the mode's work is not in the SASS")
 
 
 def against_plain(kernel, plain, tables, rays, any_hit, frame_tri, what):
@@ -1750,10 +1860,132 @@ def triangle_entries(paths, checks, times, probe):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-26: the traversal-step ablation and the row-cursor primitives
+# ---------------------------------------------------------------------------
+
+def ablate2_phase(t0, fb, bctx, dev):
+    """Phase 25: the traversal-step ablation (python -m tpu_rt_torch.probes.
+    ablate2) on bunny's node records and Woop rows, on a full card and at
+    the tool's 8,192 rays: ns per iteration of each level, the output of
+    each timed launch at N against its plain version on every ray; the
+    kernels line takes the full card's run."""
+    from tpu_rt_torch.probes import ablate2
+
+    runs = []
+    for n_rays in (ablate2.full_card(dev), None):
+        res = ablate2.run(fb["renderer"].flat, bctx["scene"], dev, n_rays)
+        print(f"ablate2: {res['n_rays']} rays ({res['n_rays'] // ablate2.GROUP} blocks), "
+              f"K={res['k']} U={res['u']}, trip counts {res['niter']} and {5 * res['niter']}, "
+              f"launches {res['launches']}")
+        for level, r in res["levels"].items():
+            print(f"  level {level}: {r['ns_per_iter']:10.1f} ns/iter (+{r['delta_ns']:9.1f}) "
+                  f"{r['name']}; lo {r['ms_lo']:.4f} ms, hi {r['ms_hi']:.4f} ms; plain "
+                  f"{r['plain_ns_per_iter']:.1f} ns/iter; vs plain on {r['check_rays']} rays x "
+                  f"{r['check_iters']}: bits differ {r['bits_differ']}, nodes differ "
+                  f"{r['node_differ']}")
+        bad = ablate2.check(res)
+        check(not bad, f"ablate2 levels differ from their plain versions: {bad}")
+        check(all(v > 0 for v in res["launches"].values()), f"ablate2 launches {res['launches']}")
+        runs.append(res)
+    phase("ablate2 probe done", t0)
+    return runs
+
+
+def mosaic_phase(t0, dev):
+    """Phase 26: the row-cursor primitives (python -m tpu_rt_torch.probes.
+    mosaic_probe3) on a full card and on the tool's one packet: ns per
+    iteration and per row step of each mode, the output of each timed
+    launch at ITERS against its plain version on every packet (the kernels
+    line takes the full card's run); then the gather and scatter-add rates
+    of PyTorch indexing at the tool's sizes."""
+    from tpu_rt_torch.probes import mosaic_probe3
+
+    runs = []
+    for packets in (mosaic_probe3.full_card(dev), 1):
+        res = mosaic_probe3.run(dev, packets)
+        print(f"mosaic_probe3: {packets} packets of {mosaic_probe3.R} rows, trip counts "
+              f"{res['iters']} and {5 * res['iters']}, launches {res['launches']}")
+        for mode, r in res["modes"].items():
+            print(f"  {mode:14s} {r['ns_per_iter']:9.1f} ns/iter ({r['ns_per_row_step']:7.2f} "
+                  f"ns/row-step); lo {r['ms_lo']:.4f} ms, hi {r['ms_hi']:.4f} ms; plain "
+                  f"{r['plain_ns_per_iter']:.1f} ns/iter; vs plain on {r['check_packets']} "
+                  f"packets x {r['check_iters']}: bits differ {r['bits_differ']}, nodes "
+                  f"differ {r['nodes_differ']}")
+        bad = mosaic_probe3.check(res)
+        check(not bad, f"mosaic_probe3 modes differ from their plain versions: {bad}")
+        check(all(v > 0 for v in res["launches"].values()),
+              f"mosaic_probe3 launches {res['launches']}")
+        runs.append(res)
+    gather = mosaic_probe3.gather_rates(dev)
+    phase("mosaic_probe3 probe and gather rates done", t0)
+    return runs, gather
+
+
+# The probes are built with -fmad=false, so each f32 operation they count
+# is an instruction of its own: one per lane per clock, half of the 67
+# TFLOP/s peak, which counts a fused multiply-add as two.
+PEAK_F32_INSTR = PEAK_F32_FLOPS / 2
+
+
+def step_bound(what: str, ops: int, nbytes: int) -> dict:
+    """The least time of one probe iteration on a full card: its f32
+    operations at the FP32 instruction rate against the table bytes it
+    reads over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32_INSTR * 1e3, nbytes / PEAK_BYTES * 1e3
+    print(f"bound {what} (per iteration): {ops} f32 instructions -> {t_ops:.9f} ms; {nbytes} B "
+          f"-> {t_bytes:.9f} ms")
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def probe_entries(ab_runs, mp_runs):
+    """The kernels-line entries of the two probes, from their runs on a
+    full card (where the whole card's peaks apply).  ``ms`` and
+    ``plain_ms`` are per iteration of the full step (ablate2 level 8,
+    mosaic_probe3 rowstep); the bound counts its f32 operations
+    (``STEP_OPS`` per ray or packet) against the rows it reads: ablate2's
+    K records and K U Woop rows (every warp walks the same cursors),
+    mosaic_probe3's 16 records per packet, at most the table once."""
+    from tpu_rt_torch.probes import ablate2, mosaic_probe3
+
+    ab, mp = ab_runs[0], mp_runs[0]
+    full, row = ab["levels"][ablate2.FULL_LEVEL], mp["modes"][mosaic_probe3.FULL_MODE]
+    ab_bound = step_bound("ablate2", ab["n_rays"] * ablate2.STEP_OPS,
+                          ab["k"] * (1 + ab["u"]) * ablate2.ROW_BYTES)
+    mp_bound = step_bound("mosaic_probe3", mp["packets"] * mosaic_probe3.STEP_OPS,
+                          min(mosaic_probe3.R * mp["packets"], mosaic_probe3.TABLE_ROWS)
+                          * mosaic_probe3.RECORD_BYTES)
+    return [{
+        "name": "ablate2", "route": "cuda", "source": "tpu_rt_torch/csrc/ablate2.cu",
+        "replaces": "tools/ablate2.py:38 (make_kernel(level); timed :188)",
+        "path": f"python -m tpu_rt_torch.probes.ablate2 (run), {SCENE} node records and Woop rows",
+        "launches": sum(ab["launches"].values()),
+        "timed_on": f"level {ablate2.FULL_LEVEL} (the full step), {ab['n_rays']} rays, per "
+                    f"iteration (t({5 * ab['niter']}) - t({ab['niter']})) / {4 * ab['niter']}",
+        "max_abs_err": max(r["max_abs_err"] for r in ab["levels"].values()),
+        "ms": full["ns_per_iter"] / 1e6, "plain_ms": full["plain_ns_per_iter"] / 1e6,
+        **ab_bound, "library_ms": None,
+        "ns_per_iter": {str(lv): r["ns_per_iter"] for lv, r in ab["levels"].items()},
+    }, {
+        "name": "mosaic_probe3", "route": "cuda", "source": "tpu_rt_torch/csrc/mosaic_probe3.cu",
+        "replaces": "tools/mosaic_probe3.py:37 (make_kernel(mode, iters); called :185)",
+        "path": "python -m tpu_rt_torch.probes.mosaic_probe3 (run), the tool's random table",
+        "launches": sum(mp["launches"].values()),
+        "timed_on": f"mode {mosaic_probe3.FULL_MODE}, {mp['packets']} packet(s), per iteration "
+                    f"(t({5 * mp['iters']}) - t({mp['iters']})) / {4 * mp['iters']}",
+        "max_abs_err": max(r["max_abs_err"] for r in mp["modes"].values()),
+        "ms": row["ns_per_iter"] / 1e6, "plain_ms": row["plain_ns_per_iter"] / 1e6,
+        **mp_bound, "library_ms": None,
+        "ns_per_iter": {m: r["ns_per_iter"] for m, r in mp["modes"].items()},
+        "ns_per_row_step": {m: r["ns_per_row_step"] for m, r in mp["modes"].items()},
+    }]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
-    from tpu_rt_torch.probes import mxu_ablate
+    from tpu_rt_torch.probes import ablate2, mosaic_probe3, mxu_ablate
     from tpu_rt_torch.trace import common, flat_kernel, quad_kernel
 
     t0 = time.perf_counter()
@@ -1767,7 +1999,8 @@ def main() -> None:
     # nvcc per library, all started together (the forms of each are
     # instantiations in one library).
     kernel, flat_k = quad_kernel.KERNEL, flat_kernel.KERNEL
-    libs = (*quad_kernel.KERNELS, *flat_kernel.KERNELS, mxu_ablate.KERNEL)
+    libs = (*quad_kernel.KERNELS, *flat_kernel.KERNELS, mxu_ablate.KERNEL, ablate2.KERNEL,
+            mosaic_probe3.KERNEL)
     t1 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda k: k.load(), libs))
@@ -1779,7 +2012,7 @@ def main() -> None:
             print(f"  ptxas {ln}")
             built[name] = (regs, stack_b)
     check(len(built) == N_FORMS, f"{len(built)} kernel forms compiled, want {N_FORMS}: 24 + 24 "
-          "quad, 48 + 48 binary, 48 tensor-core binary, 5 probe variants")
+          "quad, 48 + 48 binary, 48 tensor-core binary, 5 + 10 + 9 probe forms")
     for name, want in PTXAS_VMEM_F32.items():
         check(built.get(name) == want, f"ptxas {name}: {built.get(name)} (registers, stack + "
               f"spill bytes), want {want} as before the layout and postponed-leaf flags")
@@ -1791,6 +2024,7 @@ def main() -> None:
         n_dmma = len(re.findall(r"\bDMMA\b", sass))
         print(f"sass: {k.name}: {n_dmma} DMMA instructions")
         check(n_dmma > 0, f"{k.name}: no DMMA in the SASS")
+    sass_checks(ablate2.KERNEL.path, mosaic_probe3.KERNEL.path)
     phase("kernels built", t0)
 
     closest, bctx = bunny_primary(t0, kernel, dev)
@@ -1809,6 +2043,9 @@ def main() -> None:
     tri_times = triangle_timing(t0, bctx, fb, cctx, fc)
     probe = probe_phase(t0, fb, bctx, dev)
     t_entries = triangle_entries(tri_paths, tri_checks, tri_times, probe)
+    ab_runs = ablate2_phase(t0, fb, bctx, dev)
+    mp_runs, _ = mosaic_phase(t0, dev)
+    p_entries = probe_entries(ab_runs, mp_runs)
 
     # The bound of each earlier entry, on the rays it was timed on, from
     # the plain version's counters on those rays.
@@ -1888,7 +2125,7 @@ def main() -> None:
         "ms": f_b1[0],
         "plain_ms": f_b1[1],
         **bounds["flat_any"], "library_ms": None,
-    }, *form_entries("flat", flat_src, "flat_trace"), *d_entries, *t_entries]}))
+    }, *form_entries("flat", flat_src, "flat_trace"), *d_entries, *t_entries, *p_entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

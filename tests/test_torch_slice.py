@@ -276,6 +276,7 @@ def test_port_imports_no_jax():
         import tpu_rt_torch.trace.common, tpu_rt_torch.trace.cpu_reference
         import tpu_rt_torch.trace.flat_kernel, tpu_rt_torch.trace.wavefront
         import tpu_rt_torch.probes.mxu_ablate, tpu_rt_torch.native
+        import tpu_rt_torch.probes.ablate2, tpu_rt_torch.probes.mosaic_probe3
         for tracer in ("packet", "xla"):
             rr = Renderer(16, 12, RendererParams(ray_type="ao", num_samples=2, ao_radius=0.5,
                                                  cache_dir=None, tracer=tracer, device="cpu"))

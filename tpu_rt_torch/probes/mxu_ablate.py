@@ -33,18 +33,14 @@ import time
 import numpy as np
 import torch
 
-from tpu_rt_torch._build import build_shared
 from tpu_rt_torch.core.types import Rays, make_rays
+from tpu_rt_torch.probes import ProbeKernel, time_ms
 from tpu_rt_torch.trace.common import (
-    CSRC,
     MXU_LEAF,
-    NVCC_FLAGS,
     LeafBest,
     TraceState,
     drain_mxu_plain,
     drain_plain,
-    headers,
-    nvcc,
     woop_rows,
 )
 
@@ -57,37 +53,14 @@ CHECK_RAYS, CHECK_ITERS = 512, 3
 REPEATS = 3
 
 
-class MxuAblateKernel:
-    """Wrapper of ``mxu_ablate.cu``: builds it at first use, checks the
-    arguments, launches a variant on the current stream and counts launches
-    (``launches``, and per variant ``launches_by_form``)."""
-
-    name = "mxu_ablate"
+class MxuAblateKernel(ProbeKernel):
+    """Wrapper of ``mxu_ablate.cu``: checks the arguments and launches a
+    variant (``ProbeKernel``: built at first use, launches counted per
+    variant)."""
 
     def __init__(self):
-        self.source = f"{CSRC}/{self.name}.cu"
-        self.build_log = ""
-        self.build_s = 0.0
-        self.path = None
-        self._fn = None
-        self.reset_counts()
-
-    def reset_counts(self) -> None:
-        self.launches = 0
-        self.launches_by_form = dict.fromkeys(VARIANTS, 0)
-
-    def load(self):
-        if self._fn is None:
-            t0 = time.perf_counter()
-            self.path, self.build_log = build_shared(self.name, [self.source],
-                                                     [nvcc()] + NVCC_FLAGS, deps=headers())
-            fn = ctypes.CDLL(self.path).mxu_ablate_launch
-            self.build_s = time.perf_counter() - t0
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            fn.restype = ci
-            fn.argtypes = [ci, vp, ci, vp, vp, vp, vp, ci, ci, vp, vp, vp]
-            self._fn = fn
-        return self._fn
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        super().__init__("mxu_ablate", VARIANTS, [vp, ci, vp, vp, vp, vp, ci, ci, vp, vp])
 
     def __call__(self, variant: str, woop: torch.Tensor, rays: Rays, niter: int):
         dev = rays.origin.device
@@ -102,18 +75,11 @@ class MxuAblateKernel:
             if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape \
                     or not x.is_contiguous():
                 raise ValueError(f"{self.name}: need contiguous f32 {shape} on {dev}")
-        fn = self.load()
         acc_t = torch.empty((n,), dtype=torch.float32, device=dev)
         acc_tri = torch.empty((n,), dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            err = fn(VARIANTS.index(variant), woop.data_ptr(), r, rays.origin.data_ptr(),
-                     rays.dirn.data_ptr(), rays.tmin.data_ptr(), rays.tmax.data_ptr(), n,
-                     niter, acc_t.data_ptr(), acc_tri.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{self.name} launch failed: cudaError {err}")
-        self.launches += 1
-        self.launches_by_form[variant] += 1
+        self.launch(variant, dev, woop.data_ptr(), r, rays.origin.data_ptr(),
+                    rays.dirn.data_ptr(), rays.tmin.data_ptr(), rays.tmax.data_ptr(), n, niter,
+                    acc_t.data_ptr(), acc_tri.data_ptr())
         return acc_t, acc_tri
 
 
@@ -234,20 +200,6 @@ def probe_rays(scene, n: int, seed: int, device) -> Rays:
                      device=device)
 
 
-def _time_ms(fn, repeats: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(repeats):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end))
-    return float(np.median(out))
-
-
 def run(flat, scene, device="cuda", n_rays: int | None = None, hi: int | None = None,
         lo: int | None = None) -> dict:
     """Time every variant at two trip counts on ``n_rays`` probe rays over
@@ -266,15 +218,15 @@ def run(flat, scene, device="cuda", n_rays: int | None = None, hi: int | None = 
     KERNEL.reset_counts()
     res = {}
     for variant in VARIANTS:
-        t_hi = _time_ms(lambda: ablate(variant, woop, rays, hi), REPEATS)
-        t_lo = _time_ms(lambda: ablate(variant, woop, rays, lo), REPEATS)
+        t_hi = time_ms(lambda: ablate(variant, woop, rays, hi), REPEATS)
+        t_lo = time_ms(lambda: ablate(variant, woop, rays, lo), REPEATS)
         res[variant] = {"ns_per_iter": (t_hi - t_lo) / (hi - lo) * 1e6, "ms_hi": t_hi,
                         "ms_lo": t_lo}
     launches = dict(KERNEL.launches_by_form)
     # The plain version of `full` on the same rays, per iteration the same
     # way (its iterations are tens of PyTorch operations each).
-    p_hi = _time_ms(lambda: ablate_plain("full", woop, rays, PLAIN_HI), 1)
-    p_lo = _time_ms(lambda: ablate_plain("full", woop, rays, PLAIN_LO), 1)
+    p_hi = time_ms(lambda: ablate_plain("full", woop, rays, PLAIN_HI), 1)
+    p_lo = time_ms(lambda: ablate_plain("full", woop, rays, PLAIN_LO), 1)
     res["full"]["plain_ns_per_iter"] = (p_hi - p_lo) / (PLAIN_HI - PLAIN_LO) * 1e6
     small = Rays(*(x[:CHECK_RAYS].contiguous() for x in rays))
     small_cpu = Rays(*(x.cpu() for x in small))
