@@ -8,9 +8,11 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 1.   builds every kernel library (quad_trace.cu, quad_trace_c.cu,
      flat_trace.cu, flat_trace_c.cu, flat_trace_mxu.cu, mxu_ablate.cu,
      ablate2.cu, mosaic_probe3.cu; one nvcc each, all run together;
-     24 + 24 + 48 + 48 + 48 + 5 + 10 + 9 forms) and prints ptxas' registers,
-     stack and spills per form; the vmem f32 frame forms must keep their
-     registers from before the layout and postponed-leaf flags, the
+     28 + 24 + 52 + 48 + 48 + 5 + 10 + 9 forms) and prints ptxas' registers,
+     stack and spills per form; the vmem f32 frame forms of the persistent
+     kernels and their first versions must keep their registers and stack
+     (``PTXAS_VMEM_F32``), no persistent frame form may spill; the quad
+     frame forms' ptxas at 40 registers (``register_cap_ptxas``); the
      tensor-core forms' SASS (cuobjdump) must hold DMMA, and the probes'
      SASS must hold each level's and mode's work (``sass_checks``).
 2-5. bunny (144,500 triangles), SBVH build, 4-wide collapse, Morton-ordered
@@ -93,6 +95,15 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      step of each mode, the output of each mode's timed launch against its
      plain version on every packet; and the gather and scatter-add rates
      of PyTorch indexing at the tool's sizes.
+27.  the persistent kernels against their first versions (one ray per
+     thread): the four vmem f32 frame forms on the same rays (bunny
+     primary, conference AO batch 1, the conference diffuse batch, dragon
+     primary and AO batch 1 on the binary f32 and quad leaf-16 trees), in
+     turns, in two passes, the second in reverse order: ms, Mray/s and
+     new/old; the stack-placement A/B (local against shared memory) on
+     bunny primary and AO batch 1; every design's hits against the
+     persistent kernel's and its launch shape against ``persistent_grid``;
+     the refill threshold.
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
@@ -110,7 +121,9 @@ which rays their times were taken on; their ``plain_ms`` is one call of
 the plain version's full form (u, v and counters), timed with CUDA events
 in phase 22; the probes' times are per iteration (``ablate2``'s of its full
 step, level 8; ``mosaic_probe3``'s of ``rowstep``; both on a full card),
-with ``ns_per_iter`` of every variant, level or mode.  No single PyTorch call computes a BVH
+with ``ns_per_iter`` of every variant, level or mode.  The four frame
+forms' entries carry ``first_ms``, their first version's time, and their
+``ms`` from the same A/B (phase 27).  No single PyTorch call computes a BVH
 traversal or a probe, so ``library_ms`` is null.
 """
 
@@ -209,41 +222,97 @@ def strided(n: int, dev) -> torch.Tensor:
     return torch.arange(0, n, max(n // ORACLE_RAYS, 1), device=dev)[:ORACLE_RAYS]
 
 
-# ptxas of the vmem f32 frame forms before the layout flags: the residency,
-# node-format and postponed-leaf flags must leave their code as it was.
-PTXAS_VMEM_F32 = {"quad_trace<any=0,uv=0,stats=0>": (53, 256),
+# ptxas of the vmem f32 frame forms (registers, stack + spill bytes): the
+# persistent kernels', and the first versions' as they were before the
+# persistent kernels.
+PTXAS_VMEM_F32 = {"quad_trace<any=0,uv=0,stats=0>": (48, 256),
                   "quad_trace<any=1,uv=0,stats=0>": (48, 256),
-                  "flat_trace<any=0,uv=0,stats=0>": (32, 256),
-                  "flat_trace<any=1,uv=0,stats=0>": (36, 256)}
+                  "flat_trace<any=0,uv=0,stats=0>": (44, 256),
+                  "flat_trace<any=1,uv=0,stats=0>": (45, 256),
+                  "quad_trace<any=0,uv=0,stats=0>/first": (53, 256),
+                  "quad_trace<any=1,uv=0,stats=0>/first": (48, 256),
+                  "flat_trace<any=0,uv=0,stats=0>/first": (32, 256),
+                  "flat_trace<any=1,uv=0,stats=0>/first": (36, 256)}
 # The template flags of each traversal kernel, in order.
-KERNEL_FLAGS = {"quad_trace": ("any", "uv", "stats", "sn", "st", "c"),
-                "flat_trace": ("any", "uv", "stats", "bf16", "sn", "st", "c"),
-                "flat_trace_mxu": ("any", "uv", "stats", "bf16", "sn", "st")}
-# quad, quad_c, flat, flat_c, flat_mxu; the probes mxu_ablate, ablate2, mosaic_probe3
-N_FORMS = 24 + 24 + 48 + 48 + 48 + 5 + 10 + 9
+KERNEL_FLAGS = {"quad_trace": ("any", "uv", "stats", "sn", "st", "c", "shared"),
+                "flat_trace": ("any", "uv", "stats", "bf16", "sn", "st", "c", "shared"),
+                "flat_trace_mxu": ("any", "uv", "stats", "bf16", "sn", "st"),
+                "quad_first": ("any",), "flat_first": ("any",)}
+# quad (+ 2 first versions and 2 with the shared-memory stack), quad_c, flat
+# (+ 2 + 2), flat_c, flat_mxu; the probes mxu_ablate, ablate2, mosaic_probe3
+N_FORMS = 24 + 4 + 24 + 48 + 4 + 48 + 48 + 5 + 10 + 9
 
 
-def ptxas_forms(log: str) -> list[tuple[str, int, int, str]]:
-    """One entry per compiled kernel form: (name, registers, stack bytes,
-    the line to print).  The name is the library (the kernel, "_c" for its
-    postponed-leaf forms), its three form flags, then the layout: "@" +
-    residency (+ "-bf16"), nothing for vmem f32; the probes' are
+# A __launch_bounds__ minimum of 12 blocks of 128 threads per SM holds a
+# kernel to 40 registers (65,536 over 1,536 threads, in steps of 8).
+MIN_BLOCKS, REGISTER_CAP = 12, 40
+
+
+def with_min_blocks(ptx: str, blocks: int) -> tuple[str, int]:
+    """``ptx`` with every entry of 128 threads given a minimum of ``blocks``
+    blocks per SM (``.minnctapersm``, in place of any it had), and the
+    number of entries changed."""
+    ptx = re.sub(r"\n[ \t]*\.minnctapersm[ \t]+\d+", "", ptx)
+    return re.subn(r"(\.maxntid\s+128,\s*1,\s*1)", rf"\1\n.minnctapersm {blocks}", ptx)
+
+
+def register_cap_ptxas(common) -> list[tuple[str, int, int, int, str]]:
+    """ptxas of quad_trace.cu's forms under a __launch_bounds__ minimum of
+    MIN_BLOCKS blocks per SM (``.minnctapersm`` added to every entry of its
+    PTX; nvcc's -maxrregcount does not apply to a kernel with launch
+    bounds), compiled only: what that minimum costs the quad frame forms
+    (``ptxas_forms``' entries)."""
+    base = os.path.join(os.path.dirname(CACHE), f"quad_trace-min{MIN_BLOCKS}")
+    os.makedirs(os.path.dirname(base), exist_ok=True)
+    drop = {"-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v"}
+    flags = [f for f in common.NVCC_FLAGS if f not in drop]
+    proc = subprocess.run([common.nvcc(), "-arch=sm_90a", *flags, "-ptx",
+                           os.path.join(common.CSRC, "quad_trace.cu"), "-o", f"{base}.ptx"],
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"quad_trace.cu to PTX:\n{(proc.stdout + proc.stderr)[-4000:]}")
+    with open(f"{base}.ptx") as f:
+        ptx, n = with_min_blocks(f.read(), MIN_BLOCKS)
+    check(n == ptx.count(".entry "), f"quad_trace.cu PTX: {n} launch bounds, "
+          f"{ptx.count('.entry ')} entries")
+    with open(f"{base}-bounded.ptx", "w") as f:
+        f.write(ptx)
+    ptxas = os.path.join(os.path.dirname(common.nvcc()), "ptxas")
+    proc = subprocess.run([ptxas, "-arch=sm_90a", "-v", f"{base}-bounded.ptx", "-o",
+                           f"{base}.cubin"], capture_output=True, text=True, timeout=600)
+    log = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"ptxas of quad_trace.cu at {MIN_BLOCKS} blocks:\n{log[-4000:]}")
+    return ptxas_forms(log)
+
+
+def ptxas_forms(log: str) -> list[tuple[str, int, int, int, str]]:
+    """One entry per compiled kernel form: (name, registers, stack frame
+    bytes, spill bytes (stores + loads), the line to print).  The name is the
+    library (the kernel, "_c" for its postponed-leaf forms), its three form
+    flags, then the layout: "@" + residency (+ "-bf16"), nothing for vmem
+    f32, then "/first" for a first version and "/shared_stack" for the
+    persistent kernel with its stack in shared memory; the probes' are
     "mxu_ablate<variant>", "ablate2<level=N>" and "mosaic_probe3<mode>"."""
-    out, name, stack, stack_b = [], None, "", 0
+    out, name, stack, frame, spill = [], None, "", 0, 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            flags = re.search(r"(quad_trace|flat_trace_mxu|flat_trace)_kernelI((?:Lb[01]E)+)E",
-                              m.group(1))
+            flags = re.search(r"(quad_trace|flat_trace_mxu|flat_trace|quad_first|flat_first)"
+                              r"_kernelI((?:Lb[01]E)+)E", m.group(1))
             probe = re.search(r"(mxu_ablate|ablate2|mosaic_probe3)_kernelILi(\d)E", m.group(1))
             if flags:
                 f = dict(zip(KERNEL_FLAGS[flags.group(1)],
                              (int(x) for x in re.findall(r"Lb([01])E", flags.group(2)))))
-                res = ("hbm" if f["sn"] else "mixed") if f["st"] else "vmem"
+                res = ("hbm" if f.get("sn") else "mixed") if f.get("st") else "vmem"
                 bf16 = f.get("bf16", 0) == 1
                 lay = "" if res == "vmem" and not bf16 else f"@{res}" + ("-bf16" if bf16 else "")
-                lib = flags.group(1) + ("_c" if f.get("c") else "")
-                name = f"{lib}<any={f['any']},uv={f['uv']},stats={f['stats']}>{lay}"
+                lib = flags.group(1).replace("_first", "_trace") + ("_c" if f.get("c") else "")
+                if flags.group(1).endswith("_first"):
+                    lay += "/first"
+                elif f.get("shared"):
+                    lay += "/shared_stack"
+                name = (f"{lib}<any={f['any']},uv={f.get('uv', 0)},stats={f.get('stats', 0)}>"
+                        f"{lay}")
             elif probe:
                 name = probe_form(probe.group(1), int(probe.group(2)))
             else:
@@ -252,10 +321,11 @@ def ptxas_forms(log: str) -> list[tuple[str, int, int, str]]:
                       ln)
         if m:
             stack = f"{m.group(1)} B stack, spills {m.group(2)}/{m.group(3)} B"
-            stack_b = int(m.group(1)) + int(m.group(2)) + int(m.group(3))
+            frame, spill = int(m.group(1)), int(m.group(2)) + int(m.group(3))
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            out.append((name, int(m.group(1)), stack_b, f"{name}: {m.group(1)} registers, {stack}"))
+            out.append((name, int(m.group(1)), frame, spill,
+                        f"{name}: {m.group(1)} registers, {stack}"))
             name = None
     return out
 
@@ -1922,6 +1992,115 @@ def mosaic_phase(t0, dev):
     return runs, gather
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the persistent kernels against their first versions
+# ---------------------------------------------------------------------------
+
+def design_ab(t0, quad_k, flat_k, bctx, fb, cctx, fc, fctx):
+    """Phase 27: the four vmem f32 frame forms (quad and binary, closest and
+    any hit) in their first version (one ray per thread) and persistent,
+    on the same rays, in turns, in two passes, the second in reverse order:
+    bunny primary, conference AO batch 1 (any hit), the conference diffuse
+    batch, dragon primary and dragon AO batch 1 (binary f32, quad leaf 16);
+    then the stack placement A/B (local against shared memory) on bunny
+    primary and conference AO batch 1.  Every design's hits equal the
+    persistent kernel's (which phases 3-18 held to the plain versions on
+    these rays), and each launch's shape is the one ``persistent_grid`` /
+    ``shared_stack_bytes`` give.  A time is the median over both passes.
+    Returns {(kernel, rays): ms by design}."""
+    from tpu_rt_torch.trace.common import BLOCK, CSRC, persistent_grid, shared_stack_bytes
+
+    dragon, d_b1 = fctx["frames"], fctx["b1"].rays
+    b1_q, b1_f = cctx["ao"]._batches[0], fc["ao"]._batches[0]
+    d_q, d_f = cctx["dif"]._batches[0], fc["dif"]._batches[0]
+    d_live = int((d_b1.tmax >= 0).sum())
+    # (rays label, kernel, tables, rays, any hit, rays counted for Mray/s)
+    cases = [
+        ("bunny primary", quad_k, bctx["renderer"].tracer_tables, bctx["renderer"].primary.rays,
+         False, WIDTH * HEIGHT),
+        ("bunny primary", flat_k, fb["renderer"].tracer_tables, fb["renderer"].primary.rays,
+         False, WIDTH * HEIGHT),
+        ("conference AO batch 1", quad_k, cctx["ao"].tracer_tables, b1_q.rays, True,
+         cctx["b1_live"]),
+        ("conference AO batch 1", flat_k, fc["ao"].tracer_tables, b1_f.rays, True,
+         cctx["b1_live"]),
+        ("conference diffuse", quad_k, cctx["dif"].tracer_tables, d_q.rays, False, cctx["hits"]),
+        ("conference diffuse", flat_k, fc["dif"].tracer_tables, d_f.rays, False, cctx["hits"]),
+        ("dragon primary", quad_k, dragon["auto"]["renderer"].tracer_tables,
+         dragon["auto"]["renderer"].primary.rays, False, WIDTH * HEIGHT),
+        ("dragon primary", flat_k, dragon["packet"]["renderer"].tracer_tables,
+         dragon["packet"]["renderer"].primary.rays, False, WIDTH * HEIGHT),
+        ("dragon AO batch 1", quad_k, dragon["auto"]["renderer"].tracer_tables, d_b1, True,
+         d_live),
+        ("dragon AO batch 1", flat_k, dragon["packet"]["renderer"].tracer_tables, d_b1, True,
+         d_live),
+    ]
+    for label, kern, tables, *_ in cases:
+        check(tables.residency == "vmem" and not getattr(tables, "bf16_nodes", False),
+              f"{label} {kern.name}: the A/B takes the vmem f32 tables")
+    stack_ab = {("bunny primary", "quad_trace"), ("bunny primary", "flat_trace"),
+                ("conference AO batch 1", "quad_trace"), ("conference AO batch 1", "flat_trace")}
+    runs = [(i, d) for i, (label, kern, *_) in enumerate(cases)
+            for d in (("first", "persistent") if (label, kern.name) not in stack_ab
+                      else ("first", "persistent", "shared_stack"))]
+    ref = {}
+    for i, (label, kern, tables, rays, any_hit, _) in enumerate(cases):
+        ref[i] = kern(tables, rays, any_hit=any_hit)
+    samples, passes = {}, {}
+    for n_pass, seq in enumerate((runs, runs[::-1]), 1):
+        for i, design in seq:
+            label, kern, tables, rays, any_hit, _ = cases[i]
+            checks, args, opts = kern.launch_args(tables)
+            run = partial(kern.launch, checks, args, rays, any_hit, False, False, design=design,
+                          **opts)
+            got = run()
+            shape = dict(kern.last_shape)
+            ms = time_ms(run, WARMUP, REPEATS)
+            samples.setdefault((i, design), []).extend(ms)
+            passes[(i, design, n_pass)] = median(ms)
+            if n_pass == 1:
+                bad = int((got.tri != ref[i].tri).sum()) + bits_differ(got.t, ref[i].t)
+                need = opts["stack_need"]
+                if design == "first":
+                    want = {"grid": -(-rays.num // BLOCK), "blocks_per_sm": 0, "smem_bytes": 0}
+                else:
+                    want = {"grid": persistent_grid(rays.num, shape["sms"],
+                                                    shape["blocks_per_sm"]),
+                            "smem_bytes": (shared_stack_bytes(need) if design == "shared_stack"
+                                           else 0)}
+                print(f"design {label}, {kern.name} any_hit={any_hit} {design}: launch {shape} "
+                      f"(stack need {need}); tri / t mismatches against the persistent kernel "
+                      f"{bad}")
+                check(bad == 0, f"{label} {kern.name} {design}: hits differ from the persistent "
+                      "kernel's")
+                check(all(shape[k] == v for k, v in want.items())
+                      and (design == "first" or shape["blocks_per_sm"] >= 1),
+                      f"{label} {kern.name} {design}: launch shape {shape}, want {want}")
+    out = {}
+    for i, (label, kern, tables, rays, any_hit, counted) in enumerate(cases):
+        first, new = median(samples[(i, "first")]), median(samples[(i, "persistent")])
+        out[(kern.name, label)] = {"first": first, "persistent": new}
+        print(f"A/B {label}, {kern.name} {'any' if any_hit else 'closest'} hit ({rays.num} rays, "
+              f"{counted} counted): first {first:.4f} ms ({counted / (first * 1e3):.2f} Mray/s; "
+              f"passes {passes[(i, 'first', 1)]:.4f}, {passes[(i, 'first', 2)]:.4f}), "
+              f"persistent {new:.4f} ms ({counted / (new * 1e3):.2f} Mray/s; passes "
+              f"{passes[(i, 'persistent', 1)]:.4f}, {passes[(i, 'persistent', 2)]:.4f}); new/old "
+              f"{new / first:.4f}")
+        if (label, kern.name) in stack_ab:
+            sh = median(samples[(i, "shared_stack")])
+            out[(kern.name, label)]["shared_stack"] = sh
+            print(f"stack A/B {label}, {kern.name}: local memory (the persistent kernel) "
+                  f"{new:.4f} ms, shared memory {sh:.4f} ms (passes "
+                  f"{passes[(i, 'shared_stack', 1)]:.4f}, {passes[(i, 'shared_stack', 2)]:.4f}); "
+                  f"shared/local {sh / new:.4f}")
+    with open(os.path.join(CSRC, "trace_common.cuh")) as f:
+        refill = re.search(r"constexpr int kRefill = (\d+);", f.read()).group(1)
+    print(f"refill threshold: a warp refills below {refill} of 32 active lanes "
+          "(trace_common.cuh kRefill)")
+    phase("persistent kernels against their first versions", t0)
+    return out
+
+
 # The probes are built with -fmad=false, so each f32 operation they count
 # is an instruction of its own: one per lane per clock, half of the 67
 # TFLOP/s peak, which counts a fused multiply-add as two.
@@ -2002,20 +2181,36 @@ def main() -> None:
     libs = (*quad_kernel.KERNELS, *flat_kernel.KERNELS, mxu_ablate.KERNEL, ablate2.KERNEL,
             mosaic_probe3.KERNEL)
     t1 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as pool:
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        capped = pool.submit(register_cap_ptxas, common)
         list(pool.map(lambda k: k.load(), libs))
+        capped = capped.result()
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t1:.2f} s of wall time")
-    built = {}
+    built, spills = {}, {}
     for k in libs:
         print(f"build: {k.name}.cu in {k.build_s:.2f} s")
-        for name, regs, stack_b, ln in ptxas_forms(k.build_log):
+        for name, regs, frame, spill, ln in ptxas_forms(k.build_log):
             print(f"  ptxas {ln}")
-            built[name] = (regs, stack_b)
-    check(len(built) == N_FORMS, f"{len(built)} kernel forms compiled, want {N_FORMS}: 24 + 24 "
-          "quad, 48 + 48 binary, 48 tensor-core binary, 5 + 10 + 9 probe forms")
+            built[name] = (regs, frame + spill)
+            spills[name] = spill
+    check(len(built) == N_FORMS, f"{len(built)} kernel forms compiled, want {N_FORMS}: 24 + 4 + "
+          "24 quad, 48 + 4 + 48 binary, 48 tensor-core binary, 5 + 10 + 9 probe forms")
     for name, want in PTXAS_VMEM_F32.items():
         check(built.get(name) == want, f"ptxas {name}: {built.get(name)} (registers, stack + "
-              f"spill bytes), want {want} as before the layout and postponed-leaf flags")
+              f"spill bytes), want {want}")
+    # The persistent frame forms (every library, residency and node format;
+    # no uv, no counters) spill nothing.
+    frame = [n for n in spills if re.match(r"(quad|flat)_trace(_c)?<any=[01],uv=0,stats=0>", n)
+             and "/first" not in n]
+    check(len(frame) == 2 * 6 + 2 * 12 + 4 and not any(spills[n] for n in frame),
+          f"spills in the persistent frame forms: {[(n, spills[n]) for n in frame if spills[n]]}")
+    # What a __launch_bounds__ minimum of MIN_BLOCKS blocks would cost the
+    # quad frame forms: their ptxas at REGISTER_CAP registers.
+    capped = [c for c in capped if re.fullmatch(r"quad_trace<any=[01],uv=0,stats=0>", c[0])]
+    for name, regs, frame_b, spill, ln in capped:
+        print(f"launch bounds minimum {MIN_BLOCKS} blocks: {ln}")
+    check(len(capped) == 2 and all(c[1] <= REGISTER_CAP for c in capped),
+          f"quad frame forms at {MIN_BLOCKS} blocks: {capped}")
     # The tensor-core forms issue FP64 mma: DMMA in their SASS.
     cuobjdump = os.path.join(os.path.dirname(common.nvcc()), "cuobjdump")
     for k in (flat_kernel.KERNEL_MXU, mxu_ablate.KERNEL):
@@ -2046,6 +2241,7 @@ def main() -> None:
     ab_runs = ablate2_phase(t0, fb, bctx, dev)
     mp_runs, _ = mosaic_phase(t0, dev)
     p_entries = probe_entries(ab_runs, mp_runs)
+    ab = design_ab(t0, kernel, flat_k, bctx, fb, cctx, fc, fctx)
 
     # The bound of each earlier entry, on the rays it was timed on, from
     # the plain version's counters on those rays.
@@ -2095,7 +2291,8 @@ def main() -> None:
         "path": closest["path"],
         "launches": closest["launches"],
         "max_abs_err": max(closest["max_abs_err"], closest_secondary["max_abs_err"]),
-        "ms": closest["ms"],
+        "ms": ab[("quad_trace", "bunny primary")]["persistent"],
+        "first_ms": ab[("quad_trace", "bunny primary")]["first"],
         "plain_ms": closest["plain_ms"],
         **bounds["quad"], "library_ms": None,
     }, {
@@ -2104,6 +2301,8 @@ def main() -> None:
         "source": quad_src,
         "replaces": f"{PACKET2} (any_hit=True, :552-567, :881-883)",
         **anyhit,
+        "ms": ab[("quad_trace", "conference AO batch 1")]["persistent"],
+        "first_ms": ab[("quad_trace", "conference AO batch 1")]["first"],
         **bounds["quad_any"], "library_ms": None,
     }, *form_entries("quad", quad_src, "quad_trace"), {
         "name": "flat_trace",
@@ -2113,7 +2312,8 @@ def main() -> None:
         "path": f_closest["path"],
         "launches": f_closest["launches"],
         "max_abs_err": max(f_closest["max_abs_err"], f_closest_secondary["max_abs_err"]),
-        "ms": f_bunny[0],
+        "ms": ab[("flat_trace", "bunny primary")]["persistent"],
+        "first_ms": ab[("flat_trace", "bunny primary")]["first"],
         "plain_ms": f_bunny[1],
         **bounds["flat"], "library_ms": None,
     }, {
@@ -2122,7 +2322,8 @@ def main() -> None:
         "source": flat_src,
         "replaces": f"{PACKET2} (binary node unit :704-770, any_hit=True :552-567, :881-883)",
         **f_anyhit,
-        "ms": f_b1[0],
+        "ms": ab[("flat_trace", "conference AO batch 1")]["persistent"],
+        "first_ms": ab[("flat_trace", "conference AO batch 1")]["first"],
         "plain_ms": f_b1[1],
         **bounds["flat_any"], "library_ms": None,
     }, *form_entries("flat", flat_src, "flat_trace"), *d_entries, *t_entries, *p_entries]}))

@@ -133,18 +133,26 @@ flat_trace_mxu_kernel(const float4* __restrict__ nodes, int n_nodes,
     }
 }
 
-struct MxuKernelFor {
+// The launch of one form: one ray per thread (the kernel's own loop), as
+// flat_trace.cuh's first versions are launched.
+struct MxuLaunch {
     template <typename A, typename U, typename C, typename B, typename SN, typename ST>
-    auto operator()(A, U, C, B, SN, ST) const {
-        return flat_trace_mxu_kernel<A::value, U::value, C::value, B::value, SN::value,
-                                     ST::value>;
+    cudaError_t operator()(A, U, C, B, SN, ST, const TraceArgs& args, const LaunchCtx& ctx) const {
+        if (ctx.design != kPersistent) return cudaErrorInvalidValue;
+        return launch_per_ray(
+            flat_trace_mxu_kernel<A::value, U::value, C::value, B::value, SN::value, ST::value>,
+            args.n_rays, ctx, args.nodes, args.n_nodes, args.woop, args.leaf_counts,
+            args.n_counts, args.origin, args.dirn, args.tmin, args.tmax, args.out_tri, args.out_t,
+            args.out_u, args.out_v, args.out_node_tests, args.out_tri_tests, args.n_rays,
+            args.cursors);
     }
 };
 
 }  // namespace
 
-// C ABI as flat_trace_launch (flat_trace.cuh), 1 <= cursors <= kMaxCursors.
+// C ABI as flat_trace_launch (flat_trace.cuh), 1 <= cursors <= kMaxCursors,
+// design 0 only; `counter` is not used.
 extern "C" int flat_trace_mxu_launch(FLAT_LAUNCH_ARGS) {
-    return flat_dispatch(MxuKernelFor{}, cursors >= 1 && cursors <= tpu_rt_torch::kMaxCursors,
+    return flat_dispatch(MxuLaunch{}, cursors >= 1 && cursors <= tpu_rt_torch::kMaxCursors,
                          FLAT_LAUNCH_CALL);
 }

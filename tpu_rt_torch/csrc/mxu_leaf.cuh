@@ -42,7 +42,6 @@
 
 namespace tpu_rt_torch {
 
-constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMxuLeaf = 8;   // candidates per leaf: the m8 of the mma
 
 // A warp's shared memory: its rays (for the B fragments) and the six

@@ -1,6 +1,7 @@
-// The 4-wide traversal kernel's forms of the first versions (closest and
-// any hit, uv, counters, three residencies; quad_trace.cuh), with one leaf
-// drained as soon as it is reached (cursors = 1).
+// The 4-wide traversal kernel's forms with one leaf drained as soon as it
+// is reached (cursors = 1): closest and any hit, uv, counters, three
+// residencies (quad_trace.cuh), and the first versions of the vmem frame
+// forms.
 #include "quad_trace.cuh"
 
 extern "C" int quad_trace_launch(QUAD_LAUNCH_ARGS) {

@@ -1,7 +1,7 @@
 // The 4-wide traversal kernel's postponed-leaf forms (quad_trace.cuh,
 // kPostpone): 2 <= cursors <= kMaxCursors leaves held per ray, in every
 // form and residency of quad_trace.cu.  A library of its own, so that its
-// nvcc runs beside the others and quad_trace.cu's code is left as it was.
+// nvcc runs beside the others.
 #include "quad_trace.cuh"
 
 extern "C" int quad_trace_c_launch(QUAD_LAUNCH_ARGS) {

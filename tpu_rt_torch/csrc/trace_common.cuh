@@ -32,19 +32,61 @@
 // (2 <= cursors <= kMaxCursors, read at run time) or its stack is empty.
 // Each triangle is tested with the same f32 ops, so t stays the oracle's
 // bit for bit; only the drain order (tri at exact-t ties, the any-hit
-// occluder) and the culling distance (more node tests) change.  The forms
-// without the flag are the code of the first versions.
+// occluder) and the culling distance (more node tests) change.
+//
+// The schedule (every form of quad_trace.cuh and flat_trace.cuh; the
+// reference's kepler_dynamic_fetch.cu:66-411 without its speculation):
+//   - Persistent warps: the grid is the card's SMs x the blocks of the
+//     launched form that fit on one (cudaOccupancyMaxActiveBlocksPerMulti-
+//     processor), clipped to the blocks the batch needs (launch_persistent).
+//   - Dynamic ray fetch: the lanes of a warp that hold no ray take the next
+//     indices from a global counter, one atomicAdd per warp handed out by a
+//     ballot prefix (fetch_rays; :100-119), when fewer than kRefill of its
+//     32 lanes still hold one (:48, :398-401).  Each ray's results are
+//     written at its own index.  The counter is a 4-byte scratch the wrapper
+//     allocates; the launch zeroes it on the stream.
+//   - While-while (persistent_warps): a node phase runs while any lane
+//     stands on an inner node; a lane that reaches leaf work waits for it,
+//     and then the warp drains, each lane its queued (leaf, triangle) pairs
+//     in one loop (woop_test), so every lane runs one Woop code path.  A
+//     lane drains its leaves exactly where the oracle does, before its next
+//     node test: nothing is speculated, so each ray's ops, and with them its
+//     results, are the first versions'.
+//   - The traversal stack keeps its top in a register above a sentinel
+//     (kEmpty; :70-71) and the rest in local memory (TraversalStack).  The
+//     lane's other state (LeanRay: the ray without o * (1 / d), which a slab
+//     test takes again) stays in registers.
+//   - Node records and Woop rows are read through the read-only path (ldg),
+//     or with the streaming hint in the mixed / hbm forms.
+// Two other designs stay compiled for the vmem f32 frame forms (closest and
+// any hit, cursors = 1) as the other sides of the A/B that chip_smoke.py
+// times, and no entry point reaches them: the first versions (one ray per
+// thread, a per-thread stack in local memory, drains as the oracle walks)
+// and the persistent kernel with the stack below its top in dynamic shared
+// memory, sized from the tree's stack need (TraversalStack<true>).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <type_traits>
 
 namespace tpu_rt_torch {
 
 constexpr float kOoeps = 0x1p-80f;
 constexpr int kBlock = 128;
+constexpr unsigned kFullMask = 0xffffffffu;
+// A warp refills its free lanes when fewer than kRefill of its 32 hold a
+// ray: the reference's 20 (kepler_dynamic_fetch.cu:48).  On the H100 every
+// threshold from 8 to 32 ran within the noise between calls (PERF.md).
+constexpr int kRefill = 20;
+// The stack's bottom sentinel and "no next node": no node row, leaf link or
+// pushed child has these bits (the quad tree's empty-slot link has them and
+// is never pushed).
+constexpr int kEmpty = 0x7FFFFFFF;
 
 // numpy/torch minimum and maximum propagate NaN; fminf/fmaxf drop it.  These
 // keep every NaN (a degenerate or empty box) a miss as in the oracles.
@@ -65,6 +107,17 @@ __device__ __forceinline__ T load(const T* p) {
     }
 }
 
+// One load of a table element through the read-only path, or with the
+// streaming hint when kStream (the persistent kernels' loads).
+template <bool kStream, typename T>
+__device__ __forceinline__ T ldg(const T* p) {
+    if constexpr (kStream) {
+        return __ldcs(p);
+    } else {
+        return __ldg(p);
+    }
+}
+
 struct Ray {
     float ox, oy, oz;
     float dx, dy, dz;
@@ -75,6 +128,42 @@ struct Ray {
 
 __device__ __forceinline__ float safe_inv(float d) {
     return 1.0f / (fabsf(d) > kOoeps ? d : copysignf(kOoeps, d));
+}
+
+// A ray without o * (1 / d): the persistent kernels take the product again
+// in each slab test (the same f32 multiply of the same operands, so the same
+// bits) rather than hold three more registers.
+struct LeanRay {
+    float ox, oy, oz;
+    float dx, dy, dz;
+    float ix, iy, iz;
+    float t_min;
+};
+
+// o * (1 / d) of a ray, as a slab test reads it.
+struct Oi {
+    float x, y, z;
+};
+__device__ __forceinline__ Oi ray_oi(const Ray& r) { return Oi{r.oix, r.oiy, r.oiz}; }
+__device__ __forceinline__ Oi ray_oi(const LeanRay& r) {
+    return Oi{r.ox * r.ix, r.oy * r.iy, r.oz * r.iz};
+}
+
+__device__ __forceinline__ LeanRay load_lean_ray(const float* __restrict__ origin,
+                                                 const float* __restrict__ dirn,
+                                                 const float* __restrict__ tmin, int ray) {
+    LeanRay r;
+    r.ox = origin[3 * ray + 0];
+    r.oy = origin[3 * ray + 1];
+    r.oz = origin[3 * ray + 2];
+    r.dx = dirn[3 * ray + 0];
+    r.dy = dirn[3 * ray + 1];
+    r.dz = dirn[3 * ray + 2];
+    r.ix = safe_inv(r.dx);
+    r.iy = safe_inv(r.dy);
+    r.iz = safe_inv(r.dz);
+    r.t_min = tmin[ray];
+    return r;
 }
 
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ origin,
@@ -108,15 +197,17 @@ struct Hit {
 // Slab test of one child box, as the oracles: near = max(max over axes of
 // min(lo, hi), tmin), far = min(min over axes of max(lo, hi), t).  `near`
 // is the entry distance the binary kernel orders its two children by.
-__device__ __forceinline__ bool slab_near(const Ray& r, float hit_t,
+template <typename R>
+__device__ __forceinline__ bool slab_near(const R& r, float hit_t,
                                           float lox, float hix, float loy,
                                           float hiy, float loz, float hiz, float& near) {
-    const float ax = lox * r.ix - r.oix;
-    const float bx = hix * r.ix - r.oix;
-    const float ay = loy * r.iy - r.oiy;
-    const float by = hiy * r.iy - r.oiy;
-    const float az = loz * r.iz - r.oiz;
-    const float bz = hiz * r.iz - r.oiz;
+    const Oi oi = ray_oi(r);
+    const float ax = lox * r.ix - oi.x;
+    const float bx = hix * r.ix - oi.x;
+    const float ay = loy * r.iy - oi.y;
+    const float by = hiy * r.iy - oi.y;
+    const float az = loz * r.iz - oi.z;
+    const float bz = hiz * r.iz - oi.z;
     const float near3 = max_nan(max_nan(min_nan(ax, bx), min_nan(ay, by)), min_nan(az, bz));
     const float far3 = min_nan(min_nan(max_nan(ax, bx), max_nan(ay, by)), max_nan(az, bz));
     // Python's max(a, b) / min(a, b) keep `a` unless `b` compares greater /
@@ -126,7 +217,8 @@ __device__ __forceinline__ bool slab_near(const Ray& r, float hit_t,
     return far >= near;
 }
 
-__device__ __forceinline__ bool slab(const Ray& r, float hit_t,
+template <typename R>
+__device__ __forceinline__ bool slab(const R& r, float hit_t,
                                      float lox, float hix, float loy,
                                      float hiy, float loz, float hiz) {
     float near;
@@ -174,6 +266,37 @@ __device__ __forceinline__ bool drain(const float4* __restrict__ woop, int first
     return false;
 }
 
+// One Woop row, i, as `drain` tests it (the same f32 ops in the same
+// order), read through ldg: true when the triangle is accepted (h updated).
+template <bool kWantUv, bool kStreamTris, typename R>
+__device__ __forceinline__ bool woop_test(const float4* __restrict__ woop, int i, const R& r,
+                                          Hit& h) {
+    const float4* w = woop + static_cast<size_t>(i) * 4;
+    const float4 wz = ldg<kStreamTris>(w);
+    const float Oz = wz.w - r.ox * wz.x - r.oy * wz.y - r.oz * wz.z;
+    const float Dz = r.dx * wz.x + r.dy * wz.y + r.dz * wz.z;
+    const float inv_dz = 1.0f / Dz;
+    const float t = Oz * inv_dz;
+    if (!(t > r.t_min && t < h.t)) return false;
+    const float4 wu = ldg<kStreamTris>(w + 1);
+    const float Ox = wu.w + r.ox * wu.x + r.oy * wu.y + r.oz * wu.z;
+    const float Dx = r.dx * wu.x + r.dy * wu.y + r.dz * wu.z;
+    const float u = Ox + t * Dx;
+    if (!(u >= 0.0f)) return false;
+    const float4 wv = ldg<kStreamTris>(w + 2);
+    const float Oy = wv.w + r.ox * wv.x + r.oy * wv.y + r.oz * wv.z;
+    const float Dy = r.dx * wv.x + r.dy * wv.y + r.dz * wv.z;
+    const float v = Oy + t * Dy;
+    if (!(v >= 0.0f && u + v <= 1.0f)) return false;
+    h.t = t;
+    h.tri = __float_as_int(ldg<kStreamTris>(&w[3].x));
+    if constexpr (kWantUv) {
+        h.u = u;
+        h.v = v;
+    }
+    return true;
+}
+
 constexpr int kMaxCursors = 4;
 
 // The leaf links a ray holds, oldest first.  Indexed only with constants
@@ -197,22 +320,6 @@ struct Postponed {
         for (int i = 0; i + 1 < kMaxCursors; ++i) link[i] = link[i + 1];
         --n;
     }
-
-    // Drain the held leaves in the order they were found with
-    // drain_link(link), which returns true at an accepted any-hit
-    // triangle; then the rest are dropped and this returns true.
-    template <typename F>
-    __device__ __forceinline__ bool drain(F&& drain_link) {
-        while (n > 0) {
-            const int l = link[0];
-            pop();
-            if (drain_link(l)) {
-                n = 0;
-                return true;
-            }
-        }
-        return false;
-    }
 };
 
 // Outputs of one ray: (tri, t) always, u and v and the two counters only in
@@ -232,6 +339,143 @@ __device__ __forceinline__ void store_hit(const Hit& h, int ray, int* __restrict
     if constexpr (kStats) {
         out_node_tests[ray] = h.node_tests;
         out_tri_tests[ray] = h.tri_tests;
+    }
+}
+
+// The arguments of one traversal launch, as the C ABI gives them
+// (leaf_counts and n_counts only for the binary kernel).  The persistent
+// kernels take it whole, as a __grid_constant__ parameter.
+struct TraceArgs {
+    const float4* nodes;
+    int n_nodes;
+    const float4* woop;
+    const int* leaf_counts;
+    int n_counts;
+    const float* origin;
+    const float* dirn;
+    const float* tmin;
+    const float* tmax;
+    int* out_tri;
+    float* out_t;
+    float* out_u;
+    float* out_v;
+    int* out_node_tests;
+    int* out_tri_tests;
+    int n_rays;
+    int cursors;
+    unsigned* counter;   // the ray pool: zeroed by the launch
+};
+
+// The dynamic shared memory of the shared-memory stacks: entry i of thread
+// x at [i * kBlock + x], so a warp's 32 entries of one depth sit in 32
+// banks.
+extern __shared__ int trace_stack_smem[];
+
+// The traversal stack of one lane: the top in a register, above the
+// sentinel kEmpty, and the entries below it in local memory (kShared
+// false: the kernel's own array of STACK_SIZE entries, which bind() takes,
+// so that the lane's other state can live in registers) or in
+// trace_stack_smem (the launch sizes it to the tree's need).  pop() on an
+// empty stack returns kEmpty.
+template <bool kShared>
+struct TraversalStack;
+
+template <>
+struct TraversalStack<false> {
+    int top;
+    int sp;
+    int* mem;
+
+    __device__ __forceinline__ void bind(int* local) { mem = local; }
+    __device__ __forceinline__ void clear() {
+        top = kEmpty;
+        sp = 0;
+    }
+    __device__ __forceinline__ void push(int x) {
+        mem[sp++] = top;
+        top = x;
+    }
+    __device__ __forceinline__ int pop() {
+        const int x = top;
+        if (x != kEmpty) top = mem[--sp];
+        return x;
+    }
+};
+
+template <>
+struct TraversalStack<true> {
+    int top;
+    int off;   // the next free entry's index in trace_stack_smem
+
+    __device__ __forceinline__ void bind(int*) {}
+    __device__ __forceinline__ void clear() {
+        top = kEmpty;
+        off = threadIdx.x;
+    }
+    __device__ __forceinline__ void push(int x) {
+        trace_stack_smem[off] = top;
+        off += kBlock;
+        top = x;
+    }
+    __device__ __forceinline__ int pop() {
+        const int x = top;
+        if (x != kEmpty) {
+            off -= kBlock;
+            top = trace_stack_smem[off];
+        }
+        return x;
+    }
+};
+
+// Dynamic ray fetch (kepler_dynamic_fetch.cu:100-119): the lanes with
+// `need` take the next ray indices from *counter, one atomicAdd by the first
+// of them, handed out in lane order by a ballot prefix.  Returns this lane's
+// index (n_rays or more: none left) and sets `exhausted`, warp-uniform, once
+// the counter has passed n_rays.  Every lane of the warp calls it, and at
+// least one has `need`.
+__device__ __forceinline__ unsigned fetch_rays(unsigned* counter, bool need, int n_rays,
+                                               bool& exhausted) {
+    const unsigned want = __ballot_sync(kFullMask, need);
+    const unsigned lane = threadIdx.x & 31u;
+    const int leader = __ffs(want) - 1;
+    unsigned base = 0;
+    if (lane == static_cast<unsigned>(leader)) base = atomicAdd(counter, __popc(want));
+    base = __shfl_sync(kFullMask, base, leader);
+    exhausted = base + __popc(want) >= static_cast<unsigned>(n_rays);
+    return base + __popc(want & ((1u << lane) - 1u));
+}
+
+// The persistent warp loop of both kernels.  `lane` is one lane's state:
+//   active()  it holds a ray;
+//   walking() it holds a ray and no leaf work: it stands on an inner node;
+//   start(a, i) takes ray i (writing it at once when it has nothing to
+//     trace); node_step(a) tests one node; drain(a) tests every queued
+//     (leaf, triangle) pair, one loop and one Woop code path for all lanes
+//     (nothing for a lane without leaf work); both write the ray's results
+//     and free the lane when it ends.
+// Each round: refill the free lanes (while any is free and the pool lasts),
+// then node phases and leaf phases in turn until fewer than kRefill lanes
+// hold a ray (or none, once the pool is empty).  A phase is a loop of each
+// lane's own; the warp leaves it together, when its last lane does, so a
+// lane that reaches leaf work waits for the others' node steps, and the
+// other way round.
+template <typename Lane>
+__device__ __forceinline__ void persistent_warps(Lane& lane, const TraceArgs& a) {
+    bool exhausted = false;
+    for (;;) {
+        while (!exhausted) {
+            const bool need = !lane.active();
+            if (!__any_sync(kFullMask, need)) break;
+            const unsigned i = fetch_rays(a.counter, need, a.n_rays, exhausted);
+            if (need && i < static_cast<unsigned>(a.n_rays)) lane.start(a, static_cast<int>(i));
+        }
+        if (!__any_sync(kFullMask, lane.active())) return;
+        for (;;) {
+            while (lane.walking()) lane.node_step(a);
+            lane.drain(a);
+            const int held = __popc(__ballot_sync(kFullMask, lane.active()));
+            if (held == 0 || (!exhausted && held < kRefill)) break;
+        }
     }
 }
 
@@ -276,7 +520,7 @@ bool dispatch_residency(bool stream_nodes, bool stream_tris, F&& f) {
     return true;
 }
 
-// Launches kernel<<<grid, kBlock, 0, stream>>>(args...) through
+// Launches kernel<<<grid, kBlock, smem, stream>>>(args...) through
 // cudaLaunchKernelEx.  With window_bytes > 0 (the mixed residency) the
 // launch carries an L2 access-policy window over [window_base,
 // window_base + window_bytes): persisting on hit, streaming on miss,
@@ -286,13 +530,13 @@ bool dispatch_residency(bool stream_nodes, bool stream_tris, F&& f) {
 // cudaDevAttrMaxAccessPolicyWindowSize.  Every CUDA error is returned:
 // there is no launch without the window it asked for.
 template <typename... Params, typename... Args>
-cudaError_t launch_window(void (*kernel)(Params...), int grid, cudaStream_t stream,
+cudaError_t launch_window(void (*kernel)(Params...), int grid, size_t smem, cudaStream_t stream,
                           const void* window_base, size_t window_bytes, size_t set_aside,
                           Args... args) {
     cudaLaunchConfig_t config = {};
     config.gridDim = dim3(grid);
     config.blockDim = dim3(kBlock);
-    config.dynamicSmemBytes = 0;
+    config.dynamicSmemBytes = smem;
     config.stream = stream;
     cudaLaunchAttribute attr[1];
     if (window_bytes > 0) {
@@ -319,6 +563,150 @@ cudaError_t launch_window(void (*kernel)(Params...), int grid, cudaStream_t stre
     const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
     const cudaError_t last = cudaGetLastError();
     return err != cudaSuccess ? err : last;
+}
+
+// The launch settings of one traversal call that are not kernel arguments.
+struct LaunchCtx {
+    cudaStream_t stream;
+    const void* window_base;
+    size_t window_bytes;
+    size_t set_aside;
+    int design;       // kPersistent, kFirst or kSharedStack
+    int stack_need;   // stack entries the tree needs (0 <= need <= STACK_SIZE)
+    int* shape;       // host int[4] (grid, blocks per SM, dynamic smem bytes,
+                      // SMs), or null
+};
+
+// The `design` argument of the C ABI.  The first versions and the shared-
+// memory stack exist only for the vmem f32 frame forms at cursors = 1.
+constexpr int kPersistent = 0;   // the persistent kernel, stack in local memory
+constexpr int kFirst = 1;        // the first versions: one ray per thread
+constexpr int kSharedStack = 2;  // the persistent kernel, stack in shared memory
+
+// Shared memory the runtime reserves per block (sm_90).
+constexpr size_t kSmemReserved = 1024;
+
+// The grid of a persistent launch of `kernel` with `smem` bytes of dynamic
+// shared memory: the device's SMs x the blocks that fit on one, clipped to
+// the blocks n_rays need.  The L1 / shared carveout is the shared memory of
+// the blocks the registers allow, and no more: the rest is L1, where the
+// local-memory stack lives.  The carveout is an attribute of the kernel,
+// not of the launch, and one kernel is launched with a different `smem` for
+// each tree, so it is set again before every launch; the occupancy and
+// carveout of each (device, kernel, smem) are computed once.
+template <typename... Params>
+cudaError_t persistent_grid(void (*kernel)(Params...), int n_rays, size_t smem, int out[4]) {
+    struct Known {
+        int sms, per_sm, carveout;
+    };
+    static std::mutex mu;
+    static std::map<std::tuple<int, const void*, size_t>, Known> known;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const auto key = std::make_tuple(dev, reinterpret_cast<const void*>(kernel), smem);
+    Known got{0, 0, 0};
+    {
+        std::lock_guard<std::mutex> lock(mu);
+        const auto it = known.find(key);
+        if (it != known.end()) got = it->second;
+    }
+    if (got.sms == 0) {
+        // The blocks the registers and threads allow (with the whole shared
+        // memory), then the carveout that holds their shared memory and the
+        // runtime's reserve of each, the rest left to L1.
+        int by_regs = 0, smem_sm = 0;
+        err = cudaDeviceGetAttribute(&got.sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess) {
+            err = cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+        }
+        if (err == cudaSuccess) {
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       cudaSharedmemCarveoutMaxShared);
+        }
+        if (err == cudaSuccess) {
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&by_regs, kernel, kBlock, 0);
+        }
+        if (err == cudaSuccess) {
+            const size_t want = static_cast<size_t>(by_regs) * (smem + kSmemReserved) * 100;
+            const size_t denom = smem_sm > 0 ? static_cast<size_t>(smem_sm) : 1;
+            const int carveout = static_cast<int>((want + denom - 1) / denom);
+            got.carveout = carveout < 100 ? carveout : 100;
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       got.carveout);
+        }
+        if (err == cudaSuccess) {
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&got.per_sm, kernel, kBlock, smem);
+        }
+        if (err == cudaSuccess && got.per_sm < 1) err = cudaErrorInvalidConfiguration;
+        if (err != cudaSuccess) {
+            cudaGetLastError();
+            return err;
+        }
+        std::lock_guard<std::mutex> lock(mu);
+        known[key] = got;
+    } else {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   got.carveout);
+        if (err != cudaSuccess) {
+            cudaGetLastError();
+            return err;
+        }
+    }
+    const long long need = (static_cast<long long>(n_rays) + kBlock - 1) / kBlock;
+    const long long full = static_cast<long long>(got.sms) * got.per_sm;
+    out[0] = static_cast<int>(need < full ? need : full);
+    out[1] = got.per_sm;
+    out[2] = static_cast<int>(smem);
+    out[3] = got.sms;
+    return cudaSuccess;
+}
+
+// A persistent launch: the grid of persistent_grid, the ray pool zeroed on
+// the stream, then the kernel (with the mixed residency's window).
+template <typename... Params, typename... Args>
+cudaError_t launch_persistent(void (*kernel)(Params...), int n_rays, size_t smem, void* counter,
+                              const LaunchCtx& ctx, Args... args) {
+    int shape[4];
+    cudaError_t err = persistent_grid(kernel, n_rays, smem, shape);
+    if (err == cudaSuccess) err = cudaMemsetAsync(counter, 0, sizeof(unsigned), ctx.stream);
+    if (err != cudaSuccess) {
+        cudaGetLastError();
+        return err;
+    }
+    if (ctx.shape != nullptr) {
+        for (int i = 0; i < 4; ++i) ctx.shape[i] = shape[i];
+    }
+    return launch_window(kernel, shape[0], smem, ctx.stream, ctx.window_base, ctx.window_bytes,
+                         ctx.set_aside, args...);
+}
+
+// A launch of one ray per thread (the first versions, the tensor-core
+// form): ceil(n_rays / kBlock) blocks; shape gets (grid, 0, 0, SMs).
+template <typename... Params, typename... Args>
+cudaError_t launch_per_ray(void (*kernel)(Params...), int n_rays, const LaunchCtx& ctx,
+                           Args... args) {
+    const int grid = (n_rays + kBlock - 1) / kBlock;
+    if (ctx.shape != nullptr) {
+        int dev = 0, sms = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess) return err;
+        ctx.shape[0] = grid;
+        ctx.shape[1] = 0;
+        ctx.shape[2] = 0;
+        ctx.shape[3] = sms;
+    }
+    return launch_window(kernel, grid, 0, ctx.stream, ctx.window_base, ctx.window_bytes,
+                         ctx.set_aside, args...);
+}
+
+// Dynamic shared memory of a shared-memory stack of `need` entries per
+// thread (at least one, so that the launch always has the table).  At most
+// STACK_SIZE entries: within the 48 KB a launch may take without opting in.
+static_assert(STACK_SIZE * kBlock * sizeof(int) <= 48 * 1024, "shared stack above 48 KB");
+inline size_t stack_smem(int need) {
+    return static_cast<size_t>(need > 0 ? need : 1) * kBlock * sizeof(int);
 }
 
 }  // namespace tpu_rt_torch

@@ -13,13 +13,17 @@ unless ``want_uv``), or ``(Hits, {"node_tests", "tri_tests"})`` with
 tables' residency (``tables.RESIDENCIES``: the cache policy of their loads)
 and, for the binary kernel, its node format (f32 or bf16).
 
-Each kernel source is one library with its own launch counts: the first
-versions' forms (``quad_trace``, ``flat_trace``: one leaf drained when it
-is reached), the postponed-leaf forms (``quad_trace_c``, ``flat_trace_c``:
-``cursors`` = 2..``MAX_CURSORS`` leaves held per ray, tpu_rt's C > 1 leaf
-cursors; form names end in ``_c``) and the binary kernel's tensor-core leaf
-test (``flat_trace_mxu``: tpu_rt's ``mxu=True``, with 1..``MAX_CURSORS``
-cursors; ``_mxu``).
+Each kernel source is one library with its own launch counts: the forms
+that drain a leaf when it is reached (``quad_trace``, ``flat_trace``), the
+postponed-leaf forms (``quad_trace_c``, ``flat_trace_c``: ``cursors`` =
+2..``MAX_CURSORS`` leaves held per ray, tpu_rt's C > 1 leaf cursors; form
+names end in ``_c``) and the binary kernel's tensor-core leaf test
+(``flat_trace_mxu``: tpu_rt's ``mxu=True``, with 1..``MAX_CURSORS``
+cursors; ``_mxu``).  The first two kinds run as persistent warps that
+fetch their rays from a pool (``trace_common.cuh``); ``quad_trace`` and
+``flat_trace`` also keep the first versions of their vmem f32 frame forms
+(one ray per thread) and a placement of the stack in shared memory, which
+only an A/B reaches (``CudaTraceKernel.launch``'s ``design``).
 
 The ``mixed`` residency holds the node table in a persisting L2
 access-policy window attached to each launch.  Its set-aside (the device's
@@ -56,10 +60,20 @@ MAX_CURSORS = 4
 # kMxuLeaf; tpu_rt's U = MAX_LEAF for mxu=True).
 MXU_LEAF = 8
 
+# Threads per block of every traversal kernel (trace_common.cuh kBlock) and
+# the shared memory one block may use on sm_90 (227 KB).
+BLOCK = 128
+MAX_SHARED_PER_BLOCK = 232_448
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               f"-DSTACK_SIZE={STACK_SIZE}"]
+
+# The `design` argument of the C ABI (trace_common.cuh): the persistent
+# kernel, and, for the vmem f32 frame forms at cursors = 1 only, the first
+# versions and the persistent kernel with its stack in shared memory.
+DESIGNS = {"persistent": 0, "first": 1, "shared_stack": 2}
 
 
 class StackDepthError(ValueError):
@@ -89,6 +103,29 @@ def check_stack(depth: int, need: int, what: str) -> None:
     if need > STACK_SIZE:
         raise StackDepthError(f"{what} depth {depth} needs a stack of {need} "
                               f"> STACK_SIZE={STACK_SIZE}")
+
+
+def persistent_grid(n_rays: int, sms: int, blocks_per_sm: int, block: int = BLOCK) -> int:
+    """Blocks of a persistent launch: the card's SMs x the blocks of the
+    form that fit on one, clipped to the blocks ``n_rays`` need (the
+    kernels' ``persistent_grid``)."""
+    if sms < 1 or blocks_per_sm < 1:
+        raise ValueError(f"need an SM count and blocks per SM >= 1, got {sms}, {blocks_per_sm}")
+    return min(sms * blocks_per_sm, -(-max(int(n_rays), 0) // block))
+
+
+def shared_stack_bytes(need: int, block: int = BLOCK) -> int:
+    """Dynamic shared memory of a block's shared-memory stacks for a tree
+    whose stack needs ``need`` entries (``check_stack``'s need): ``need``
+    int32 entries per thread, at least one (the kernels' ``stack_smem``).
+    Refuses more than a block may use."""
+    if need < 0:
+        raise ValueError(f"stack need must be >= 0, got {need}")
+    nbytes = max(int(need), 1) * block * 4
+    if nbytes > MAX_SHARED_PER_BLOCK:
+        raise StackDepthError(f"a shared-memory stack of {need} entries for {block} threads is "
+                              f"{nbytes} B > {MAX_SHARED_PER_BLOCK} B per block")
+    return nbytes
 
 
 def check_cursors(cursors) -> int:
@@ -384,7 +421,10 @@ class CudaTraceKernel:
     The C entry point takes the table arguments, then origin, dirn, tmin,
     tmax, out_tri, out_t, out_u, out_v, out_node_tests, out_tri_tests,
     n_rays, cursors, any_hit, want_uv, stats, nodes_stream, tris_stream,
-    window_bytes, set_aside, stream."""
+    window_bytes, set_aside, design, stack_need, counter, shape, stream
+    (``argtypes``; the QUAD_LAUNCH_ARGS / FLAT_LAUNCH_ARGS macros of
+    ``csrc/``).  ``last_shape`` holds the last launch's grid, blocks per SM,
+    dynamic shared memory and SM count."""
 
     def __init__(self, name: str, table_argtypes: list, suffix: str = "",
                  cursors: tuple[int, int] = (1, 1)):
@@ -396,6 +436,7 @@ class CudaTraceKernel:
         self.forms = tuple(f + suffix for f in FORMS)
         self.launches = 0
         self.launches_by_form = dict.fromkeys(self.forms, 0)
+        self.last_shape = None
         self.build_log = ""
         self.build_s = 0.0
         self.path = None
@@ -403,6 +444,12 @@ class CudaTraceKernel:
         self._lib = None
         self._l2 = {}
         self._warned_clip = False
+
+    @property
+    def argtypes(self) -> list:
+        """The ctypes types of the C entry point's arguments, in order."""
+        vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+        return self.table_argtypes + [vp] * 10 + [ci] * 7 + [sz, sz, ci, ci, vp, vp, vp]
 
     def load(self):
         if self._fn is None:
@@ -412,9 +459,9 @@ class CudaTraceKernel:
             lib = ctypes.CDLL(self.path)
             fn = getattr(lib, f"{self.name}_launch")
             self.build_s = time.perf_counter() - t0
-            vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+            ci = ctypes.c_int
             fn.restype = ci
-            fn.argtypes = self.table_argtypes + [vp] * 10 + [ci] * 7 + [sz, sz, vp]
+            fn.argtypes = self.argtypes
             lib.trace_l2_info.restype = ci
             lib.trace_l2_info.argtypes = [ci, ctypes.POINTER(ctypes.c_longlong)]
             lib.trace_l2_release.restype = ci
@@ -461,17 +508,33 @@ class CudaTraceKernel:
 
     def launch(self, tables: list, table_args: list, rays: Rays, any_hit: bool,
                want_uv: bool, with_stats: bool, residency: str = "vmem",
-               bf16_nodes: bool = False, cursors: int = 1):
+               bf16_nodes: bool = False, cursors: int = 1, stack_need: int = STACK_SIZE,
+               design: str = "persistent"):
         """Check ``tables`` ([(name, tensor, dtype, shape)]; the first is
         the node table, and float32 and int32 tables are read as 16-byte
         rows), ``rays`` and ``cursors``, launch the form on tables of
-        ``residency``, and return what the plain version returns."""
+        ``residency`` whose tree needs ``stack_need`` stack entries, and
+        return what the plain version returns.  ``design`` (``DESIGNS``)
+        other than "persistent" picks the first version or the shared-memory
+        stack of a vmem f32 frame form at cursors = 1, for an A/B; its
+        launches count under the form's key + "/" + design.  No wrapper's
+        ``__call__`` passes it: ``launch_args`` gives the rest."""
         dev = rays.origin.device
         if dev.type != "cuda":
             raise ValueError(f"{self.name} needs CUDA tensors, got {dev}")
         lo, hi = self.cursors
         if not lo <= cursors <= hi:
             raise ValueError(f"{self.name} takes cursors {lo}..{hi}, got {cursors}")
+        if design not in DESIGNS:
+            raise ValueError(f"design must be one of {sorted(DESIGNS)}, got {design!r}")
+        if design != "persistent" and (want_uv or with_stats or residency != "vmem" or bf16_nodes
+                                       or cursors != 1 or self.suffix):
+            raise ValueError(f"design {design!r} exists for the vmem f32 frame forms at "
+                             "cursors = 1 only")
+        if not 0 <= stack_need <= STACK_SIZE:
+            raise StackDepthError(f"stack need {stack_need} outside 0..STACK_SIZE={STACK_SIZE}")
+        if design == "shared_stack":
+            shared_stack_bytes(stack_need)
         n = rays.origin.shape[0]
         f32, i32 = torch.float32, torch.int32
         checks = tables + [("origin", rays.origin, f32, (n, 3)), ("dirn", rays.dirn, f32, (n, 3)),
@@ -500,19 +563,26 @@ class CudaTraceKernel:
         outs = [tri.data_ptr(), t.data_ptr()]
         outs += [x.data_ptr() for x in uv] if want_uv else [None, None]
         outs += [x.data_ptr() for x in stats.values()] if with_stats else [None, None]
+        # The ray pool of the persistent kernels: 4 bytes, zeroed by the launch.
+        counter = torch.empty((1,), dtype=i32, device=dev)
+        shape = (ctypes.c_int * 4)()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(*table_args, rays.origin.data_ptr(), rays.dirn.data_ptr(),
                      rays.tmin.data_ptr(), rays.tmax.data_ptr(), *outs, n, int(cursors),
                      int(bool(any_hit)), int(bool(want_uv)), int(bool(with_stats)),
-                     int(nodes_stream), int(tris_stream), window, set_aside, stream)
+                     int(nodes_stream), int(tris_stream), window, set_aside, DESIGNS[design],
+                     int(stack_need), counter.data_ptr(), ctypes.addressof(shape), stream)
         if set_aside:
             _L2_HELD.add(self)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: cudaError {err}")
+        if n:
+            self.last_shape = dict(zip(("grid", "blocks_per_sm", "smem_bytes", "sms"), shape))
         self.launches += 1
         key = (form_name(any_hit, want_uv, with_stats) + self.suffix
-               + layout_name(residency, bf16_nodes))
+               + layout_name(residency, bf16_nodes)
+               + ("" if design == "persistent" else f"/{design}"))
         self.launches_by_form[key] = self.launches_by_form.get(key, 0) + 1
         if not want_uv:
             # The frame forms write no u, v: zeros, enqueued after the

@@ -291,8 +291,8 @@ class FlatTraceKernel(CudaTraceKernel):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         super().__init__(name, [vp, ci, ci, vp, vp, ci], suffix, cursors)
 
-    def __call__(self, tables: FlatTables, rays: Rays, any_hit: bool = False,
-                 want_uv: bool = False, with_stats: bool = False, cursors: int = 1):
+    def launch_args(self, tables: FlatTables) -> tuple[list, list, dict]:
+        """``launch``'s table checks, table arguments and table options."""
         f32 = torch.float32
         nc = tables.leaf_counts.shape[0]
         node_spec = (torch.int32, 8) if tables.bf16_nodes else (f32, 16)
@@ -301,8 +301,14 @@ class FlatTraceKernel(CudaTraceKernel):
                   ("leaf_counts", tables.leaf_counts, torch.int32, (nc,))]
         args = [tables.nodes.data_ptr(), tables.nodes.shape[0], int(tables.bf16_nodes),
                 tables.woop.data_ptr(), tables.leaf_counts.data_ptr(), nc]
-        return self.launch(checks, args, rays, any_hit, want_uv, with_stats, tables.residency,
-                           tables.bf16_nodes, cursors)
+        return checks, args, {"residency": tables.residency, "bf16_nodes": tables.bf16_nodes,
+                              "stack_need": tables.depth}
+
+    def __call__(self, tables: FlatTables, rays: Rays, any_hit: bool = False,
+                 want_uv: bool = False, with_stats: bool = False, cursors: int = 1):
+        checks, args, opts = self.launch_args(tables)
+        return self.launch(checks, args, rays, any_hit, want_uv, with_stats, cursors=cursors,
+                           **opts)
 
 
 class FlatMxuKernel(FlatTraceKernel):

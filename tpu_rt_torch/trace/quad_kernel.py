@@ -235,14 +235,19 @@ class QuadTraceKernel(CudaTraceKernel):
                  cursors: tuple[int, int] = (1, 1)):
         super().__init__(name, [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], suffix, cursors)
 
-    def __call__(self, tables: QuadTables, rays: Rays, any_hit: bool = False,
-                 want_uv: bool = False, with_stats: bool = False, cursors: int = 1):
+    def launch_args(self, tables: QuadTables) -> tuple[list, list, dict]:
+        """``launch``'s table checks, table arguments and table options."""
         f32 = torch.float32
         checks = [("nodes", tables.nodes, f32, (tables.nodes.shape[0], 32)),
                   ("woop", tables.woop, f32, (tables.woop.shape[0], 16))]
         args = [tables.nodes.data_ptr(), tables.nodes.shape[0], tables.woop.data_ptr()]
-        return self.launch(checks, args, rays, any_hit, want_uv, with_stats, tables.residency,
-                           cursors=cursors)
+        return checks, args, {"residency": tables.residency, "stack_need": 3 * tables.depth}
+
+    def __call__(self, tables: QuadTables, rays: Rays, any_hit: bool = False,
+                 want_uv: bool = False, with_stats: bool = False, cursors: int = 1):
+        checks, args, opts = self.launch_args(tables)
+        return self.launch(checks, args, rays, any_hit, want_uv, with_stats, cursors=cursors,
+                           **opts)
 
 
 KERNEL = QuadTraceKernel()
