@@ -8,12 +8,14 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 1.   builds every kernel library (quad_trace.cu, quad_trace_c.cu,
      flat_trace.cu, flat_trace_c.cu, flat_trace_mxu.cu, mxu_ablate.cu,
      ablate2.cu, mosaic_probe3.cu; one nvcc each, all run together;
-     28 + 24 + 52 + 48 + 48 + 5 + 10 + 9 forms) and prints ptxas' registers,
+     28 + 24 + 52 + 48 + 50 + 6 + 10 + 9 forms) and prints ptxas' registers,
      stack and spills per form; the vmem f32 frame forms of the persistent
      kernels and their first versions must keep their registers and stack
-     (``PTXAS_VMEM_F32``), no persistent frame form may spill; the quad
-     frame forms' ptxas at 40 registers (``register_cap_ptxas``); the
-     tensor-core forms' SASS (cuobjdump) must hold DMMA, and the probes'
+     (``PTXAS_VMEM_F32``), no persistent frame form (the tensor-core ones
+     included) may spill; the quad frame forms' ptxas at 40 registers
+     (``register_cap_ptxas``); the registers and shared memory of the
+     tensor-core forms; the SASS (cuobjdump) of each tensor-core form and
+     of each probe variant that takes mma must hold DMMA, and the probes'
      SASS must hold each level's and mode's work (``sass_checks``).
 2-5. bunny (144,500 triangles), SBVH build, 4-wide collapse, Morton-ordered
      primary rays at 640x480, the closest-hit trace through
@@ -77,15 +79,19 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 21.  the conference AO frame (8 samples, 2 batches) through "packet" with
      mxu=True, "packet" with cursors=3 and "packet4" with cursors=2, each
      a path of its own, against the first versions' AO frames.
-22.  every form of the three new libraries (frame, uv, stats; closest hit
-     on the bunny primary frame's rays, any hit on AO batch 1) against its
-     plain version on every ray, the first versions' results and the
-     oracles on 8,192 rays; the census at 1, 2 and 3 cursors and with mxu.
+22.  every form of the three triangle-phase libraries (frame, uv, stats;
+     closest hit on the bunny primary frame's rays, any hit on AO batch 1)
+     against its plain version on every ray, bit for bit (the tensor-core
+     forms at 1-4 cursors, and at 2 and 3 on the bf16 hbm and f32 mixed
+     tables), the postponed forms against the first versions' results, and
+     all against the oracles on 8,192 rays; the census at 1, 2 and 3
+     cursors and with mxu.
 23.  kernel times of the first versions' and the new forms on the same
      rays, in two passes, the second in reverse order.
 24.  the MXU ablation probe (``tpu_rt_torch.probes.mxu_ablate``) at 16,384
-     and 262,144 rays: ns per iteration of each variant, each checked
-     against its plain version.
+     and 262,144 rays: ns per iteration of each variant (the tile phase's
+     full, noL, noM, epi0, the product-table phase's smem, and scalar),
+     each checked against its plain version.
 25.  the traversal-step ablation (``tpu_rt_torch.probes.ablate2``) on
      bunny's node records and Woop rows, on a full card and at the tool's
      8,192 rays: ns per iteration of each level, the output of each
@@ -98,12 +104,13 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 27.  the persistent kernels against their first versions (one ray per
      thread): the four vmem f32 frame forms on the same rays (bunny
      primary, conference AO batch 1, the conference diffuse batch, dragon
-     primary and AO batch 1 on the binary f32 and quad leaf-16 trees), in
+     primary and AO batch 1 on the binary f32 and quad leaf-16 trees), and
+     the two tensor-core frame forms on bunny primary and AO batch 1, in
      turns, in two passes, the second in reverse order: ms, Mray/s and
      new/old; the stack-placement A/B (local against shared memory) on
      bunny primary and AO batch 1; every design's hits against the
-     persistent kernel's and its launch shape against ``persistent_grid``;
-     the refill threshold.
+     persistent kernel's and its launch shape against ``persistent_grid``
+     (and ``MXU_SMEM``); the refill threshold.
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
@@ -123,8 +130,10 @@ in phase 22; the probes' times are per iteration (``ablate2``'s of its full
 step, level 8; ``mosaic_probe3``'s of ``rowstep``; both on a full card),
 with ``ns_per_iter`` of every variant, level or mode.  The four frame
 forms' entries carry ``first_ms``, their first version's time, and their
-``ms`` from the same A/B (phase 27).  No single PyTorch call computes a BVH
-traversal or a probe, so ``library_ms`` is null.
+``ms`` from the same A/B (phase 27); the tensor-core frame forms' entries
+carry ``first_ms`` and ``ab_ms`` (the designs in phase 27) and their
+``launch_shape``.  No single PyTorch call computes a BVH traversal or a
+probe, so ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -237,10 +246,18 @@ PTXAS_VMEM_F32 = {"quad_trace<any=0,uv=0,stats=0>": (48, 256),
 KERNEL_FLAGS = {"quad_trace": ("any", "uv", "stats", "sn", "st", "c", "shared"),
                 "flat_trace": ("any", "uv", "stats", "bf16", "sn", "st", "c", "shared"),
                 "flat_trace_mxu": ("any", "uv", "stats", "bf16", "sn", "st"),
-                "quad_first": ("any",), "flat_first": ("any",)}
+                "quad_first": ("any",), "flat_first": ("any",), "flat_mxu_first": ("any",)}
+# The library of each kernel template.
+KERNEL_LIB = {"quad_trace": "quad_trace", "flat_trace": "flat_trace",
+              "flat_trace_mxu": "flat_trace_mxu", "quad_first": "quad_trace",
+              "flat_first": "flat_trace", "flat_mxu_first": "flat_trace_mxu"}
 # quad (+ 2 first versions and 2 with the shared-memory stack), quad_c, flat
-# (+ 2 + 2), flat_c, flat_mxu; the probes mxu_ablate, ablate2, mosaic_probe3
-N_FORMS = 24 + 4 + 24 + 48 + 4 + 48 + 48 + 5 + 10 + 9
+# (+ 2 + 2), flat_c, flat_mxu (+ 2 first versions); the probes mxu_ablate,
+# ablate2, mosaic_probe3
+N_FORMS = 24 + 4 + 24 + 48 + 4 + 48 + 48 + 2 + 6 + 10 + 9
+# The mxu_ablate variants whose SASS holds DMMA (noM replaces each mma by an
+# add and a subtract; scalar has none).
+DMMA_VARIANTS = ("full", "noL", "epi0", "smem")
 
 
 # A __launch_bounds__ minimum of 12 blocks of 128 threads per SM holds a
@@ -297,8 +314,8 @@ def ptxas_forms(log: str) -> list[tuple[str, int, int, int, str]]:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            flags = re.search(r"(quad_trace|flat_trace_mxu|flat_trace|quad_first|flat_first)"
-                              r"_kernelI((?:Lb[01]E)+)E", m.group(1))
+            flags = re.search(r"(quad_trace|flat_trace_mxu|flat_trace|quad_first|flat_first|"
+                              r"flat_mxu_first)_kernelI((?:Lb[01]E)+)E", m.group(1))
             probe = re.search(r"(mxu_ablate|ablate2|mosaic_probe3)_kernelILi(\d)E", m.group(1))
             if flags:
                 f = dict(zip(KERNEL_FLAGS[flags.group(1)],
@@ -306,7 +323,7 @@ def ptxas_forms(log: str) -> list[tuple[str, int, int, int, str]]:
                 res = ("hbm" if f.get("sn") else "mixed") if f.get("st") else "vmem"
                 bf16 = f.get("bf16", 0) == 1
                 lay = "" if res == "vmem" and not bf16 else f"@{res}" + ("-bf16" if bf16 else "")
-                lib = flags.group(1).replace("_first", "_trace") + ("_c" if f.get("c") else "")
+                lib = KERNEL_LIB[flags.group(1)] + ("_c" if f.get("c") else "")
                 if flags.group(1).endswith("_first"):
                     lay += "/first"
                 elif f.get("shared"):
@@ -1649,11 +1666,6 @@ def triangle_paths(t0, bctx, fb, cctx, fc):
     return paths
 
 
-def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Units in the last place between f32 values of one sign."""
-    return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
-
-
 def agree_mxu(got_tri, got_t, s_id, s_t, what):
     """test_pallas.py's rule for the MXU unit against the oracle: more than
     0.999 of the ids equal, t to rtol 1e-4, atol 1e-5 where they agree on
@@ -1669,18 +1681,22 @@ def agree_mxu(got_tri, got_t, s_id, s_t, what):
 
 
 def triangle_checks(t0, bctx, fb, cctx, fc, dev):
-    """Phase 22: every form of the new libraries (frame, uv and stats;
-    closest hit on the bunny primary frame's rays, any hit on conference AO
-    batch 1) against its plain version on every ray, against the first
-    versions' results, and against the oracles on their 8,192-ray subsets;
-    then the census.  Postponed leaves (flat_trace_c at 2 cursors on bunny,
-    3 on AO; quad_trace_c at 2): tri, t, u, v and counters equal to plain,
-    t bit-equal to the first versions' and the oracle's (tri disputes only
-    at exact-t ties).  The tensor-core form (flat_trace_mxu, 1 cursor):
-    tri equal to plain, t within 1 ulp (the rays that are not bit-equal,
-    the largest u, v deviation and the counter mismatches printed); against
+    """Phase 22: every form of the triangle-phase libraries (frame, uv and
+    stats; closest hit on the bunny primary frame's rays, any hit on
+    conference AO batch 1) against its plain version on every ray: tri, t,
+    u, v and the counters bit for bit; then against the oracles on their
+    8,192-ray subsets, and the census.  Postponed leaves (flat_trace_c at 2
+    cursors on bunny, 3 on AO; quad_trace_c at 2): t bit-equal to the first
+    versions' and the oracle's (tri disputes only at exact-t ties).  The
+    tensor-core form (flat_trace_mxu) at 1-4 cursors on the Renderer's vmem
+    f32 tables, and at 2 and 3 on bf16 hbm and f32 mixed tables: against
     the oracle test_pallas.py's rule."""
-    from tpu_rt_torch.trace import flat_kernel, make_routing_tracer, quad_kernel
+    from tpu_rt_torch.trace import (
+        flat_kernel,
+        make_routing_tracer,
+        quad_kernel,
+        release_persisting_l2,
+    )
 
     bunny, conf = f"{SCENE} primary", f"{SECONDARY_SCENE} AO batch 1"
     ray_sets = {("flat", bunny): (fb["renderer"].primary.rays, fb["renderer"].flat, bctx["idx"]),
@@ -1691,22 +1707,31 @@ def triangle_checks(t0, bctx, fb, cctx, fc, dev):
              ("quad", bunny): bctx["plain"][0], ("quad", conf): cctx["b1_plain"][0]}
     oracles = {("flat", bunny): fb["oracle"], ("flat", conf): fc["oracle"],
                ("quad", bunny): fb["oracle"], ("quad", conf): cctx["b1_oracle"]}
+    # (name, wrapper, tree, route, options on bunny, on AO, table layout)
+    mxu_k = flat_kernel.KERNEL_MXU
     families = (
-        ("flat_trace_mxu", flat_kernel.KERNEL_MXU, "flat", "packet", {"mxu": True},
-         {"mxu": True}),
-        ("flat_trace_c", flat_kernel.KERNEL_C, "flat", "packet", {"cursors": 2}, {"cursors": 3}),
+        ("flat_trace_mxu", mxu_k, "flat", "packet", {"mxu": True}, {"mxu": True}, {}),
+        *((f"flat_trace_mxu C={c}", mxu_k, "flat", "packet", {"mxu": True, "cursors": c},
+           {"mxu": True, "cursors": c}, {}) for c in (2, 3, 4)),
+        ("flat_trace_mxu C=2 @hbm-bf16", mxu_k, "flat", "packet", {"mxu": True, "cursors": 2},
+         {"mxu": True, "cursors": 2}, {"residency": "hbm", "bf16_nodes": True}),
+        ("flat_trace_mxu C=3 @mixed", mxu_k, "flat", "packet", {"mxu": True, "cursors": 3},
+         {"mxu": True, "cursors": 3}, {"residency": "mixed", "bf16_nodes": False}),
+        ("flat_trace_c", flat_kernel.KERNEL_C, "flat", "packet", {"cursors": 2}, {"cursors": 3},
+         {}),
         ("quad_trace_c", quad_kernel.KERNEL_C, "quad", "packet4", {"cursors": 2},
-         {"cursors": 2}),
+         {"cursors": 2}, {}),
     )
     out = {}
-    for name, kern, tree, prefer, kw_b, kw_a in families:
+    for name, kern, tree, prefer, kw_b, kw_a, layout in families:
         plain_fn = (flat_kernel.trace_flat_plain if tree == "flat"
                     else quad_kernel.trace_quad_plain)
         for label, any_hit, kw in ((bunny, False, kw_b), (conf, True, kw_a)):
             rays, flat, idx = ray_sets[(tree, label)]
             cursors = kw.get("cursors", 1)
             mxu = kw.get("mxu", False)
-            fn, kind, tables = make_routing_tracer(flat, prefer, dev, cache_dir=CACHE, **kw)
+            fn, kind, tables = make_routing_tracer(flat, prefer, dev, cache_dir=CACHE, **kw,
+                                                   **layout)
             plain = partial(plain_fn, **kw)
             seen = {}
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1719,31 +1744,23 @@ def triangle_checks(t0, bctx, fb, cctx, fc, dev):
             uv = kern(tables, rays, any_hit, True, False, cursors)
             hits_s, cnt = kern(tables, rays, any_hit, False, True, cursors)
             torch.cuda.synchronize()
+            if tables.residency == "mixed":
+                release_persisting_l2()
             bad = {"tri": sum(int((h.tri != want.tri).sum()) for h in (frame, uv, hits_s))}
-            if mxu:
-                t_ulps = max(int(ulps(h.t, want.t).max()) for h in (frame, uv, hits_s))
-                not_equal = bits_differ(frame.t, want.t)
-                uv_err = max(float((uv.u - want.u).abs().max()), float((uv.v - want.v).abs().max()))
-                counts_bad = sum(int((cnt[k] != want_cnt[k]).sum()) for k in cnt)
-                print(f"{name} ({kind}) {label}, any_hit={any_hit}: vs plain on {rays.num} rays: "
-                      f"tri mismatches {bad['tri']}, t at most {t_ulps} ulp apart, rays not "
-                      f"bit-equal {not_equal}, max |du|, |dv| {uv_err}, counter mismatches "
-                      f"{counts_bad}")
-                check(bad["tri"] == 0 and t_ulps <= 1,
-                      f"{name} {label}: differs from its plain version")
-            else:
-                bad.update({f: bits_differ(getattr(uv, f), getattr(want, f)) for f in "tuv"})
-                bad["t_frame"] = bits_differ(frame.t, want.t)
-                bad["t_stats"] = bits_differ(hits_s.t, want.t)
-                bad.update({k: int((cnt[k] != want_cnt[k]).sum()) for k in cnt})
+            bad.update({f: bits_differ(getattr(uv, f), getattr(want, f)) for f in "tuv"})
+            bad["t_frame"] = bits_differ(frame.t, want.t)
+            bad["t_stats"] = bits_differ(hits_s.t, want.t)
+            bad.update({k: int((cnt[k] != want_cnt[k]).sum()) for k in cnt})
+            if not mxu:
                 # Against the first versions (cursors = 1): closest hit t
                 # bit-equal; any hit, hit / miss.
                 base = first[(tree, label)]
                 bad["vs_first"] = (int(((frame.tri >= 0) != (base.tri >= 0)).sum()) if any_hit
                                    else bits_differ(frame.t, base.t))
-                print(f"{name} ({kind}) {label}, any_hit={any_hit}: vs plain (and the first "
-                      f"versions) on {rays.num} rays: mismatches {bad}")
-                check(not any(bad.values()), f"{name} {label}: differs from its plain version")
+            print(f"{name} ({kind}) {label}, any_hit={any_hit}: vs plain"
+                  f"{'' if mxu else ' (and the first versions)'} on {rays.num} rays: "
+                  f"mismatches {bad}")
+            check(not any(bad.values()), f"{name} {label}: differs from its plain version")
             # The oracles on the subset.
             s = oracles[(tree, label)]
             k_tri, k_t = frame.tri[idx].cpu().numpy(), frame.t[idx].cpu().numpy()
@@ -1812,6 +1829,8 @@ def triangle_timing(t0, bctx, fb, cctx, fc):
              ("binary C=3", trace_flat, f_tab, f_rays, {"cursors": 3}),
              ("binary mxu", trace_flat, f_tab, f_rays, {"mxu": True}),
              ("binary mxu C=2", trace_flat, f_tab, f_rays, {"mxu": True, "cursors": 2}),
+             ("binary mxu C=3", trace_flat, f_tab, f_rays, {"mxu": True, "cursors": 3}),
+             ("binary mxu C=4", trace_flat, f_tab, f_rays, {"mxu": True, "cursors": 4}),
              ("quad C=1", trace_quad, q_tab, q_rays, {}),
              ("quad C=2", trace_quad, q_tab, q_rays, {"cursors": 2})]
     samples = {(f[0], a): [] for f in forms for a in (False, True)}
@@ -2002,13 +2021,16 @@ def design_ab(t0, quad_k, flat_k, bctx, fb, cctx, fc, fctx):
     on the same rays, in turns, in two passes, the second in reverse order:
     bunny primary, conference AO batch 1 (any hit), the conference diffuse
     batch, dragon primary and dragon AO batch 1 (binary f32, quad leaf 16);
-    then the stack placement A/B (local against shared memory) on bunny
-    primary and conference AO batch 1.  Every design's hits equal the
-    persistent kernel's (which phases 3-18 held to the plain versions on
+    the two tensor-core frame forms on bunny primary and conference AO
+    batch 1; then the stack placement A/B (local against shared memory) on
+    bunny primary and conference AO batch 1.  Every design's hits equal the
+    persistent kernel's (which phases 3-22 held to the plain versions on
     these rays), and each launch's shape is the one ``persistent_grid`` /
-    ``shared_stack_bytes`` give.  A time is the median over both passes.
-    Returns {(kernel, rays): ms by design}."""
+    ``shared_stack_bytes`` / ``MXU_SMEM`` give.  A time is the median over
+    both passes.  Returns {(kernel, rays): ms by design, and the persistent
+    launch's shape}."""
     from tpu_rt_torch.trace.common import BLOCK, CSRC, persistent_grid, shared_stack_bytes
+    from tpu_rt_torch.trace.flat_kernel import KERNEL_MXU, MXU_SMEM
 
     dragon, d_b1 = fctx["frames"], fctx["b1"].rays
     b1_q, b1_f = cctx["ao"]._batches[0], fc["ao"]._batches[0]
@@ -2034,6 +2056,10 @@ def design_ab(t0, quad_k, flat_k, bctx, fb, cctx, fc, fctx):
          d_live),
         ("dragon AO batch 1", flat_k, dragon["packet"]["renderer"].tracer_tables, d_b1, True,
          d_live),
+        ("bunny primary", KERNEL_MXU, fb["renderer"].tracer_tables, fb["renderer"].primary.rays,
+         False, WIDTH * HEIGHT),
+        ("conference AO batch 1", KERNEL_MXU, fc["ao"].tracer_tables, b1_f.rays, True,
+         cctx["b1_live"]),
     ]
     for label, kern, tables, *_ in cases:
         check(tables.residency == "vmem" and not getattr(tables, "bf16_nodes", False),
@@ -2041,9 +2067,9 @@ def design_ab(t0, quad_k, flat_k, bctx, fb, cctx, fc, fctx):
     stack_ab = {("bunny primary", "quad_trace"), ("bunny primary", "flat_trace"),
                 ("conference AO batch 1", "quad_trace"), ("conference AO batch 1", "flat_trace")}
     runs = [(i, d) for i, (label, kern, *_) in enumerate(cases)
-            for d in (("first", "persistent") if (label, kern.name) not in stack_ab
-                      else ("first", "persistent", "shared_stack"))]
-    ref = {}
+            for d in (("first", "persistent", "shared_stack") if (label, kern.name) in stack_ab
+                      else ("first", "persistent"))]
+    ref, shapes = {}, {}
     for i, (label, kern, tables, rays, any_hit, _) in enumerate(cases):
         ref[i] = kern(tables, rays, any_hit=any_hit)
     samples, passes = {}, {}
@@ -2061,13 +2087,18 @@ def design_ab(t0, quad_k, flat_k, bctx, fb, cctx, fc, fctx):
             if n_pass == 1:
                 bad = int((got.tri != ref[i].tri).sum()) + bits_differ(got.t, ref[i].t)
                 need = opts["stack_need"]
+                mxu = kern is KERNEL_MXU
                 if design == "first":
-                    want = {"grid": -(-rays.num // BLOCK), "blocks_per_sm": 0, "smem_bytes": 0}
+                    want = {"grid": -(-rays.num // BLOCK), "blocks_per_sm": 0,
+                            "smem_bytes": MXU_SMEM["first"] if mxu else 0}
                 else:
                     want = {"grid": persistent_grid(rays.num, shape["sms"],
                                                     shape["blocks_per_sm"]),
-                            "smem_bytes": (shared_stack_bytes(need) if design == "shared_stack"
-                                           else 0)}
+                            "smem_bytes": (MXU_SMEM[design] if mxu
+                                           else shared_stack_bytes(need)
+                                           if design == "shared_stack" else 0)}
+                    if design == "persistent":
+                        shapes[i] = shape
                 print(f"design {label}, {kern.name} any_hit={any_hit} {design}: launch {shape} "
                       f"(stack need {need}); tri / t mismatches against the persistent kernel "
                       f"{bad}")
@@ -2079,7 +2110,7 @@ def design_ab(t0, quad_k, flat_k, bctx, fb, cctx, fc, fctx):
     out = {}
     for i, (label, kern, tables, rays, any_hit, counted) in enumerate(cases):
         first, new = median(samples[(i, "first")]), median(samples[(i, "persistent")])
-        out[(kern.name, label)] = {"first": first, "persistent": new}
+        out[(kern.name, label)] = {"first": first, "persistent": new, "shape": shapes[i]}
         print(f"A/B {label}, {kern.name} {'any' if any_hit else 'closest'} hit ({rays.num} rays, "
               f"{counted} counted): first {first:.4f} ms ({counted / (first * 1e3):.2f} Mray/s; "
               f"passes {passes[(i, 'first', 1)]:.4f}, {passes[(i, 'first', 2)]:.4f}), "
@@ -2194,16 +2225,27 @@ def main() -> None:
             built[name] = (regs, frame + spill)
             spills[name] = spill
     check(len(built) == N_FORMS, f"{len(built)} kernel forms compiled, want {N_FORMS}: 24 + 4 + "
-          "24 quad, 48 + 4 + 48 binary, 48 tensor-core binary, 5 + 10 + 9 probe forms")
+          "24 quad, 48 + 4 + 48 binary, 48 + 2 tensor-core binary, 6 + 10 + 9 probe forms")
     for name, want in PTXAS_VMEM_F32.items():
         check(built.get(name) == want, f"ptxas {name}: {built.get(name)} (registers, stack + "
               f"spill bytes), want {want}")
     # The persistent frame forms (every library, residency and node format;
     # no uv, no counters) spill nothing.
-    frame = [n for n in spills if re.match(r"(quad|flat)_trace(_c)?<any=[01],uv=0,stats=0>", n)
+    frame = [n for n in spills
+             if re.match(r"(quad|flat)_trace(_c|_mxu)?<any=[01],uv=0,stats=0>", n)
              and "/first" not in n]
-    check(len(frame) == 2 * 6 + 2 * 12 + 4 and not any(spills[n] for n in frame),
+    check(len(frame) == 2 * 6 + 3 * 12 + 4 and not any(spills[n] for n in frame),
           f"spills in the persistent frame forms: {[(n, spills[n]) for n in frame if spills[n]]}")
+    # The tensor-core forms: registers (ptxas) and dynamic shared memory per
+    # block (the warps' ray tables; the first version's product tables).
+    mxu_regs = {n: built[n][0] for n in built if n.startswith("flat_trace_mxu<")}
+    persistent = [v for n, v in mxu_regs.items() if "/" not in n]
+    frame_regs = {n: r for n, r in mxu_regs.items() if "uv=0,stats=0>" in n}
+    print(f"tensor-core forms: persistent {min(persistent)}-{max(persistent)} registers (frame "
+          f"forms {sorted(set(v for n, v in frame_regs.items() if '/' not in n))}), dynamic "
+          f"shared memory {flat_kernel.MXU_SMEM['persistent']} B per block; first version"
+          f" {[v for n, v in frame_regs.items() if '/first' in n]} registers, "
+          f"{flat_kernel.MXU_SMEM['first']} B per block")
     # What a __launch_bounds__ minimum of MIN_BLOCKS blocks would cost the
     # quad frame forms: their ptxas at REGISTER_CAP registers.
     capped = [c for c in capped if re.fullmatch(r"quad_trace<any=[01],uv=0,stats=0>", c[0])]
@@ -2211,14 +2253,20 @@ def main() -> None:
         print(f"launch bounds minimum {MIN_BLOCKS} blocks: {ln}")
     check(len(capped) == 2 and all(c[1] <= REGISTER_CAP for c in capped),
           f"quad frame forms at {MIN_BLOCKS} blocks: {capped}")
-    # The tensor-core forms issue FP64 mma: DMMA in their SASS.
-    cuobjdump = os.path.join(os.path.dirname(common.nvcc()), "cuobjdump")
-    for k in (flat_kernel.KERNEL_MXU, mxu_ablate.KERNEL):
-        sass = subprocess.run([cuobjdump, "-sass", k.path], capture_output=True, text=True,
-                              timeout=300, check=True).stdout
-        n_dmma = len(re.findall(r"\bDMMA\b", sass))
-        print(f"sass: {k.name}: {n_dmma} DMMA instructions")
-        check(n_dmma > 0, f"{k.name}: no DMMA in the SASS")
+    # The tensor-core forms issue FP64 mma: DMMA in the SASS of each.
+    dmma = {fn: sum(op.startswith("DMMA") for op in c["ops"])
+            for fn, c in sass_counts(flat_kernel.KERNEL_MXU.path).items()
+            if re.search(r"flat_trace_mxu_kernel|flat_mxu_first_kernel", fn)}
+    print(f"sass: flat_trace_mxu: {len(dmma)} kernel forms, DMMA per form "
+          f"{min(dmma.values(), default=0)}-{max(dmma.values(), default=0)}")
+    check(len(dmma) == 50 and all(dmma.values()),
+          f"flat_trace_mxu forms without DMMA: {[f for f, n in dmma.items() if not n]}")
+    probe_dmma = {mxu_ablate.VARIANTS[i]: sum(op.startswith("DMMA") for op in c["ops"])
+                  for i, c in sass_forms(mxu_ablate.KERNEL.path, "mxu_ablate").items()}
+    print(f"sass: mxu_ablate DMMA per variant {probe_dmma}")
+    check(sorted(v for v, n in probe_dmma.items() if n) == sorted(DMMA_VARIANTS)
+          and len(probe_dmma) == len(mxu_ablate.VARIANTS),
+          f"mxu_ablate: DMMA in {probe_dmma}, want it in {DMMA_VARIANTS} only")
     sass_checks(ablate2.KERNEL.path, mosaic_probe3.KERNEL.path)
     phase("kernels built", t0)
 
@@ -2242,6 +2290,13 @@ def main() -> None:
     mp_runs, _ = mosaic_phase(t0, dev)
     p_entries = probe_entries(ab_runs, mp_runs)
     ab = design_ab(t0, kernel, flat_k, bctx, fb, cctx, fc, fctx)
+    # The tensor-core frame forms' first versions, from the same A/B.
+    for e in t_entries:
+        if e["name"] in ("flat_trace_mxu", "flat_trace_mxu_anyhit"):
+            r = ab[("flat_trace_mxu", "conference AO batch 1" if e["name"].endswith("_anyhit")
+                    else "bunny primary")]
+            e.update({"first_ms": r["first"], "ab_ms": r["persistent"],
+                      "launch_shape": r["shape"]})
 
     # The bound of each earlier entry, on the rays it was timed on, from
     # the plain version's counters on those rays.

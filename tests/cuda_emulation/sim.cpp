@@ -1,7 +1,8 @@
 // The emulation's state (cuda_runtime.h): each thread's lane identity, the
-// shared-memory stack table, the SM count and blocks per SM that launches
-// see, and the grid runner (a block's 128 lanes as threads, the blocks one
-// after another).
+// dynamic shared memory (the stack table of the shared-memory stacks, the
+// tensor-core kernels' tables), the SM count and blocks per SM that
+// launches see, and the grid runner (a block's 128 lanes as threads, the
+// blocks one after another).
 #include "cuda_runtime.h"
 
 #include <thread>
@@ -15,6 +16,7 @@ int sim_sms = 2, sim_per_sm = 2;
 
 namespace tpu_rt_torch {
 int trace_stack_smem[STACK_SIZE * 128];
+alignas(16) float4 mxu_smem[48 * 1024 / sizeof(float4)];
 }
 
 void sim_run(unsigned grid, unsigned block, const std::function<void()>& body) {

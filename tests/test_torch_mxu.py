@@ -238,20 +238,22 @@ def probe():
 
 
 def _lane_products(a, b_o, b_d, j, lane, mode):
-    """(row, column, value) pairs lane ``lane`` writes for tile ``j``:
-    D[l >> 2][8 j + 2 (l & 3) + i] of each product p."""
-    m, k = lane >> 2, lane & 3
+    """(product, candidate, ray column, value) of what lane ``lane`` holds
+    for tile ``j``: ray 8 j + (l >> 2) (the mma's A row) against candidates
+    2 (l & 3) + i (its B columns), D[l >> 2][2 (l & 3) + i] of each product
+    p; with noM, the lane's own A element plus or minus its B element
+    (candidate l >> 2's)."""
+    r, k = lane >> 2, lane & 3
+    col = 8 * j + r
     out = []
     for p in range(6):
-        b = (b_d if p % 2 else b_o)[k][8 * j + m]
+        side = b_d if p % 2 else b_o
         if mode == "mma":
-            col = 8 * j + 2 * k
-            out += [(p, m, col, sum(a[p][m][kk] * (b_d if p % 2 else b_o)[kk][col]
-                                    for kk in range(4))),
-                    (p, m, col + 1, sum(a[p][m][kk] * (b_d if p % 2 else b_o)[kk][col + 1]
-                                        for kk in range(4)))]
+            out += [(p, q, col, sum(side[kk][col] * a[p][q][kk] for kk in range(4)))
+                    for q in (2 * k, 2 * k + 1)]
         else:
-            out += [(p, m, 8 * j + 2 * k, a[p][m][k] + b), (p, m, 8 * j + 2 * k + 1, a[p][m][k] - b)]
+            out += [(p, 2 * k, col, side[k][col] + a[p][r][k]),
+                    (p, 2 * k + 1, col, side[k][col] - a[p][r][k])]
     return out
 
 
@@ -306,7 +308,7 @@ def test_probe_plain_versions(probe, variant):
     for w in range(2):
         for i in range(niter):
             first = 0 if variant == "noL" else (7 * i + w) % span
-            if variant in ("scalar", "full", "noL"):
+            if variant in ("scalar", "full", "noL", "smem"):
                 # Each ray's closest hit among the 8 rows (the oracle's
                 # Woop test in f32 for the scalar drain).
                 for lane in range(32):

@@ -121,6 +121,38 @@ def test_entry_point_takes_the_macro(lib):
     assert passed == [n for _, n in _abi(lib)]
 
 
+# The designs each library keeps: the first versions of the vmem f32 frame
+# forms in quad_trace, flat_trace and flat_trace_mxu, the shared-memory
+# stack in the first two; the postponed-leaf libraries run persistent only.
+KEPT = {"quad_trace": {"persistent", "first", "shared_stack"},
+        "flat_trace": {"persistent", "first", "shared_stack"},
+        "quad_trace_c": {"persistent"}, "flat_trace_c": {"persistent"},
+        "flat_trace_mxu": {"persistent", "first"}}
+
+
+@pytest.mark.parametrize("design", sorted(DESIGNS))
+@pytest.mark.parametrize("lib", sorted(WRAPPERS))
+def test_designs_each_library_keeps(lib, design):
+    kern = WRAPPERS[lib]
+    assert set(kern.designs) == KEPT[lib]
+    lo, hi = kern.cursors
+    if design in KEPT[lib] and (design == "persistent" or lo == 1):
+        kern.check_design(design, cursors=lo)      # the frame forms on vmem f32
+    else:
+        with pytest.raises(ValueError):
+            kern.check_design(design, cursors=lo)
+    others = [{"want_uv": True}, {"with_stats": True}, {"residency": "mixed"},
+              {"residency": "hbm"}, {"bf16_nodes": True}, {"cursors": hi if hi > 1 else 2}]
+    for kw in others:
+        if design == "persistent":
+            kern.check_design(design, **{"cursors": lo, **kw})
+        else:
+            with pytest.raises(ValueError):
+                kern.check_design(design, **{"cursors": lo, **kw})
+    with pytest.raises(ValueError):
+        kern.check_design("bogus")
+
+
 def test_designs_and_block_match_the_kernels():
     src = _read("trace_common.cuh")
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}

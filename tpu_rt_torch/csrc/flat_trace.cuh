@@ -52,8 +52,8 @@
 // Files: this header holds the kernel and its dispatch; flat_trace.cu
 // instantiates the forms without kPostpone (and the first versions),
 // flat_trace_c.cu those with it, and flat_trace_mxu.cu the tensor-core
-// triangle phase on the first versions' node step (visit_inner), each a
-// library of its own built by its own nvcc.
+// triangle phase on FlatLane with held leaves, each a library of its own
+// built by its own nvcc.
 //
 // Design (trace_common.cuh, the schedule): persistent warps that fetch rays
 // from a global pool and refill below kRefill active lanes, and a
@@ -119,8 +119,8 @@ __device__ __forceinline__ float bf16_hi(int w) {
 
 // The two children of inner node `node`: each slab-tested against the hit
 // distance so far (hit0, near0, hit1, near1) and their links (c0, c1).
-// Plain loads (kReadOnly false: the first versions, the tensor-core form) or
-// ldg; the streaming hint with kStreamNodes either way.
+// Plain loads (kReadOnly false: the first versions) or ldg; the streaming
+// hint with kStreamNodes either way.
 template <bool kBf16Nodes, bool kStreamNodes, bool kReadOnly, typename R>
 __device__ __forceinline__ void test_children(const float4* __restrict__ nodes, int node,
                                               const R& r, float hit_t, bool& hit0,
@@ -158,7 +158,7 @@ __device__ __forceinline__ void test_children(const float4* __restrict__ nodes, 
 // slab-tested against the hit distance so far; with both hit, `node` moves
 // to the nearer entry and the other is pushed; with one hit, to that one.
 // Returns false when neither is hit: the ray must pop.  The node step of
-// the first versions and of the tensor-core form (flat_trace_mxu.cu).
+// the first versions (and of flat_trace_mxu.cu's).
 template <bool kStats, bool kBf16Nodes, bool kStreamNodes>
 __device__ __forceinline__ bool visit_inner(const float4* __restrict__ nodes, const Ray& r,
                                             Hit& h, int& node, int* stack, int& sp) {
@@ -424,7 +424,7 @@ struct FlatLaunch {
         }
         if constexpr (kFrameVmem) {
             if (ctx.design == kFirst) {
-                return launch_per_ray(flat_first_kernel<A::value>, args.n_rays, ctx, args.nodes,
+                return launch_per_ray(flat_first_kernel<A::value>, args.n_rays, 0, ctx, args.nodes,
                                       args.n_nodes, args.woop, args.leaf_counts, args.n_counts,
                                       args.origin, args.dirn, args.tmin, args.tmax, args.out_tri,
                                       args.out_t, args.n_rays);

@@ -7,61 +7,186 @@
 // with U = MAX_LEAF = 8, :1110-1111), composed with its C leaf cursors
 // (:72-77) as tpu_rt composes them.  trace_packet4 never takes it (:1187).
 //
-// What it computes: the walk of flat_trace.cuh (visit_inner, the oracle's
-// order), but a leaf is tested whole, as one candidate group of up to 8
-// triangles (mxu_leaf.cuh): the six Woop dot products by FP64 mma, rounded
-// once to f32, t = Oz / Dz, the leaf's winner the smallest t with ties to
-// the largest triangle id, merged with a strict t < hit_t.  So t is
+// What it computes: the walk of flat_trace.cuh (the oracle's order), but a
+// leaf is tested whole, as one candidate group of up to 8 triangles
+// (mxu_leaf.cuh): the six Woop dot products by FP64 mma, rounded once to
+// f32, t = Oz / Dz, the leaf's winner the smallest t with ties to the
+// largest triangle id, merged with a strict t < hit_t.  So t is
 // "f32-class": within an ulp or so of the oracle's, which multiplies by
 // 1 / Dz; tri equals the oracle's but on rays that graze an edge or tie.
 // The plain version, tpu_rt_torch/trace/flat_kernel.py with mxu=True, takes
-// the same dot products in float64 and rounds them once.
+// the same dot products in float64 and rounds them once, so the kernel
+// equals it bit for bit.
 //
-// Design (while-while, Aila-Laine; SURVEY.md): an mma needs all 32 lanes
-// of a warp with the same L, so the triangle phase is a warp's, not a
-// lane's.
-//   - Walk: each lane walks in the oracle's order, holding the leaves it
-//     reaches (trace_common.cuh `Postponed`), until it holds `cursors`
-//     (1..kMaxCursors) or its stack is empty.
-//   - Leaf phase, while any lane holds a leaf (__ballot_sync): the first
-//     such lane's oldest leaf is broadcast, the lanes whose oldest leaf it
-//     is form the group, every lane loads its A element of that leaf's L
-//     from the Woop rows, the warp runs 6 products x (the n8 tiles that
-//     hold a lane of the group) mma, and the group's lanes read their
-//     columns, pick the leaf's winner and drop the leaf.  Each lane's leaves
-//     are drained in the order it found them, so the result does not depend
-//     on which lanes share a warp.
-//   - Lanes past n_rays, rays with tmax < 0 and lanes whose any-hit ray is
-//     done stay in the loop, idle, until the warp is done.
-// Leaves must hold at most 8 triangles: upload_flat records the widest and
-// trace_flat(mxu=True) refuses wider ones, as pack_tables2 does (:170).
+// Design: the persistent warps of trace_common.cuh (dynamic ray fetch with
+// a refill below kRefill lanes, the while-while loop) with FlatLane's node
+// step (ldg, the lean ray, the stack's top in a register) and its held
+// leaves (`Postponed`, cursors = 1..kMaxCursors: a lane drains what it
+// holds once it holds `cursors` leaves or its stack is empty).  The leaf
+// phase is the warp's (MxuLane::drain below): an mma needs all 32 lanes,
+// and tests 8 rays against one leaf.  In each round the warp forms up to 4
+// groups, one per 8-lane tile of the mma, each the leaf of the first lane
+// still without a group and up to 8 lanes, in lane order, that drain it
+// (lanes anywhere in the warp: with the refill, the rays that share a leaf
+// are rarely in one 8-lane tile).  Per group, all loads of its leaf go out
+// together; the tile runs 2 DMMA (Oz, Dz), and 4 more only when one of its
+// rays has a candidate with t in range, then the epilogue in the D
+// fragments (mxu_leaf.cuh tile_best).  So a round settles up to 4
+// distinct leaves, and the only shared memory is the warp's ray table
+// (1,408 bytes), which a lane writes when it starts a ray and reloads its
+// ray from after the leaf phase: the ray's registers are free during the
+// leaf phase, whose registers set the resident blocks.  Each lane drains
+// its leaves in the order it found them, so no result depends on which
+// rays share a warp or a tile; any hit ends a ray at its first accepted
+// leaf winner.  Leaves must hold at most 8 triangles: upload_flat records
+// the widest and trace_flat(mxu=True) refuses wider ones, as pack_tables2
+// does (:170).
+//
+// The first version stays compiled for the vmem f32 frame forms at
+// cursors = 1, for chip_smoke.py's A/B only (design "first",
+// flat_mxu_first_kernel: one ray per thread, one leaf per warp round, the
+// products through a 7,104-byte table per warp).
 //
 // What bounds it: the walk is flat_trace.cuh's (dependent node loads,
-// divergence); the leaf phase serialises the warp over its distinct
-// leaves, and its 24 DMMA per leaf group do 8 x 32 candidate-ray pairs
-// where a lane needs count (about 3) of them.  PERF.md gives its times
-// against the scalar drain and its ablation (mxu_ablate.cu).
+// divergence), at the occupancy the leaf phase's registers leave; the leaf
+// phase does 8 x 8 candidate-ray pairs per tile where a group needs its
+// rays x count of them, and its f64-to-f32 conversions and epilogue are
+// the same for every pair.  PERF.md gives its
+// times against the scalar drain and its ablation (mxu_ablate.cu).
 
 #include "flat_trace.cuh"
 #include "mxu_leaf.cuh"
 
 namespace {
 
+// One lane of the persistent MXU kernel: FlatLane with held leaves (the
+// walk, the stack, the queue of leaves to drain), plus its entry in the
+// warp's ray table (mxu_rays) and the warp-collective leaf phase.  A
+// round forms up to 4 groups, one per 8-lane tile of the mma: the leaf of
+// the first lane still without a group, and up to 8 lanes of the warp, in
+// lane order, that drain it; row r of the tile is the group's r-th lane.
 template <bool kAnyHit, bool kWantUv, bool kStats, bool kBf16Nodes, bool kStreamNodes,
           bool kStreamTris>
+struct MxuLane
+    : FlatLane<kAnyHit, kWantUv, kStats, kBf16Nodes, kStreamNodes, kStreamTris, true, false> {
+    using Base = FlatLane<kAnyHit, kWantUv, kStats, kBf16Nodes, kStreamNodes, kStreamTris, true,
+                          false>;
+
+    // FlatLane's start, then the ray (and its tmax) into the warp's table.
+    __device__ __forceinline__ void start(const TraceArgs& a, int i) {
+        Base::start(a, i);
+        if (this->active()) {
+            const LeanRay& r = this->r;
+            put_ray(mxu_rays(threadIdx.x >> 5), threadIdx.x & 31, r.ox, r.oy, r.oz, r.dx, r.dy,
+                    r.dz, r.t_min, this->h.t);
+        }
+    }
+
+    // The leaf phase, on every lane of the warp: rounds while any lane has a
+    // leaf to drain (`pending`).  A round forms its groups (the table's
+    // row_lane gets each tile's row lanes), then loads each tile's leaf and
+    // forms its products (mxu_leaf.cuh tile_best).  The group's lanes merge
+    // the leaf's winner and move on to their next leaf (FlatLane::settle)
+    // or, any hit, end at an accepted one.
+    __device__ __forceinline__ void drain(const TraceArgs& a) {
+        const int lane = threadIdx.x & 31;
+        MxuRays& rays = mxu_rays(threadIdx.x >> 5);
+        __syncwarp();   // the table entries the lanes wrote since the last phase
+        for (;;) {
+            unsigned want = __ballot_sync(kFullMask, this->pending < 0);
+            if (want == 0) break;
+            LeafHit got = no_hit();
+            int got_count = 0;
+            bool mine = false;
+            // Up to 4 groups, one at a time: form it, write its rows' lanes
+            // (row_lane[t]), load its leaf, form the products.
+#pragma unroll 1
+            for (int t = 0; t < 4 && want != 0; ++t) {   // the same on every lane
+                const int link = __shfl_sync(kFullMask, this->pending, __ffs(want) - 1);
+                unsigned g = __ballot_sync(kFullMask, this->pending == link) & want;
+                if (__popc(g) > kMxuLeaf) g &= (2u << nth_lane(g, kMxuLeaf - 1)) - 1u;
+                want &= ~g;
+                int my_row = 0;
+                if ((g >> lane) & 1u) {
+                    my_row = __popc(g & ((1u << lane) - 1u));
+                    rays.row_lane[t][my_row] = lane;
+                }
+                __syncwarp();   // row_lane[t]
+                const int first = ~link;
+                const int count =
+                    min(ldg<kStreamTris>(a.leaf_counts + min(first, a.n_counts - 1)), kMxuLeaf);
+                const TileLeaf leaf =
+                    tile_leaf<kStreamTris>(a.woop, first, a.n_counts - 2, count, lane);
+                const int rows = __popc(g), r = lane >> 2;
+                const int src = rays.row_lane[t][min(r, rows - 1)];
+                const LeafHit b = tile_best<kWantUv>(tile_b(leaf, lane), tile_ray(rays, src, lane),
+                                                     r < rows && ((g >> src) & 1u), leaf.id,
+                                                     leaf.count, lane);
+                const LeafHit w = row_winner<kWantUv>(b, my_row);
+                if ((g >> lane) & 1u) {
+                    got = w;
+                    got_count = leaf.count;
+                    mine = true;
+                }
+            }
+            __syncwarp();   // row_lane is rewritten next round
+            if (mine) {
+                Hit& h = this->h;
+                if (got.t < h.t) {
+                    h.t = got.t;
+                    h.tri = got.tri;
+                    if constexpr (kWantUv) {
+                        h.u = got.u;
+                        h.v = got.v;
+                    }
+                }
+                if constexpr (kStats) h.tri_tests += got_count;
+                if (kAnyHit && h.tri >= 0) {
+                    this->finish(a);
+                } else {
+                    this->settle(a);
+                }
+            }
+        }
+        __syncwarp();   // every read of the table is done before a lane rewrites it
+        // The lane's ray again, from the table: the same bits as start's
+        // (safe_inv is load_lean_ray's op), and nothing in the leaf phase
+        // reads it, so its registers are free for the leaf phase's.
+        const float4 o = rays.o[lane], d = rays.d[lane];
+        this->r = LeanRay{o.x, o.y, o.z, d.x, d.y, d.z, safe_inv(d.x), safe_inv(d.y),
+                          safe_inv(d.z), rays.range[lane].x};
+    }
+};
+
+// A minimum of one block per SM, as flat_trace_kernel.
+template <bool kAnyHit, bool kWantUv, bool kStats, bool kBf16Nodes, bool kStreamNodes,
+          bool kStreamTris>
+__global__ void __launch_bounds__(kBlock, 1)
+flat_trace_mxu_kernel(const __grid_constant__ TraceArgs a) {
+    MxuLane<kAnyHit, kWantUv, kStats, kBf16Nodes, kStreamNodes, kStreamTris> lane;
+    int stack[STACK_SIZE];   // the local-memory stack
+    lane.stack.bind(stack);
+    persistent_warps(lane, a);
+}
+
+// The first version of the vmem f32 frame forms, kept for the A/B: one ray
+// per thread, the first versions' node step (visit_inner), and a leaf phase
+// that tests one leaf per warp round: the first lane's oldest leaf is
+// broadcast, the lanes whose oldest leaf it is form the group, every lane
+// loads its A element, the warp runs 6 products x (the n8 tiles that hold a
+// lane of the group) mma into the product table, and the group's lanes
+// read their columns and pick the leaf's winner.
+template <bool kAnyHit>
 __global__ void __launch_bounds__(kBlock)
-flat_trace_mxu_kernel(const float4* __restrict__ nodes, int n_nodes,
+flat_mxu_first_kernel(const float4* __restrict__ nodes, int n_nodes,
                       const float4* __restrict__ woop,
                       const int* __restrict__ leaf_counts, int n_counts,
                       const float* __restrict__ origin, const float* __restrict__ dirn,
                       const float* __restrict__ tmin, const float* __restrict__ tmax,
-                      int* __restrict__ out_tri, float* __restrict__ out_t,
-                      float* __restrict__ out_u, float* __restrict__ out_v,
-                      int* __restrict__ out_node_tests, int* __restrict__ out_tri_tests,
-                      int n_rays, int cursors) {
-    __shared__ MxuWarp warps[kBlock / 32];
+                      int* __restrict__ out_tri, float* __restrict__ out_t, int n_rays) {
+    constexpr int cursors = 1;
     const int lane = threadIdx.x & 31;
-    MxuWarp& s = warps[threadIdx.x >> 5];
+    MxuWarp& s = mxu_warp(threadIdx.x >> 5);
     const int ray = blockIdx.x * blockDim.x + threadIdx.x;
     const bool in_range = ray < n_rays;
 
@@ -81,9 +206,7 @@ flat_trace_mxu_kernel(const float4* __restrict__ nodes, int n_nodes,
         // Walk until `cursors` leaves are held or the stack is empty.
         while (walking && held.n < cursors) {
             if (node >= 0) {
-                if (visit_inner<kStats, kBf16Nodes, kStreamNodes>(nodes, r, h, node, stack, sp)) {
-                    continue;
-                }
+                if (visit_inner<false, false, false>(nodes, r, h, node, stack, sp)) continue;
             } else {
                 held.add(node);
             }
@@ -100,22 +223,15 @@ flat_trace_mxu_kernel(const float4* __restrict__ nodes, int n_nodes,
             const int link = __shfl_sync(kFullMask, held.link[0], __ffs(pending) - 1);
             const unsigned group = __ballot_sync(kFullMask, held.n > 0 && held.link[0] == link);
             const int first = ~link;
-            const int count = min(load<kStreamTris>(leaf_counts + min(first, n_counts - 1)),
-                                  kMxuLeaf);
-            leaf_products(leaf_a<kStreamTris>(woop, first, count, lane), group, s, lane);
+            const int count = min(leaf_counts[min(first, n_counts - 1)], kMxuLeaf);
+            leaf_products(leaf_a<false>(woop, first, count, lane), group, s, lane);
             if (group & (1u << lane)) {
                 held.pop();
-                const LeafHit b = leaf_best<kStreamTris>(s, lane, woop, first, count, r.t_min,
-                                                         t_max);
+                const LeafHit b = leaf_best<false>(s, lane, woop, first, count, r.t_min, t_max);
                 if (b.t < h.t && (!kAnyHit || h.tri < 0)) {
                     h.t = b.t;
                     h.tri = b.tri;
-                    if constexpr (kWantUv) {
-                        h.u = b.u;
-                        h.v = b.v;
-                    }
                 }
-                if constexpr (kStats) h.tri_tests += count;
                 if constexpr (kAnyHit) {
                     if (h.tri >= 0) {
                         held.n = 0;
@@ -128,30 +244,44 @@ flat_trace_mxu_kernel(const float4* __restrict__ nodes, int n_nodes,
         if (!__any_sync(kFullMask, walking)) break;
     }
     if (in_range) {
-        store_hit<kWantUv, kStats>(h, ray, out_tri, out_t, out_u, out_v, out_node_tests,
-                                   out_tri_tests);
+        out_tri[ray] = h.tri;
+        out_t[ray] = h.t;
     }
 }
 
-// The launch of one form: one ray per thread (the kernel's own loop), as
-// flat_trace.cuh's first versions are launched.
+// The launch of one form: the persistent kernel with the warps' ray tables
+// in dynamic shared memory; for the vmem f32 frame forms at cursors = 1,
+// also the first version (one ray per thread, the product tables).
 struct MxuLaunch {
     template <typename A, typename U, typename C, typename B, typename SN, typename ST>
     cudaError_t operator()(A, U, C, B, SN, ST, const TraceArgs& args, const LaunchCtx& ctx) const {
-        if (ctx.design != kPersistent) return cudaErrorInvalidValue;
-        return launch_per_ray(
-            flat_trace_mxu_kernel<A::value, U::value, C::value, B::value, SN::value, ST::value>,
-            args.n_rays, ctx, args.nodes, args.n_nodes, args.woop, args.leaf_counts,
-            args.n_counts, args.origin, args.dirn, args.tmin, args.tmax, args.out_tri, args.out_t,
-            args.out_u, args.out_v, args.out_node_tests, args.out_tri_tests, args.n_rays,
-            args.cursors);
+        constexpr bool kFrameVmem = !U::value && !C::value && !B::value && !SN::value &&
+                                    !ST::value;
+        if (args.counter == nullptr) return cudaErrorInvalidValue;
+        if (ctx.design == kPersistent) {
+            return launch_persistent(
+                flat_trace_mxu_kernel<A::value, U::value, C::value, B::value, SN::value,
+                                      ST::value>,
+                args.n_rays, kWarps * sizeof(MxuRays), args.counter, ctx, args);
+        }
+        if constexpr (kFrameVmem) {
+            if (ctx.design == kFirst && args.cursors == 1) {
+                return launch_per_ray(flat_mxu_first_kernel<A::value>, args.n_rays,
+                                      kWarps * sizeof(MxuWarp), ctx, args.nodes, args.n_nodes,
+                                      args.woop, args.leaf_counts, args.n_counts, args.origin,
+                                      args.dirn, args.tmin, args.tmax, args.out_tri, args.out_t,
+                                      args.n_rays);
+            }
+        }
+        return cudaErrorInvalidValue;
     }
 };
 
 }  // namespace
 
-// C ABI as flat_trace_launch (flat_trace.cuh), 1 <= cursors <= kMaxCursors,
-// design 0 only; `counter` is not used.
+// C ABI as flat_trace_launch (flat_trace.cuh), 1 <= cursors <= kMaxCursors;
+// design kPersistent, or kFirst for the vmem f32 frame forms at
+// cursors = 1.
 extern "C" int flat_trace_mxu_launch(FLAT_LAUNCH_ARGS) {
     return flat_dispatch(MxuLaunch{}, cursors >= 1 && cursors <= tpu_rt_torch::kMaxCursors,
                          FLAT_LAUNCH_CALL);

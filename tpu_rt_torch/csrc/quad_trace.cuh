@@ -410,7 +410,7 @@ int quad_launch(const void* nodes, int n_nodes, const void* woop,
             if (design == kFirst) {
                 const auto go = [&](auto kernel) {
                     return launch_per_ray(
-                        kernel, n_rays, ctx, static_cast<const float4*>(nodes), n_nodes,
+                        kernel, n_rays, 0, ctx, static_cast<const float4*>(nodes), n_nodes,
                         static_cast<const float4*>(woop), static_cast<const float*>(origin),
                         static_cast<const float*>(dirn), static_cast<const float*>(tmin),
                         static_cast<const float*>(tmax), static_cast<int*>(out_tri),

@@ -577,8 +577,9 @@ struct LaunchCtx {
                       // SMs), or null
 };
 
-// The `design` argument of the C ABI.  The first versions and the shared-
-// memory stack exist only for the vmem f32 frame forms at cursors = 1.
+// The `design` argument of the C ABI.  The designs but the persistent
+// kernel exist only for the vmem f32 frame forms at cursors = 1, and each
+// only in the libraries that keep it.
 constexpr int kPersistent = 0;   // the persistent kernel, stack in local memory
 constexpr int kFirst = 1;        // the first versions: one ray per thread
 constexpr int kSharedStack = 2;  // the persistent kernel, stack in shared memory
@@ -681,11 +682,12 @@ cudaError_t launch_persistent(void (*kernel)(Params...), int n_rays, size_t smem
                          ctx.set_aside, args...);
 }
 
-// A launch of one ray per thread (the first versions, the tensor-core
-// form): ceil(n_rays / kBlock) blocks; shape gets (grid, 0, 0, SMs).
+// A launch of one ray per thread (the first versions) with `smem` bytes of
+// dynamic shared memory: ceil(n_rays / kBlock) blocks; shape gets (grid, 0,
+// smem, SMs).
 template <typename... Params, typename... Args>
-cudaError_t launch_per_ray(void (*kernel)(Params...), int n_rays, const LaunchCtx& ctx,
-                           Args... args) {
+cudaError_t launch_per_ray(void (*kernel)(Params...), int n_rays, size_t smem,
+                           const LaunchCtx& ctx, Args... args) {
     const int grid = (n_rays + kBlock - 1) / kBlock;
     if (ctx.shape != nullptr) {
         int dev = 0, sms = 0;
@@ -694,10 +696,10 @@ cudaError_t launch_per_ray(void (*kernel)(Params...), int n_rays, const LaunchCt
         if (err != cudaSuccess) return err;
         ctx.shape[0] = grid;
         ctx.shape[1] = 0;
-        ctx.shape[2] = 0;
+        ctx.shape[2] = static_cast<int>(smem);
         ctx.shape[3] = sms;
     }
-    return launch_window(kernel, grid, 0, ctx.stream, ctx.window_base, ctx.window_bytes,
+    return launch_window(kernel, grid, smem, ctx.stream, ctx.window_base, ctx.window_bytes,
                          ctx.set_aside, args...);
 }
 

@@ -6,10 +6,13 @@ vector drain (``tpu_rt/trace/packet2.py:78-87``).  The kernel is
 ``tpu_rt_torch/csrc/mxu_ablate.cu``: every thread holds a ray, and each
 iteration tests 8 Woop rows of bunny's SBVH against the warp's rays as a
 fresh closest-hit query.  Variants (see the source): ``scalar`` (the
-scalar kernels' f32 drain), ``full`` (the MXU form's leaf phase), ``noL``
-(L from shared memory, built once), ``noM`` (no tensor-core products),
-``epi0`` (the products summed, no epilogue).  ``tpu_rt``'s ``noT`` and
-``noR`` time TPU relayouts that have no counterpart on the card.
+scalar kernels' f32 drain), ``full`` (the MXU form's tile phase: the
+epilogue in the mma's D fragments), ``noL`` (L from shared memory, built
+once), ``noM`` (no tensor-core products), ``epi0`` (the products summed, no
+epilogue), ``smem`` (the first version's phase: the products through a
+table in shared memory).  ``full``, ``noL`` and ``smem`` compute one
+function.  ``tpu_rt``'s ``noT`` and ``noR`` time TPU relayouts that have
+no counterpart on the card.
 
 The time per iteration is (t(hi) - t(lo)) / (hi - lo) over two trip counts,
 as ``tools/mxu_ablate.py:211-217`` takes it, from CUDA events.  Each
@@ -44,7 +47,7 @@ from tpu_rt_torch.trace.common import (
     woop_rows,
 )
 
-VARIANTS = ("scalar", "full", "noL", "noM", "epi0")
+VARIANTS = ("scalar", "full", "noL", "noM", "epi0", "smem")
 BLOCK = 128                      # threads per block of the kernel (kBlock)
 N_RAYS = 1 << 18                 # rays of a timed launch: 2,048 blocks
 NITER_HI, NITER_LO = 4000, 1000  # tools/mxu_ablate.py: NITER and NITER // 4
@@ -121,8 +124,12 @@ def _ray_b(rays: Rays) -> torch.Tensor:
 def ablate_plain(variant: str, woop: torch.Tensor, rays: Rays, niter: int):
     """What ``mxu_ablate.cu`` computes, in PyTorch ops on the device of
     ``rays`` (n a multiple of 32): the per-ray accumulators of ``ablate``.
-    ``noM`` and ``epi0`` read the mma fragments lane by lane (lane l holds
-    A[l >> 2][l & 3], B[l & 3][l >> 2] and D[l >> 2][2 (l & 3) + i])."""
+    ``noM`` and ``epi0`` read the tile phase's mma fragments lane by lane:
+    in tile j, lane l holds A[l >> 2][l & 3] (ray 8 j + (l >> 2)'s [o, 1]
+    or [d, 0] element l & 3), B[l & 3][l >> 2] (candidate l >> 2's row
+    element l & 3) and D[l >> 2][2 (l & 3) + i] (that ray against candidate
+    2 (l & 3) + i).  ``full``, ``noL`` and ``smem`` are one function, the
+    leaf test of ``drain_mxu_plain``."""
     dev = rays.origin.device
     n = rays.num
     woop = woop.to(dev)
@@ -136,44 +143,43 @@ def ablate_plain(variant: str, woop: torch.Tensor, rays: Rays, niter: int):
     acc_t = torch.zeros((n,), dtype=torch.float32, device=dev)
     acc_tri = torch.zeros((n,), dtype=torch.int32, device=dev)
     acc_d = torch.zeros((n,), dtype=torch.float64, device=dev)
-    kk, m_l = (lane % 8) // 2, lane // 4                        # a ray's D column; a lane's A row
-    sign = 1.0 - 2.0 * (lane % 2).double()
+    q_k = m8 // 2                                               # the k of candidate q's lane
+    q_sign = (1 - 2 * (m8 % 2)).double()                        # + for D[.][2 k], - for 2 k + 1
+    par = torch.arange(6, device=dev) % 2                       # each product's ray side
     for i in range(niter):
         first = torch.zeros_like(ray) if variant == "noL" else (i * 7 + warp) % span
         if variant == "scalar":
             st = TraceState.start(rays)
             drain_plain(woop, woop_i, first, count, ray, rays, st, False)
-        elif variant in ("full", "noL"):
+        elif variant in ("full", "noL", "smem"):
             st = TraceState.start(rays)
             drain_mxu_plain(woop, woop_i, first, count, ray, rays, st, False)
         elif variant == "noM":
-            # Ray c of a warp reads out[p][m][c], written by lane 4 m + kk
-            # of tile c // 8 as float(A[p][m][kk] +- B[kk][8 (c // 8) + m]).
+            # Ray c of a warp (r = c % 8 in its tile) takes candidate q's
+            # products from lane 4 r + q // 2: float(A[r][q // 2] +-
+            # B[q // 2][r]), the ray's own element and candidate r's.
             rows = first[:, None] + m8                                  # [n, 8]
-            col = kk[:, None, None, None]
-            a = _leaf_a(woop[rows]).gather(3, col.expand(n, MXU_LEAF, 6, 1)).squeeze(3)
-            src = warp[:, None] * 32 + (lane[:, None] // 8) * 8 + m8    # [n, 8] B's ray
-            bsel = b[src].gather(3, col.expand(n, MXU_LEAF, 2, 1)).squeeze(3)     # [n, 8, 2]
-            par = torch.arange(6, device=dev) % 2
-            out = (a + sign[:, None, None] * bsel[:, :, par]).float()   # [n, 8, 6]
+            a_r = _leaf_a(woop[rows])[ray, lane % 8]                    # [n, 6, 4] candidate r
+            side = b[:, par]                                            # [n, 6, 4] the ray's
+            out = (side[:, :, q_k] + q_sign * a_r[:, :, q_k]).float()   # [n, 6, 8]
             best = LeafBest(n, dev)
             for m in range(MXU_LEAF):
                 row = first + m
-                best.offer(out[:, m].unbind(1), woop_i[row, 12], torch.ones_like(ray, dtype=bool),
-                           rays.tmin, rays.tmax)
+                best.offer(out[:, :, m].unbind(1), woop_i[row, 12],
+                           torch.ones_like(ray, dtype=bool), rays.tmin, rays.tmax)
             st = TraceState.start(rays)
             take = best.t < st.t
             st.t[take] = best.t[take]
             st.tri[take] = best.tri[take]
-        else:   # epi0: lane l adds D[p][l >> 2][8 j + 2 (l & 3) + i] over j, p, i
+        else:   # epi0: lane l adds D[p][l >> 2][2 (l & 3) + i] of each tile j over j, p, i
             rows = first[:, None] + m8
             a = _leaf_a(woop[rows])                                     # [n, 8, 6, 4]
-            a_l = a[ray, m_l]                                           # [n, 6, 4] the lane's row
+            q = 2 * (lane % 4)
             for j in range(4):
-                cols = warp * 32 + 8 * j + 2 * (lane % 4)
+                rj = warp * 32 + 8 * j + lane // 4                      # the lane's ray in tile j
                 for p in range(6):
-                    d0 = (a_l[:, p] * b[cols, p % 2]).sum(1)
-                    d1 = (a_l[:, p] * b[cols + 1, p % 2]).sum(1)
+                    d0 = (b[rj, p % 2] * a[ray, q, p]).sum(1)
+                    d1 = (b[rj, p % 2] * a[ray, q + 1, p]).sum(1)
                     acc_d = acc_d + (d0 + d1)
             continue
         acc_t = acc_t + st.t

@@ -19,11 +19,12 @@ postponed-leaf forms (``quad_trace_c``, ``flat_trace_c``: ``cursors`` =
 2..``MAX_CURSORS`` leaves held per ray, tpu_rt's C > 1 leaf cursors; form
 names end in ``_c``) and the binary kernel's tensor-core leaf test
 (``flat_trace_mxu``: tpu_rt's ``mxu=True``, with 1..``MAX_CURSORS``
-cursors; ``_mxu``).  The first two kinds run as persistent warps that
-fetch their rays from a pool (``trace_common.cuh``); ``quad_trace`` and
-``flat_trace`` also keep the first versions of their vmem f32 frame forms
-(one ray per thread) and a placement of the stack in shared memory, which
-only an A/B reaches (``CudaTraceKernel.launch``'s ``design``).
+cursors; ``_mxu``).  All run as persistent warps that fetch their rays
+from a pool (``trace_common.cuh``); ``quad_trace``, ``flat_trace`` and
+``flat_trace_mxu`` also keep the first versions of their vmem f32 frame
+forms (one ray per thread), and the first two a placement of the stack in
+shared memory, which only an A/B reaches (``CudaTraceKernel.launch``'s
+``design``; ``CudaTraceKernel.designs``).
 
 The ``mixed`` residency holds the node table in a persisting L2
 access-policy window attached to each launch.  Its set-aside (the device's
@@ -72,7 +73,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # The `design` argument of the C ABI (trace_common.cuh): the persistent
 # kernel, and, for the vmem f32 frame forms at cursors = 1 only, the first
-# versions and the persistent kernel with its stack in shared memory.
+# versions and the persistent kernel with its stack in shared memory (in
+# the libraries that keep them: CudaTraceKernel.designs).
 DESIGNS = {"persistent": 0, "first": 1, "shared_stack": 2}
 
 
@@ -424,15 +426,17 @@ class CudaTraceKernel:
     window_bytes, set_aside, design, stack_need, counter, shape, stream
     (``argtypes``; the QUAD_LAUNCH_ARGS / FLAT_LAUNCH_ARGS macros of
     ``csrc/``).  ``last_shape`` holds the last launch's grid, blocks per SM,
-    dynamic shared memory and SM count."""
+    dynamic shared memory and SM count.  ``designs`` are the ``DESIGNS``
+    the library keeps (``check_design``)."""
 
     def __init__(self, name: str, table_argtypes: list, suffix: str = "",
-                 cursors: tuple[int, int] = (1, 1)):
+                 cursors: tuple[int, int] = (1, 1), designs: tuple = ("persistent",)):
         self.name = name
         self.source = os.path.join(CSRC, f"{name}.cu")
         self.table_argtypes = table_argtypes
         self.suffix = suffix
         self.cursors = cursors
+        self.designs = designs
         self.forms = tuple(f + suffix for f in FORMS)
         self.launches = 0
         self.launches_by_form = dict.fromkeys(self.forms, 0)
@@ -506,6 +510,20 @@ class CudaTraceKernel:
         self.launches = 0
         self.launches_by_form = dict.fromkeys(self.forms, 0)
 
+    def check_design(self, design: str, want_uv: bool = False, with_stats: bool = False,
+                     residency: str = "vmem", bf16_nodes: bool = False, cursors: int = 1) -> None:
+        """Refuse a ``design`` the library does not keep for this form: any
+        design but "persistent" exists only in ``designs``, and only for the
+        vmem f32 frame forms at cursors = 1."""
+        if design not in DESIGNS:
+            raise ValueError(f"design must be one of {sorted(DESIGNS)}, got {design!r}")
+        if design not in self.designs:
+            raise ValueError(f"{self.name} keeps the designs {self.designs}, not {design!r}")
+        if design != "persistent" and (want_uv or with_stats or residency != "vmem" or bf16_nodes
+                                       or cursors != 1):
+            raise ValueError(f"design {design!r} exists for the vmem f32 frame forms at "
+                             "cursors = 1 only")
+
     def launch(self, tables: list, table_args: list, rays: Rays, any_hit: bool,
                want_uv: bool, with_stats: bool, residency: str = "vmem",
                bf16_nodes: bool = False, cursors: int = 1, stack_need: int = STACK_SIZE,
@@ -516,21 +534,17 @@ class CudaTraceKernel:
         ``residency`` whose tree needs ``stack_need`` stack entries, and
         return what the plain version returns.  ``design`` (``DESIGNS``)
         other than "persistent" picks the first version or the shared-memory
-        stack of a vmem f32 frame form at cursors = 1, for an A/B; its
-        launches count under the form's key + "/" + design.  No wrapper's
-        ``__call__`` passes it: ``launch_args`` gives the rest."""
+        stack of a vmem f32 frame form at cursors = 1, for an A/B, where
+        the library keeps it (``check_design``); its launches count under
+        the form's key + "/" + design.  No wrapper's ``__call__`` passes it:
+        ``launch_args`` gives the rest."""
         dev = rays.origin.device
         if dev.type != "cuda":
             raise ValueError(f"{self.name} needs CUDA tensors, got {dev}")
         lo, hi = self.cursors
         if not lo <= cursors <= hi:
             raise ValueError(f"{self.name} takes cursors {lo}..{hi}, got {cursors}")
-        if design not in DESIGNS:
-            raise ValueError(f"design must be one of {sorted(DESIGNS)}, got {design!r}")
-        if design != "persistent" and (want_uv or with_stats or residency != "vmem" or bf16_nodes
-                                       or cursors != 1 or self.suffix):
-            raise ValueError(f"design {design!r} exists for the vmem f32 frame forms at "
-                             "cursors = 1 only")
+        self.check_design(design, want_uv, with_stats, residency, bf16_nodes, cursors)
         if not 0 <= stack_need <= STACK_SIZE:
             raise StackDepthError(f"stack need {stack_need} outside 0..STACK_SIZE={STACK_SIZE}")
         if design == "shared_stack":

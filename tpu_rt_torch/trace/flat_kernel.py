@@ -287,9 +287,10 @@ class FlatTraceKernel(CudaTraceKernel):
     ``flat_trace.cu`` or ``flat_trace_c.cu`` (postponed leaves)."""
 
     def __init__(self, name: str = "flat_trace", suffix: str = "",
-                 cursors: tuple[int, int] = (1, 1)):
+                 cursors: tuple[int, int] = (1, 1),
+                 designs: tuple = ("persistent", "first", "shared_stack")):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        super().__init__(name, [vp, ci, ci, vp, vp, ci], suffix, cursors)
+        super().__init__(name, [vp, ci, ci, vp, vp, ci], suffix, cursors, designs)
 
     def launch_args(self, tables: FlatTables) -> tuple[list, list, dict]:
         """``launch``'s table checks, table arguments and table options."""
@@ -313,11 +314,13 @@ class FlatTraceKernel(CudaTraceKernel):
 
 class FlatMxuKernel(FlatTraceKernel):
     """Wrapper of ``flat_trace_mxu.cu``, the tensor-core leaf test with
-    1..MAX_CURSORS leaves held per ray; refuses leaves wider than
+    1..MAX_CURSORS leaves held per ray (and, for its vmem f32 frame forms,
+    the first version, ``design="first"``); refuses leaves wider than
     MXU_LEAF."""
 
     def __init__(self):
-        super().__init__("flat_trace_mxu", "_mxu", (1, MAX_CURSORS))
+        super().__init__("flat_trace_mxu", "_mxu", (1, MAX_CURSORS),
+                         ("persistent", "first"))
 
     def __call__(self, tables: FlatTables, rays: Rays, any_hit: bool = False,
                  want_uv: bool = False, with_stats: bool = False, cursors: int = 1):
@@ -325,8 +328,13 @@ class FlatMxuKernel(FlatTraceKernel):
         return super().__call__(tables, rays, any_hit, want_uv, with_stats, cursors)
 
 
+# Dynamic shared memory per block of the tensor-core form's designs
+# (mxu_leaf.cuh): a warp's ray table (MxuRays, 1,408 bytes) or, in the first
+# version, its product table (MxuWarp, 7,104 bytes), for each of 4 warps.
+MXU_SMEM = {"persistent": 4 * 1408, "first": 4 * 7104}
+
 KERNEL = FlatTraceKernel()
-KERNEL_C = FlatTraceKernel("flat_trace_c", "_c", (2, MAX_CURSORS))
+KERNEL_C = FlatTraceKernel("flat_trace_c", "_c", (2, MAX_CURSORS), ("persistent",))
 KERNEL_MXU = FlatMxuKernel()
 KERNELS = (KERNEL, KERNEL_C, KERNEL_MXU)
 

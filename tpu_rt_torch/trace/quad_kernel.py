@@ -232,8 +232,10 @@ class QuadTraceKernel(CudaTraceKernel):
     leaves; see ``CudaTraceKernel``)."""
 
     def __init__(self, name: str = "quad_trace", suffix: str = "",
-                 cursors: tuple[int, int] = (1, 1)):
-        super().__init__(name, [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], suffix, cursors)
+                 cursors: tuple[int, int] = (1, 1),
+                 designs: tuple = ("persistent", "first", "shared_stack")):
+        super().__init__(name, [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], suffix, cursors,
+                         designs)
 
     def launch_args(self, tables: QuadTables) -> tuple[list, list, dict]:
         """``launch``'s table checks, table arguments and table options."""
@@ -251,7 +253,7 @@ class QuadTraceKernel(CudaTraceKernel):
 
 
 KERNEL = QuadTraceKernel()
-KERNEL_C = QuadTraceKernel("quad_trace_c", "_c", (2, MAX_CURSORS))
+KERNEL_C = QuadTraceKernel("quad_trace_c", "_c", (2, MAX_CURSORS), ("persistent",))
 KERNELS = (KERNEL, KERNEL_C)
 
 
