@@ -16,7 +16,10 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      (``register_cap_ptxas``); the registers and shared memory of the
      tensor-core forms; the SASS (cuobjdump) of each tensor-core form and
      of each probe variant that takes mma must hold DMMA, and the probes'
-     SASS must hold each level's and mode's work (``sass_checks``).
+     SASS must hold each level's and mode's work, no local memory and, in
+     ablate2's levels 0-6, no division or conversion (``sass_checks``);
+     every ablate2 and mosaic_probe3 form a 0 B stack; their registers,
+     resident blocks per SM and waves (``probe_shapes``).
 2-5. bunny (144,500 triangles), SBVH build, 4-wide collapse, Morton-ordered
      primary rays at 640x480, the closest-hit trace through
      ``Renderer(tracer="auto")`` (the CUDA quad kernel) and the image; the
@@ -95,12 +98,14 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 25.  the traversal-step ablation (``tpu_rt_torch.probes.ablate2``) on
      bunny's node records and Woop rows, on a full card and at the tool's
      8,192 rays: ns per iteration of each level, the output of each
-     level's timed launch against its plain version on every ray.
-26.  the row-cursor primitives (``tpu_rt_torch.probes.mosaic_probe3``) on a
-     full card and on the tool's one packet: ns per iteration and per row
-     step of each mode, the output of each mode's timed launch against its
-     plain version on every packet; and the gather and scatter-add rates
-     of PyTorch indexing at the tool's sizes.
+     level's timed launch against its plain version on every ray, and
+     each level's registers, blocks per SM and waves.
+26.  the row-cursor primitives (``tpu_rt_torch.probes.mosaic_probe3``) on
+     528 packets and on the tool's one packet, and ``rowstep`` on the
+     layout's full card: ns per iteration and per row step of each mode,
+     the output of each mode's timed launch against its plain version on
+     every packet; and the gather and scatter-add rates of PyTorch
+     indexing at the tool's sizes.
 27.  the persistent kernels against their first versions (one ray per
      thread): the four vmem f32 frame forms on the same rays (bunny
      primary, conference AO batch 1, the conference diffuse batch, dragon
@@ -350,23 +355,31 @@ def ptxas_forms(log: str) -> list[tuple[str, int, int, int, str]]:
 # SASS opcode classes counted per probe form (``sass_counts``).
 SASS_CLASSES = {
     "LDG": ("LDG",), "local": ("LDL", "STL"), "LDS": ("LDS",), "STS": ("STS",),
-    "SHFL": ("SHFL",), "VOTE": ("VOTE", "VOTEU"), "BAR": ("BAR",), "F2I": ("F2I",),
+    "SHFL": ("SHFL",), "VOTE": ("VOTE", "VOTEU"), "BAR": ("BAR",), "F2I": ("F2I", "F2IP"),
+    "I2F": ("I2F", "I2FP"),
     "FP32": ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK"),
 }
-# What each ablate2 level adds to the SASS of the level below: its own class
-# of instruction, which must grow, while no class of ABLATE2_KEPT that the
-# level below has may vanish (counts of the others move a little with the
-# compiler's scheduling); level 9 differs from 8 in its loop and keeps 8's
-# classes.
-ABLATE2_MARKS = {1: "LDG", 2: "LDG", 3: "FP32", 4: "VOTE", 5: "local", 6: "LDG", 7: "MUFU.RCP",
-                 8: "FP32"}
-ABLATE2_KEPT = ("LDG", "local", "VOTE", "SHFL", "MUFU.RCP", "FP32")
+# What each ablate2 level adds to the SASS of the level below: its own
+# classes of instruction, which must grow, while no class of ABLATE2_KEPT
+# that the level below has may vanish (counts of the others move a little
+# with the compiler's scheduling); level 9 differs from 8 in its loop and
+# keeps 8's classes.  Level 5's stacks and queues are the warp's, in shared
+# memory: lane 0 stores, every lane loads.
+ABLATE2_MARKS = {1: ("LDG",), 2: ("LDG",), 3: ("FP32",), 4: ("VOTE",), 5: ("LDS", "STS"),
+                 6: ("LDG",), 7: ("MUFU.RCP",), 8: ("FP32",)}
+ABLATE2_KEPT = ("LDG", "LDS", "STS", "VOTE", "SHFL", "MUFU.RCP", "FP32")
+# What no level below the Woop tests' true division issues: the cursor's
+# remainders divide by invariant integers, so no reciprocal or conversion.
+ABLATE2_NO_DIVISION = ("MUFU.RCP", "I2F", "F2I")
 # (mode, class, mode it must have more of): each mosaic_probe3 mode's work.
-# fetch16 reads only row 0's M[0, 0]; its LDG is every warp's fetch.
+# fetch16 reads only row 0's M[0, 0]; its LDG is every row's fetch.  The
+# cross-row modes pay a barrier of the packet's warps.  rowstep's record
+# is four loads that the row's lanes share, not a spread of 16 shuffles.
 MOSAIC_MARKS = (("x16", "BAR", "empty"), ("x16", "F2I", "empty"), ("fetch16", "LDG", "empty"),
-                ("fetch16T", "SHFL", "fetch16"), ("onehot_stack", "STS", "empty"),
-                ("onehot_stack", "LDS", "empty"), ("rowstep", "LDG", "empty"),
-                ("rowstep", "VOTE", "empty"), ("rowstep", "SHFL", "fetch16"),
+                ("fetch16", "BAR", "empty"), ("fetch16T", "BAR", "empty"),
+                ("fetch16T", "SHFL", "fetch16"), ("fetch16T", "SHFL", "rowstep"),
+                ("onehot_stack", "STS", "empty"), ("onehot_stack", "LDS", "empty"),
+                ("rowstep", "LDG", "fetch16"), ("rowstep", "VOTE", "empty"),
                 ("div8", "MUFU.RCP", "divmul"), ("divmul", "MUFU.RCP", "mul8"),
                 ("mul8", "FP32", "empty"))
 
@@ -408,7 +421,8 @@ def sass_checks(ablate_path: str, mosaic_path: str) -> None:
     """Phase 1: the probes' SASS holds the work that each level and mode
     times (the compiler folds x - x and closed-form loops; the sources keep
     their terms live with a run-time zero): ABLATE2_MARKS / ABLATE2_KEPT,
-    MOSAIC_MARKS."""
+    ABLATE2_NO_DIVISION, MOSAIC_MARKS; and no probe form touches local
+    memory."""
     from tpu_rt_torch.probes import mosaic_probe3
 
     def line(name, c):
@@ -419,9 +433,14 @@ def sass_checks(ablate_path: str, mosaic_path: str) -> None:
     check(sorted(ab) == list(range(10)), f"ablate2 SASS forms {sorted(ab)}")
     for lv in range(10):
         line(f"ablate2<level={lv}>", ab[lv])
-    for lv, mark in ABLATE2_MARKS.items():
-        check(ab[lv][mark] > ab[lv - 1][mark], f"ablate2 level {lv}: {mark} {ab[lv][mark]}, "
-              f"level {lv - 1} {ab[lv - 1][mark]}: the level's work is not in the SASS")
+    for lv, marks in ABLATE2_MARKS.items():
+        for mark in marks:
+            check(ab[lv][mark] > ab[lv - 1][mark], f"ablate2 level {lv}: {mark} "
+                  f"{ab[lv][mark]}, level {lv - 1} {ab[lv - 1][mark]}: the level's work is not "
+                  "in the SASS")
+    for lv in range(7):
+        found = {k: ab[lv][k] for k in ABLATE2_NO_DIVISION if ab[lv][k]}
+        check(not found, f"ablate2 level {lv} divides or converts: {found}")
     for lv in range(1, 10):
         lost = [k for k in ABLATE2_KEPT if ab[lv - 1][k] and not ab[lv][k]]
         check(not lost, f"ablate2 level {lv} has no {lost}, which level {lv - 1} has")
@@ -433,6 +452,33 @@ def sass_checks(ablate_path: str, mosaic_path: str) -> None:
     for mode, cls, than in MOSAIC_MARKS:
         check(mp[mode][cls] > mp[than][cls], f"mosaic_probe3 {mode}: {cls} {mp[mode][cls]}, "
               f"{than} {mp[than][cls]}: the mode's work is not in the SASS")
+    local = {**{f"ablate2<level={lv}>": c["local"] for lv, c in ab.items() if c["local"]},
+             **{f"mosaic_probe3<{m}>": c["local"] for m, c in mp.items() if c["local"]}}
+    check(not local, f"probe forms with local loads or stores: {local}")
+
+
+def probe_shapes(dev) -> None:
+    """Phase 1: the registers, resident blocks per SM and waves of each
+    ablate2 level (on a full card's rays) and mosaic_probe3 mode (on
+    COMPARE_PACKETS packets and on the layout's full card), as the card
+    reports them."""
+    from tpu_rt_torch.probes import ablate2, mosaic_probe3
+
+    n_rays = ablate2.full_card(dev)
+    for lv in ablate2.LEVELS:
+        occ = ablate2.KERNEL.occupancy(lv, dev)
+        print(f"ablate2<level={lv}>: {occ['registers']} registers, {occ['local_bytes']} B local, "
+              f"{occ['shared_bytes']} B shared, {occ['blocks_per_sm']} blocks of "
+              f"{ablate2.BLOCK} per SM, {ablate2.waves(n_rays, occ):.2f} waves of "
+              f"{n_rays // ablate2.GROUP} blocks ({n_rays} rays)")
+    full = mosaic_probe3.full_card(dev)
+    for mode in mosaic_probe3.MODES:
+        occ = mosaic_probe3.KERNEL.occupancy(mode, dev)
+        per_wave = occ["blocks_per_sm"] * occ["sms"]
+        print(f"mosaic_probe3<{mode}>: {occ['registers']} registers, {occ['local_bytes']} B "
+              f"local, {occ['shared_bytes']} B shared, {occ['blocks_per_sm']} packets per SM, "
+              f"{mosaic_probe3.COMPARE_PACKETS / per_wave:.2f} waves of "
+              f"{mosaic_probe3.COMPARE_PACKETS} packets, full card {full} packets")
 
 
 def against_plain(kernel, plain, tables, rays, any_hit, frame_tri, what):
@@ -1969,7 +2015,9 @@ def ablate2_phase(t0, fb, bctx, dev):
               f"launches {res['launches']}")
         for level, r in res["levels"].items():
             print(f"  level {level}: {r['ns_per_iter']:10.1f} ns/iter (+{r['delta_ns']:9.1f}) "
-                  f"{r['name']}; lo {r['ms_lo']:.4f} ms, hi {r['ms_hi']:.4f} ms; plain "
+                  f"{r['name']}; lo {r['ms_lo']:.4f} ms, hi {r['ms_hi']:.4f} ms; "
+                  f"{r['occupancy']['registers']} registers, {r['occupancy']['blocks_per_sm']} "
+                  f"blocks per SM, {r['waves']:.2f} waves; plain "
                   f"{r['plain_ns_per_iter']:.1f} ns/iter; vs plain on {r['check_rays']} rays x "
                   f"{r['check_iters']}: bits differ {r['bits_differ']}, nodes differ "
                   f"{r['node_differ']}")
@@ -1983,27 +2031,32 @@ def ablate2_phase(t0, fb, bctx, dev):
 
 def mosaic_phase(t0, dev):
     """Phase 26: the row-cursor primitives (python -m tpu_rt_torch.probes.
-    mosaic_probe3) on a full card and on the tool's one packet: ns per
-    iteration and per row step of each mode, the output of each timed
-    launch at ITERS against its plain version on every packet (the kernels
-    line takes the full card's run); then the gather and scatter-add rates
-    of PyTorch indexing at the tool's sizes."""
+    mosaic_probe3) on COMPARE_PACKETS (528) packets and on the tool's one
+    packet, and rowstep on the layout's full card: ns per iteration and per
+    row step of each mode, the output of each timed launch at ITERS against
+    its plain version on every packet (the kernels line takes the 528-packet
+    run); then the gather and scatter-add rates of PyTorch indexing at the
+    tool's sizes."""
     from tpu_rt_torch.probes import mosaic_probe3
 
     runs = []
-    for packets in (mosaic_probe3.full_card(dev), 1):
-        res = mosaic_probe3.run(dev, packets)
-        print(f"mosaic_probe3: {packets} packets of {mosaic_probe3.R} rows, trip counts "
-              f"{res['iters']} and {5 * res['iters']}, launches {res['launches']}")
+    full = mosaic_probe3.full_card(dev)
+    for packets, modes in ((mosaic_probe3.COMPARE_PACKETS, mosaic_probe3.MODES),
+                           (1, mosaic_probe3.MODES), (full, (mosaic_probe3.FULL_MODE,))):
+        res = mosaic_probe3.run(dev, packets, modes=modes)
+        print(f"mosaic_probe3: {packets} packets of {mosaic_probe3.R} rows"
+              f"{' (a full card)' if packets == full else ''}, trip counts {res['iters']} and "
+              f"{5 * res['iters']}, launches {res['launches']}")
         for mode, r in res["modes"].items():
             print(f"  {mode:14s} {r['ns_per_iter']:9.1f} ns/iter ({r['ns_per_row_step']:7.2f} "
-                  f"ns/row-step); lo {r['ms_lo']:.4f} ms, hi {r['ms_hi']:.4f} ms; plain "
-                  f"{r['plain_ns_per_iter']:.1f} ns/iter; vs plain on {r['check_packets']} "
-                  f"packets x {r['check_iters']}: bits differ {r['bits_differ']}, nodes "
-                  f"differ {r['nodes_differ']}")
+                  f"ns/row-step); lo {r['ms_lo']:.4f} ms, hi {r['ms_hi']:.4f} ms; "
+                  f"{r['occupancy']['registers']} registers, {r['occupancy']['blocks_per_sm']} "
+                  f"packets per SM; plain {r['plain_ns_per_iter']:.1f} ns/iter; vs plain on "
+                  f"{r['check_packets']} packets x {r['check_iters']}: bits differ "
+                  f"{r['bits_differ']}, nodes differ {r['nodes_differ']}")
         bad = mosaic_probe3.check(res)
         check(not bad, f"mosaic_probe3 modes differ from their plain versions: {bad}")
-        check(all(v > 0 for v in res["launches"].values()),
+        check(all(res["launches"][m] > 0 for m in modes),
               f"mosaic_probe3 launches {res['launches']}")
         runs.append(res)
     gather = mosaic_probe3.gather_rates(dev)
@@ -2151,7 +2204,8 @@ def step_bound(what: str, ops: int, nbytes: int) -> dict:
 
 def probe_entries(ab_runs, mp_runs):
     """The kernels-line entries of the two probes, from their runs on a
-    full card (where the whole card's peaks apply).  ``ms`` and
+    full card (ablate2) and on COMPARE_PACKETS packets (mosaic_probe3),
+    where the whole card's peaks apply.  ``ms`` and
     ``plain_ms`` are per iteration of the full step (ablate2 level 8,
     mosaic_probe3 rowstep); the bound counts its f32 operations
     (``STEP_OPS`` per ray or packet) against the rows it reads: ablate2's
@@ -2268,6 +2322,11 @@ def main() -> None:
           and len(probe_dmma) == len(mxu_ablate.VARIANTS),
           f"mxu_ablate: DMMA in {probe_dmma}, want it in {DMMA_VARIANTS} only")
     sass_checks(ablate2.KERNEL.path, mosaic_probe3.KERNEL.path)
+    # The probes' forms use no local memory (a 0 B stack frame, no spills).
+    stacked = {n: v[1] for n, v in built.items()
+               if re.match(r"(ablate2|mosaic_probe3)<", n) and v[1]}
+    check(not stacked, f"probe forms with a stack frame or spills (bytes): {stacked}")
+    probe_shapes(dev)
     phase("kernels built", t0)
 
     closest, bctx = bunny_primary(t0, kernel, dev)

@@ -145,7 +145,7 @@ def _good():
 
 
 @pytest.mark.parametrize("bad", ["level", "niter_big", "rows_dtype", "rays", "nodes", "rows",
-                                 "dtype", "strided", "niter"])
+                                 "dtype", "strided", "niter", "misaligned"])
 def test_wrapper_refuses_bad_arguments(bad):
     nodes, rows, rays = _good()
     level, niter = 8, 4
@@ -165,6 +165,10 @@ def test_wrapper_refuses_bad_arguments(bad):
         rays = rays.double()
     elif bad == "strided":
         rays = torch.zeros((ablate2.GROUP, 16))[:, ::2]
+    elif bad == "misaligned":
+        # Contiguous, but 4 bytes past a 16-byte boundary: the kernel reads
+        # float4s.
+        nodes = torch.zeros(8 * 16 + 1)[1:].view(8, 16)
     else:
         niter = -1
     with pytest.raises(ValueError, match="ablate2"):

@@ -1,9 +1,11 @@
 """The traversal kernels' CUDA sources, run on the CPU: ``csrc/quad_trace.cu``,
 ``quad_trace_c.cu``, ``flat_trace.cu``, ``flat_trace_c.cu``,
-``flat_trace_mxu.cu`` and the probe ``mxu_ablate.cu`` built with g++
-against ``tests/cuda_emulation/cuda_runtime.h`` (every lane of a warp a
-thread, the warp intrinsics and the FP64 mma barriers of the warp), and
-launched through their C ABI with the wrappers' ctypes ``argtypes``.  Every
+``flat_trace_mxu.cu`` and the probes ``mxu_ablate.cu``, ``ablate2.cu`` and
+``mosaic_probe3.cu`` built with g++ against
+``tests/cuda_emulation/cuda_runtime.h`` (every lane of a warp a thread, the
+warp intrinsics and the FP64 mma barriers of the warp, ``__syncthreads`` a
+barrier of the block, shared memory host memory the block's threads share),
+and launched through their C ABI with the wrappers' ctypes ``argtypes``.  Every
 form (closest and any hit, uv, counters, postponed leaves, the tensor-core
 leaf test at 1-4 cursors, f32 and bf16 nodes, the residencies) of the
 persistent kernels, their shared-memory stack and the first versions, give
@@ -11,8 +13,12 @@ the plain PyTorch version's hits and counters bit for bit, on rays from
 outside and inside two scenes, at ray counts that fill warps and that do
 not; the launch shape is ``persistent_grid``'s and ``shared_stack_bytes``'
 (``MXU_SMEM`` for the tensor-core form).  Every variant of the probe gives
-its plain version's accumulators bit for bit.  The card runs the same
-checks at full size in ``chip_smoke.py``."""
+its plain version's accumulators bit for bit, and so does every level of
+``ablate2`` (on node tables of 1-129 records and Woop tables whose last
+group of 128 rows holds 1 or 2) and every mode of ``mosaic_probe3``.  The
+invariant-integer remainder of ``csrc/int_div.cuh`` equals ``%`` on
+divisors 1 to 2^24 (``cuda_emulation/int_div_check.cpp``).  The card runs
+the same checks at full size in ``chip_smoke.py``."""
 
 import ctypes
 import os
@@ -30,7 +36,7 @@ from tpu_rt_torch.core.types import make_rays
 from tpu_rt_torch.scene import Scene, procedural
 from tpu_rt_torch.trace import common
 from tpu_rt_torch.trace.common import DESIGNS, persistent_grid, shared_stack_bytes
-from tpu_rt_torch.probes import mxu_ablate
+from tpu_rt_torch.probes import ablate2, mosaic_probe3, mxu_ablate
 from tpu_rt_torch.trace.flat_kernel import (
     MXU_SMEM,
     FlatMxuKernel,
@@ -43,7 +49,7 @@ from tpu_rt_torch.trace.tables import _residency_flags
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LIBS = ("quad_trace", "quad_trace_c", "flat_trace", "flat_trace_c", "flat_trace_mxu",
-        "mxu_ablate")
+        "mxu_ablate", "ablate2", "mosaic_probe3")
 SMS, PER_SM = 2, 2      # what the emulated launches see
 SCENES = {"blob": lambda: procedural.make_blob(700, seed=80),
           "interior": lambda: procedural.make_interior(900, seed=81)}
@@ -369,3 +375,139 @@ def test_probe_variants_equal_plain(libs, variant):
     assert fn(1, woop.data_ptr(), woop.shape[0], rays.origin.data_ptr(), rays.dirn.data_ptr(),
               rays.tmin.data_ptr(), rays.tmax.data_ptr(), 200, niter, acc_t.data_ptr(),
               acc_tri.data_ptr(), None) != 0
+
+
+def _probe_fn(lib, wrapper):
+    fn = getattr(lib, f"{wrapper.name}_launch")
+    fn.argtypes = [ctypes.c_int, *wrapper.argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _occupancy_fn(lib, wrapper):
+    fn = getattr(lib, f"{wrapper.name}_occupancy")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ablate2(libs, level, nodes, rows, rays, niter):
+    """One launch of ablate2.cu; returns (error, out, node)."""
+    n = rays.shape[0]
+    out = torch.full((n,), 7.0)
+    node = torch.full((n // ablate2.WARP,), -5, dtype=torch.int32)
+    err = _probe_fn(libs["ablate2"], ablate2.KERNEL)(
+        level, nodes.data_ptr(), nodes.shape[0], rows.data_ptr(), rows.shape[0],
+        rays.data_ptr(), n, niter, out.data_ptr(), node.data_ptr(), None)
+    return err, out, node
+
+
+def _ablate2_tables(n_nodes=None, n_rows=None):
+    """The first scene's node records and Woop rows, cut to the first
+    ``n_nodes`` / ``n_rows``, and 2 blocks of probe rays aimed at them."""
+    scene, flat, _ = _scene("blob")
+    nodes = np.ascontiguousarray(flat.nodes, np.float32)[:n_nodes]
+    rows = common.woop_rows(flat.tri_woop, flat.tri_index)[:n_rows]
+    rays = ablate2.probe_rays(rows, scene, 2 * ablate2.GROUP, 4, device="cpu")
+    return torch.tensor(nodes), torch.tensor(np.ascontiguousarray(rows)), rays
+
+
+def _same(got, want):
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("level", ablate2.LEVELS)
+def test_ablate2_levels_equal_plain(libs, level):
+    # Every level through the C ABI on two blocks: acc + node of every ray
+    # and every packet's node equal ablate_plain's bit for bit.
+    nodes, rows, rays = _ablate2_tables()
+    err, out, node = _ablate2(libs, level, nodes, rows, rays, 40)
+    assert err == 0
+    want, want_node = ablate2.ablate_plain(level, nodes, rows, rays, 40)
+    assert _same(out, want) and torch.equal(node, want_node)
+
+
+@pytest.mark.parametrize("n_nodes, n_rows", [(1, None), (2, None), (3, None), (127, None),
+                                             (128, None), (129, None), (None, 1), (None, 2),
+                                             (None, 129), (None, 130), (None, 257),
+                                             (None, 258)])
+def test_ablate2_table_edges(libs, n_nodes, n_rows):
+    # The cursor's remainders by a run-time table size (node mod n, 7 node
+    # mod m, the invariant-integer division) and the wrap of the U Woop rows
+    # inside a last group of 1 or 2 rows, over enough iterations that every
+    # record and row is reached: the full step (8) and the while loop (9).
+    nodes, rows, rays = _ablate2_tables(n_nodes, n_rows)
+    niter = 300
+    if n_rows:
+        visits = ablate2.walk_rows(n_rows, ablate2.K, niter)
+        assert (visits == n_rows - 1).any()
+    for level in (8, 9):
+        err, out, node = _ablate2(libs, level, nodes, rows, rays, niter)
+        assert err == 0
+        want, want_node = ablate2.ablate_plain(level, nodes, rows, rays, niter)
+        assert _same(out, want) and torch.equal(node, want_node), level
+
+
+def test_ablate2_refusals(libs):
+    nodes, rows, rays = _ablate2_tables()
+    fn = _probe_fn(libs["ablate2"], ablate2.KERNEL)
+    out = torch.zeros(rays.shape[0])
+    node = torch.zeros(rays.shape[0] // ablate2.WARP, dtype=torch.int32)
+
+    def call(level=8, n_nodes=nodes.shape[0], n_rows=rows.shape[0], n=rays.shape[0], niter=2):
+        return fn(level, nodes.data_ptr(), n_nodes, rows.data_ptr(), n_rows, rays.data_ptr(), n,
+                  niter, out.data_ptr(), node.data_ptr(), None)
+
+    assert call() == 0
+    for bad in ({"level": 10}, {"level": -1}, {"n_nodes": 0}, {"n_rows": 0},
+                {"n": ablate2.GROUP - ablate2.WARP}, {"niter": -1},
+                {"niter": (2**31 - 1) // 7 - ablate2.K + 1}):
+        assert call(**bad) != 0, bad
+    # The occupancy query refuses a level that is not one.
+    occupancy, res = _occupancy_fn(libs["ablate2"], ablate2.KERNEL), (ctypes.c_int * 4)()
+    for bad in (-1, len(ablate2.LEVELS)):
+        assert occupancy(bad, ctypes.addressof(res)) != 0, bad
+
+
+@pytest.mark.parametrize("mode", mosaic_probe3.MODES)
+def test_mosaic_probe3_modes_equal_plain(libs, mode):
+    # Every mode through the C ABI on two packets, over more iterations than
+    # the stack pointer's 60: the output and every row's node equal
+    # probe_plain's bit for bit.
+    tab, x = mosaic_probe3.probe_inputs(2, 11, device="cpu")
+    iters = 70
+    out = torch.full_like(x, 7.0)
+    nodes = torch.full((2, mosaic_probe3.R), -5, dtype=torch.int32)
+    fn = _probe_fn(libs["mosaic_probe3"], mosaic_probe3.KERNEL)
+    err = fn(mosaic_probe3.MODES.index(mode), tab.data_ptr(), x.data_ptr(), 2, iters,
+             out.data_ptr(), nodes.data_ptr(), None)
+    assert err == 0
+    want, want_nodes = mosaic_probe3.probe_plain(mode, tab, x, iters)
+    assert _same(out, want) and torch.equal(nodes, want_nodes)
+    # An unknown mode or no packet is refused.
+    assert fn(len(mosaic_probe3.MODES), tab.data_ptr(), x.data_ptr(), 2, iters,
+              out.data_ptr(), nodes.data_ptr(), None) != 0
+    assert fn(0, tab.data_ptr(), x.data_ptr(), 0, iters, out.data_ptr(), nodes.data_ptr(),
+              None) != 0
+    # So is an unknown mode in the occupancy query.
+    res = (ctypes.c_int * 4)()
+    occupancy = _occupancy_fn(libs["mosaic_probe3"], mosaic_probe3.KERNEL)
+    assert occupancy(len(mosaic_probe3.MODES), ctypes.addressof(res)) != 0
+
+
+def test_invariant_divisor_equals_remainder(tmp_path):
+    # int_div.cuh's multiplier-and-shift remainder against `%`: every
+    # divisor 1 to 2^24, powers of two and large divisors, numerators up to
+    # 2^31 - 1 at the edges (int_div_check.cpp).
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is needed to build the check for the host")
+    exe = str(tmp_path / "int_div_check")
+    emu = os.path.join(HERE, "cuda_emulation")
+    proc = subprocess.run([gxx, "-std=c++20", "-O2", "-pthread", "-I", emu, "-I", common.CSRC,
+                           os.path.join(emu, "int_div_check.cpp"), "-o", exe],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    run = subprocess.run([exe], capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert int(run.stdout.split()[0]) > 300_000_000

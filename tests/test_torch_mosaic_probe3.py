@@ -114,7 +114,7 @@ def test_gather_rates_small():
         assert c["ms"] > 0 and c["ns_per_row"] == pytest.approx(c["ms"] / c["R"] * 1e6)
 
 
-@pytest.mark.parametrize("bad", ["mode", "x", "tab", "dtype", "iters"])
+@pytest.mark.parametrize("bad", ["mode", "x", "tab", "dtype", "iters", "misaligned"])
 def test_wrapper_refuses_bad_arguments(inputs, bad):
     tab, x = inputs
     mode, iters = "rowstep", 4
@@ -126,6 +126,10 @@ def test_wrapper_refuses_bad_arguments(inputs, bad):
         tab = tab[:4096]
     elif bad == "dtype":
         x = x.double()
+    elif bad == "misaligned":
+        # Contiguous, but 4 bytes past a 16-byte boundary: the kernel reads
+        # float4s.
+        x = torch.zeros(x.numel() + 1)[1:].view(x.shape)
     else:
         iters = -1
     with pytest.raises(ValueError, match="mosaic_probe3"):

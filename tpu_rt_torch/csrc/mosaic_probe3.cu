@@ -7,31 +7,40 @@
 // 128 rays.  Same method: each mode runs a fixed number of iterations and the
 // time per iteration is (t(5 iters) - t(iters)) / 4 iters (:215-217).
 //
-// Layout on the card: a packet is one block of 16 warps.  Warp r is row r,
-// with its own node cursor (warp-uniform, starting at 7 r + 1 as in the
-// tool), and lane l holds the row's columns l, l + 32, l + 64 and l + 96 of
-// the (16, 128) block x.  The table is the tool's (64, 16, 128) one as a
+// Layout on the card: a packet is one block of 4 warps, and each warp holds
+// kRowsPerWarp = 4 rows, 8 lanes a row.  Row r has its own node cursor
+// (uniform over its 8 lanes, starting at 7 r + 1 as in the tool), and lane s
+// of the row holds its columns 32 v + 4 s .. + 3 for v = 0..3 (four float4
+// of the (16, 128) block x).  So one warp instruction of a row's scalar work
+// (the record, the slab spans, the stack) serves 4 rows, as the TPU's (16, 1)
+// column op serves all 16.  The table is the tool's (64, 16, 128) one as a
 // row-major [8192, 16] table: node n's record is row n.  The tool's scratch,
 // the (2, 16, 64) stack block and the row's stack pointer, is per row: 64
-// slots of shared memory and a float in a register, both starting at zero.
-// Each packet computes the tool's (16, 128) output acc + float(node of row 0)
-// from its own block of x; every packet walks the same table.
+// slots of shared memory (`row_stack`), which the row's owning lane writes,
+// and a float in a register, both starting at zero.  Each packet computes
+// the tool's (16, 128) output acc + float(node of row 0) from its own block
+// of x; every packet walks the same table.  (Two rows a warp, 16 lanes a
+// row and 8 warps a packet, ran rowstep 1.38x slower on an H100; PERF.md.)
 //
 // Modes (the tool's :45-170):
 //   empty         acc + 1, node + 1
-//   x16           the 16 rows' acc[r, 0] to int, summed: 16 cross-warp
-//                 reads through shared memory (one barrier per iteration)
-//   fetch16       each warp loads its row's record, lane l its slot l mod 16;
-//                 acc += M[0, 0] (row 0's slot 0, through shared memory) 1e-9
+//   x16           the 16 rows' acc[r, 0] to int, summed: 16 cross-row reads
+//                 through shared memory (one barrier of the 4 warps per
+//                 iteration)
+//   fetch16       each row's 8 lanes load its record, lane s its slots 2 s
+//                 and 2 s + 1; acc += M[0, 0] (row 0's slot 0, through shared
+//                 memory) 1e-9
 //   fetch16T      fetch16, then the transpose: the row's 16 slots to every
-//                 lane of its warp by __shfl_sync (row r's column of M is in
-//                 warp r already, so the 16 x 16 transpose is this spread)
-//   onehot_stack  push acc[r, 0] into the row's stack (the lane that owns
-//                 the slot writes), pop the slot below: the tool's one-hot
-//                 max, -3e38 where no slot matches
-//   rowstep       the full row step: fetch and spread, both children's spans
-//                 of the row against its 128 rays, the row's any as
-//                 __any_sync, push and pop, and the next cursor
+//                 lane of the row by 16 __shfl_sync (row r's column of M is
+//                 in its lanes already, so the 16 x 16 transpose is this
+//                 spread)
+//   onehot_stack  push acc[r, 0] into the row's stack (the row's lane that
+//                 owns the slot writes), pop the slot below: the tool's
+//                 one-hot max, -3e38 where no slot matches
+//   rowstep       the full row step: the record as four float4 loads that
+//                 the row's lanes share, both children's spans of the row
+//                 against its 128 rays, the row's any as its 8 bits of a
+//                 __ballot_sync, push and pop, and the next cursor
 //   div8 / mul8 / divmul  8 chained f32 divisions / multiplications /
 //                 alternating, on each element (-fmad=false: no contraction)
 //
@@ -40,37 +49,53 @@
 // that enters the output as (word & zero), where `zero` is a kernel
 // argument that is 0 at run time; node + 1 without a modulo takes (node &
 // zero) so that the loop keeps its increments.  chip_smoke.py counts each
-// mode's global loads, shuffles, shared-memory accesses, votes, MUFU.RCP and
-// FP32 instructions in the SASS and checks each mode's own work is there.
+// mode's global loads, shuffles, shared-memory accesses, votes, barriers,
+// MUFU.RCP and FP32 instructions in the SASS and checks each mode's own work
+// is there.
 //
 // What bounds it: rowstep per packet and iteration is 21,280 f32
 // operations (49 per row on the row's scalars, 10 per element) against 16
 // records of 64 B: operations, at 67 TFLOP/s.  The modes that read across
-// rows pay a block barrier per iteration; the rest are chains of dependent
-// operations per warp.
+// rows pay a barrier of the packet's 4 warps per iteration; the rest are
+// chains of dependent operations per warp.  So the division modes' times
+// depend on the layout, through the elements each lane chains: on an H100
+// div8 took 5.65 / 9.69 / 17.9 us per iteration on one packet and 15.5 /
+// 16.5 / 22.0 us on 528 at 1 / 2 / 4 rows a warp (4 / 8 / 16 elements a
+// lane; PERF.md).  Its ratio to mul8 describes this layout, not the card.
 
 #include "trace_common.cuh"
 
 namespace {
 
+using tpu_rt_torch::ldg;
 using tpu_rt_torch::max_nan;
 using tpu_rt_torch::min_nan;
 
-constexpr int kRows = 16;                // R
+constexpr int kRows = 16;                             // R
 constexpr int kCols = 128;
 constexpr int kWarp = 32;
-constexpr int kPerLane = kCols / kWarp;  // 4
-constexpr int kSlots = 64;               // the stack block's width
-constexpr int kTableRows = 64 * 128;     // NB * 128
+constexpr int kRowsPerWarp = 4;
+constexpr int kRowLanes = kWarp / kRowsPerWarp;       // 8
+constexpr int kVecs = kCols / (4 * kRowLanes);        // float4 of a lane: 4
+constexpr int kPerLane = 4 * kVecs;                   // columns of a lane: 16
+constexpr int kThreads = kRows * kRowLanes;           // 128, 4 warps
+constexpr unsigned kRowBits = (1u << kRowLanes) - 1;  // a row's lanes in a ballot
+constexpr int kSlots = 64;                            // the stack block's width
+constexpr int kTableRows = 64 * 128;                  // NB * 128
 constexpr int kRecord = 16;
-constexpr int kThreads = kRows * kWarp;  // 512
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kNoSlot = -3e38f;        // the tool's fill of the one-hot max
+constexpr float kNoSlot = -3e38f;                     // the tool's fill of the one-hot max
 
 enum Mode {
     kEmpty = 0, kX16 = 1, kFetch16 = 2, kFetch16T = 3, kOnehotStack = 4, kRowstep = 5,
     kDiv8 = 6, kMul8 = 7, kDivmul = 8
 };
+
+// The packet's shared state: the rows' stacks, the cross-row words (double
+// buffered, so one barrier an iteration) and row 0's final node.
+__shared__ float row_stack[kRows][kSlots];
+__shared__ float cross[2][kRows];
+__shared__ int node0;
 
 __device__ __forceinline__ int bits(float x) { return __float_as_int(x); }
 
@@ -98,16 +123,23 @@ template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 mosaic_probe3_kernel(const float* __restrict__ tab, const float* __restrict__ x, int iters,
                      int zero, float* __restrict__ out, int* __restrict__ out_node) {
-    __shared__ float stack[kRows][kSlots];
-    __shared__ float cross[2][kRows];
-    __shared__ int node0;
     const int lane = threadIdx.x & (kWarp - 1);
-    const int r = threadIdx.x / kWarp;
-    const size_t base = (static_cast<size_t>(blockIdx.x) * kRows + r) * kCols + lane;
+    const int sub = lane % kRowLanes;        // the lane's place in its row
+    const int lead = lane - sub;             // the row's first lane
+    const int r = threadIdx.x / kRowLanes;   // the row
+    const unsigned row_bits = kRowBits << lead;
+    // Lane s's float4 v holds columns 32 v + 4 s .. + 3: acc[4 v + c].
+    const size_t base = (static_cast<size_t>(blockIdx.x) * kRows + r) * kCols + 4 * sub;
+    const float4* x4 = reinterpret_cast<const float4*>(x + base);
     float acc[kPerLane];
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) acc[j] = x[base + kWarp * j];
-    for (int s = threadIdx.x; s < kRows * kSlots; s += kThreads) stack[s / kSlots][s % kSlots] = 0.0f;
+    for (int v = 0; v < kVecs; ++v) {
+        const float4 a = x4[v * kRowLanes];
+        acc[4 * v] = a.x, acc[4 * v + 1] = a.y, acc[4 * v + 2] = a.z, acc[4 * v + 3] = a.w;
+    }
+    for (int s = threadIdx.x; s < kRows * kSlots; s += kThreads) {
+        row_stack[s / kSlots][s % kSlots] = 0.0f;
+    }
     float spv = 0.0f;     // the row's stack pointer, stack_ref[1][r, 0]
     int node = r * 7 + 1;
     int hold = 0;         // what a lane loaded and nothing else reads
@@ -120,7 +152,7 @@ mosaic_probe3_kernel(const float* __restrict__ tab, const float* __restrict__ x,
             for (int j = 0; j < kPerLane; ++j) acc[j] = acc[j] + 1.0f;
             node += 1 + (node & zero);
         } else if constexpr (kMode == kX16) {
-            if (lane == 0) cross[i & 1][r] = acc[0];
+            if (sub == 0) cross[i & 1][r] = acc[0];
             __syncthreads();
             int s = 0;
 #pragma unroll
@@ -129,19 +161,21 @@ mosaic_probe3_kernel(const float* __restrict__ tab, const float* __restrict__ x,
             for (int j = 0; j < kPerLane; ++j) acc[j] = acc[j] + 1e-9f;
             node = (node + (s & zero) + 1) % kTableRows;
         } else if constexpr (kMode == kFetch16 || kMode == kFetch16T) {
-            const float v = tab[node * kRecord + (lane & (kRecord - 1))];
-            float m00 = v;
+            const float2 v = ldg<false>(reinterpret_cast<const float2*>(tab + node * kRecord) + sub);
+            float m00 = v.x;
             if constexpr (kMode == kFetch16T) {
                 float t[kRecord];
 #pragma unroll
-                for (int q = 0; q < kRecord; ++q) t[q] = __shfl_sync(kFull, v, q);
+                for (int q = 0; q < kRecord; ++q) {
+                    t[q] = __shfl_sync(kFull, q % 2 ? v.y : v.x, lead + q / 2);
+                }
 #pragma unroll
                 for (int q = 0; q < kRecord; ++q) hold ^= bits(t[q]);
                 m00 = t[0];
             } else {
-                hold ^= bits(v);
+                hold ^= bits(v.x) ^ bits(v.y);
             }
-            if (r == 0 && lane == 0) cross[i & 1][0] = m00;
+            if (threadIdx.x == 0) cross[i & 1][0] = m00;
             __syncthreads();
             const float m = cross[i & 1][0];
 #pragma unroll
@@ -149,50 +183,47 @@ mosaic_probe3_kernel(const float* __restrict__ tab, const float* __restrict__ x,
             node = (node + 1) % kTableRows;
         } else if constexpr (kMode == kOnehotStack) {
             const int spi = __float2int_rz(spv);
-            const float a0 = __shfl_sync(kFull, acc[0], 0);
-            if (spi >= 0 && spi < kSlots && lane == (spi & (kWarp - 1))) stack[r][spi] = a0;
+            const float a0 = __shfl_sync(kFull, acc[0], lead);
+            if (spi >= 0 && spi < kSlots && sub == spi % kRowLanes) row_stack[r][spi] = a0;
             __syncwarp();
-            const float popped = pop_slot(stack[r], spi - 1);
+            const float popped = pop_slot(row_stack[r], spi - 1);
             spv = fmodf(spv + 1.0f, 60.0f);
 #pragma unroll
             for (int j = 0; j < kPerLane; ++j) acc[j] = acc[j] + popped * 1e-12f;
             node += 1 + (node & zero);
             __syncwarp();
         } else if constexpr (kMode == kRowstep) {
-            const float v = tab[node * kRecord + (lane & (kRecord - 1))];
-            float b[kRecord];
-#pragma unroll
-            for (int q = 0; q < kRecord; ++q) b[q] = __shfl_sync(kFull, v, q);
-            const float idir = __shfl_sync(kFull, acc[0], 0) + 1.0f;   // acc[r, 0] + 1
-            const float ood = __shfl_sync(kFull, acc[0], 1);           // acc[r, 1]
+            const float4* rec = reinterpret_cast<const float4*>(tab + node * kRecord);
+            const float4 q0 = ldg<false>(rec), q1 = ldg<false>(rec + 1);
+            const float4 q2 = ldg<false>(rec + 2), q3 = ldg<false>(rec + 3);
+            const float idir = __shfl_sync(kFull, acc[0], lead) + 1.0f;   // acc[r, 0] + 1
+            const float ood = __shfl_sync(kFull, acc[1], lead);           // acc[r, 1]
             float near0, far0, near1, far1;
-            row_span(b[0], b[1], b[2], b[3], b[8], b[9], idir, ood, near0, far0);
-            row_span(b[4], b[5], b[6], b[7], b[10], b[11], idir, ood, near1, far1);
-            float f0[kPerLane], f1[kPerLane];
+            row_span(q0.x, q0.y, q0.z, q0.w, q2.x, q2.y, idir, ood, near0, far0);
+            row_span(q1.x, q1.y, q1.z, q1.w, q2.z, q2.w, idir, ood, near1, far1);
             bool h0 = false, h1 = false;
 #pragma unroll
             for (int j = 0; j < kPerLane; ++j) {
                 const float n0 = near0 * acc[j], n1 = near1 * acc[j];
-                f0[j] = far0 * acc[j];
-                f1[j] = far1 * acc[j];
-                h0 |= f0[j] >= n0;
-                h1 |= f1[j] >= n1;
+                const float f0 = far0 * acc[j], f1 = far1 * acc[j];
+                h0 |= f0 >= n0;
+                h1 |= f1 >= n1;
+                acc[j] = acc[j] + f0 * 1e-12f + f1 * 1e-12f;
             }
-            const bool hit0 = __any_sync(kFull, h0), hit1 = __any_sync(kFull, h1);
-            const int link0 = bits(b[12]), link1 = bits(b[13]);
+            const bool hit0 = (__ballot_sync(kFull, h0) & row_bits) != 0;
+            const bool hit1 = (__ballot_sync(kFull, h1) & row_bits) != 0;
+            const int link0 = bits(q3.x), link1 = bits(q3.y);
             const int first = hit0 ? link0 : link1;
             const bool push = hit0 && hit1;
             const int spi = __float2int_rz(spv);
-            if (push && spi >= 0 && spi < kSlots && lane == (spi & (kWarp - 1))) {
-                stack[r][spi] = static_cast<float>(link1);
+            if (push && spi >= 0 && spi < kSlots && sub == spi % kRowLanes) {
+                row_stack[r][spi] = static_cast<float>(link1);
             }
             __syncwarp();
             const int spi2 = spi + (push ? 1 : 0);
-            const float popped = pop_slot(stack[r], spi2 - 1);
+            const float popped = pop_slot(row_stack[r], spi2 - 1);
             const int nxt = (hit0 || hit1) ? first : __float2int_rz(popped);
             spv = static_cast<float>(((spi2 % 60) + 60) % 60);
-#pragma unroll
-            for (int j = 0; j < kPerLane; ++j) acc[j] = acc[j] + f0[j] * 1e-12f + f1[j] * 1e-12f;
             const unsigned mag = nxt < 0 ? 0u - static_cast<unsigned>(nxt) : static_cast<unsigned>(nxt);
             node = static_cast<int>(mag % kTableRows);
             __syncwarp();
@@ -212,41 +243,65 @@ mosaic_probe3_kernel(const float* __restrict__ tab, const float* __restrict__ x,
     }
 
     if (threadIdx.x == 0) node0 = node;
-    if (lane == 0) out_node[blockIdx.x * kRows + r] = node;
+    if (sub == 0) out_node[blockIdx.x * kRows + r] = node;
     __syncthreads();
     const float nf = static_cast<float>(node0);
     // x - (+0.0f) is x for every x, -0 and NaN included.
     const float keep = __int_as_float(hold & zero);
+    float4* o4 = reinterpret_cast<float4*>(out + base);
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) out[base + kWarp * j] = (acc[j] + nf) - keep;
+    for (int v = 0; v < kVecs; ++v) {
+        o4[v * kRowLanes] = make_float4((acc[4 * v] + nf) - keep, (acc[4 * v + 1] + nf) - keep,
+                                        (acc[4 * v + 2] + nf) - keep, (acc[4 * v + 3] + nf) - keep);
+    }
+}
+
+// Calls f with the kernel of `mode`; false for a mode that is not one.
+template <typename F>
+bool with_mode(int mode, F&& f) {
+    switch (mode) {
+        case kEmpty: f(mosaic_probe3_kernel<kEmpty>); return true;
+        case kX16: f(mosaic_probe3_kernel<kX16>); return true;
+        case kFetch16: f(mosaic_probe3_kernel<kFetch16>); return true;
+        case kFetch16T: f(mosaic_probe3_kernel<kFetch16T>); return true;
+        case kOnehotStack: f(mosaic_probe3_kernel<kOnehotStack>); return true;
+        case kRowstep: f(mosaic_probe3_kernel<kRowstep>); return true;
+        case kDiv8: f(mosaic_probe3_kernel<kDiv8>); return true;
+        case kMul8: f(mosaic_probe3_kernel<kMul8>); return true;
+        case kDivmul: f(mosaic_probe3_kernel<kDivmul>); return true;
+        default: return false;
+    }
 }
 
 }  // namespace
 
 // C ABI for ctypes (tpu_rt_torch/probes/mosaic_probe3.py): the [8192, 16]
-// table, x and out [packets, 16, 128], out_node [packets, 16], iters >= 0.
-// Launches the mode on `stream`, one block of 16 warps per packet; returns
-// the first CUDA error.
+// table, x and out [packets, 16, 128], out_node [packets, 16], iters >= 0;
+// tab, x and out 16-byte aligned.  Launches the mode on `stream`, one block
+// of 4 warps per packet; returns the first CUDA error.
 extern "C" int mosaic_probe3_launch(int mode, const void* tab, const void* x, int packets,
                                     int iters, void* out, void* out_node, void* stream) {
     if (packets <= 0 || iters < 0) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const auto launch = [&](auto kernel) {
-        kernel<<<packets, kThreads, 0, s>>>(static_cast<const float*>(tab),
-                                            static_cast<const float*>(x), iters, 0,
-                                            static_cast<float*>(out), static_cast<int*>(out_node));
-    };
-    switch (mode) {
-        case kEmpty: launch(mosaic_probe3_kernel<kEmpty>); break;
-        case kX16: launch(mosaic_probe3_kernel<kX16>); break;
-        case kFetch16: launch(mosaic_probe3_kernel<kFetch16>); break;
-        case kFetch16T: launch(mosaic_probe3_kernel<kFetch16T>); break;
-        case kOnehotStack: launch(mosaic_probe3_kernel<kOnehotStack>); break;
-        case kRowstep: launch(mosaic_probe3_kernel<kRowstep>); break;
-        case kDiv8: launch(mosaic_probe3_kernel<kDiv8>); break;
-        case kMul8: launch(mosaic_probe3_kernel<kMul8>); break;
-        case kDivmul: launch(mosaic_probe3_kernel<kDivmul>); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(cudaGetLastError());
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(packets);
+    config.blockDim = dim3(kThreads);
+    config.stream = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaErrorInvalidValue;
+    with_mode(mode, [&](auto kernel) {
+        err = cudaLaunchKernelEx(&config, kernel, static_cast<const float*>(tab),
+                                 static_cast<const float*>(x), iters, 0, static_cast<float*>(out),
+                                 static_cast<int*>(out_node));
+        const cudaError_t last = cudaGetLastError();
+        if (err == cudaSuccess) err = last;
+    });
+    return static_cast<int>(err);
+}
+
+// The mode's kernel on the current device: out[4] = resident blocks
+// (packets) per SM, registers, local bytes a thread, static shared bytes a
+// block (kernel_occupancy); returns the first CUDA error.
+extern "C" int mosaic_probe3_occupancy(int mode, int* out) {
+    cudaError_t err = cudaErrorInvalidValue;
+    with_mode(mode, [&](auto kernel) { err = tpu_rt_torch::kernel_occupancy(kernel, kThreads, out); });
+    return static_cast<int>(err);
 }

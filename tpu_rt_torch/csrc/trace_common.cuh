@@ -565,6 +565,29 @@ cudaError_t launch_window(void (*kernel)(Params...), int grid, size_t smem, cuda
     return err != cudaSuccess ? err : last;
 }
 
+// What the card makes of `kernel` at `threads` threads a block and no
+// dynamic shared memory: out[0] its resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] registers a
+// thread, out[2] local-memory bytes a thread and out[3] static shared
+// memory bytes a block (cudaFuncGetAttributes).  The probes report it
+// beside their times.
+template <typename... Params>
+cudaError_t kernel_occupancy(void (*kernel)(Params...), int threads, int out[4]) {
+    cudaFuncAttributes attr{};
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, threads, 0);
+    }
+    if (err != cudaSuccess) {
+        cudaGetLastError();
+        return err;
+    }
+    out[1] = attr.numRegs;
+    out[2] = static_cast<int>(attr.localSizeBytes);
+    out[3] = static_cast<int>(attr.sharedSizeBytes);
+    return cudaSuccess;
+}
+
 // The launch settings of one traversal call that are not kernel arguments.
 struct LaunchCtx {
     cudaStream_t stream;

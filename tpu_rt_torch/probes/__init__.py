@@ -31,6 +31,7 @@ class ProbeKernel:
         self.build_log = ""
         self.build_s = 0.0
         self.path = None
+        self._lib = None
         self._fn = None
         self.reset_counts()
 
@@ -43,12 +44,33 @@ class ProbeKernel:
             t0 = time.perf_counter()
             self.path, self.build_log = build_shared(self.name, [self.source],
                                                      [nvcc()] + NVCC_FLAGS, deps=headers())
-            fn = getattr(ctypes.CDLL(self.path), f"{self.name}_launch")
+            self._lib = ctypes.CDLL(self.path)
+            fn = getattr(self._lib, f"{self.name}_launch")
             self.build_s = time.perf_counter() - t0
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_int, *self.argtypes, ctypes.c_void_p]
             self._fn = fn
         return self._fn
+
+    def occupancy(self, form, dev: torch.device) -> dict:
+        """What ``dev`` makes of ``form``'s kernel, from the library's
+        ``<name>_occupancy(form, int[4])`` (``ablate2`` and
+        ``mosaic_probe3``): resident blocks per SM
+        (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+        local-memory bytes a thread, static shared-memory bytes a block
+        (``cudaFuncGetAttributes``), and the device's SMs."""
+        self.load()
+        fn = getattr(self._lib, f"{self.name}_occupancy")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            err = fn(self.forms.index(form), ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"{self.name} occupancy of {form!r} failed: cudaError {err}")
+        return {"blocks_per_sm": out[0], "registers": out[1], "local_bytes": out[2],
+                "shared_bytes": out[3],
+                "sms": torch.cuda.get_device_properties(dev).multi_processor_count}
 
     def launch(self, form, dev: torch.device, *args) -> None:
         """Launch ``form`` with ``args`` (checked by the caller) on the

@@ -2,12 +2,14 @@
 
 Counterpart of ``tools/ablate2.py``, which timed ``tpu_rt``'s packet2 step
 on a TPU v5e as its components were layered in.  The kernel is
-``tpu_rt_torch/csrc/ablate2.cu``: one ray per thread, a packet is the 32
-rays of a warp sharing one node cursor, and each warp holds ``K`` packets
-(a thread holds one ray of each).  Levels (cumulative, see the source): 0
-the loop, 1 the node record load, 2 the bounds held in registers, 3 the
-span math, 4 the votes and ordering bit, 5 the stack and queue, 6 the Woop
-row load, 7 ``U`` Woop tests, 8 the hit writes, 9 the while loop.
+``tpu_rt_torch/csrc/ablate2.cu``: a packet is the 32 rays of a warp
+sharing one node cursor, and each warp holds ``K`` packets (a lane holds
+one ray of each, in registers); what is per packet is held once per warp,
+the stacks and queues in shared memory, and the table remainders divide by
+invariant integers.  Levels (cumulative, see the source): 0 the loop, 1
+the node record load, 2 the bounds held in registers, 3 the span math, 4
+the votes and ordering bit, 5 the stack and queue, 6 the Woop row load, 7
+``U`` Woop tests, 8 the hit writes, 9 the while loop.
 
 The functions take any row-major [n, 16] node table and [m, 16] Woop row
 table (on the card bunny's ``FlatBVH`` records and ``woop_rows``; the tests
@@ -25,7 +27,9 @@ The time per iteration is (t(5N) - t(N)) / 4N from CUDA events (median of
 3), as ``tools/ablate2.py:210-216`` takes it.  ``ablate_plain`` computes
 what the kernel computes in PyTorch ops (on the card its step replayed as
 a CUDA graph), so ``run`` holds the output of every level's timed launch
-at N against it, on every ray.
+at N against it, on every ray.  ``run`` also reports each level's
+registers, resident blocks per SM and waves, as the card reports them
+(``ProbeKernel.occupancy``).
 
 Run on a card:  python -m tpu_rt_torch.probes.ablate2 [--rays N] [--niter N]
 (prints what the tool prints and a JSON line; ``chip_smoke.py`` runs the
@@ -53,7 +57,7 @@ K, U, NITER = 4, 3, 2000        # tools/ablate2.py defaults; the kernel's kK, kU
 WARP = 32                       # rays of a packet on the card (the tool's TILE)
 BLOCK = 128                     # threads per block of the kernel (kBlock)
 GROUP = BLOCK * K               # rays of a block
-THREADS_PER_SM = 2048           # resident threads of a Hopper SM
+SM_THREADS = 2048               # a Hopper SM's thread limit (full_card), not the kernel's
 STACK_DEPTH = QUEUE_DEPTH = 64
 ROLL = 128                      # the roll's aligned group of Woop rows
 N_RAYS = 8192                   # the tool's K x TILE
@@ -83,6 +87,8 @@ class Ablate2Kernel(ProbeKernel):
                     or x.shape[0] < 1 or not x.is_contiguous():
                 raise ValueError(f"{self.name}: {what} must be contiguous f32 [>= 1, {width}], "
                                  f"got {x.dtype} {tuple(x.shape)}")
+        if any(x.data_ptr() % 16 for x in (nodes, rows, rays)):
+            raise ValueError(f"{self.name}: nodes, rows and rays must start on 16 bytes")
         n = rays.shape[0]
         if n % GROUP or not 0 <= niter <= (2**31 - 1) // 7 - K:
             raise ValueError(f"{self.name}: need rays in blocks of {GROUP} and 0 <= niter < "
@@ -286,10 +292,19 @@ def probe_rays(rows: np.ndarray, scene, n: int, seed: int, k: int = K, tile: int
 
 
 def full_card(device="cuda") -> int:
-    """Rays that fill the card: THREADS_PER_SM threads on each SM, each
-    holding K rays."""
+    """A full card's rays at a fixed size, so that times compare across
+    versions of the kernel: SM_THREADS threads (an SM's thread limit) on
+    each SM, each holding K rays; 1,081,344 on 132 SMs.  The kernel keeps
+    fewer threads on an SM than that (``KERNEL.occupancy``), so they run in
+    ``waves``."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return sms * THREADS_PER_SM * K
+    return sms * SM_THREADS * K
+
+
+def waves(n_rays: int, occupancy: dict) -> float:
+    """The launch's blocks over the card's resident blocks (``occupancy``:
+    ``ProbeKernel.occupancy``)."""
+    return n_rays / GROUP / (occupancy["blocks_per_sm"] * occupancy["sms"])
 
 
 def run(flat, scene, device="cuda", n_rays: int | None = None, niter: int | None = None) -> dict:
@@ -298,8 +313,9 @@ def run(flat, scene, device="cuda", n_rays: int | None = None, niter: int | None
     and Woop rows of ``flat`` (``scene``'s BVH); then hold the output of
     each level's timed launch at ``niter`` against its plain version on the
     same rays, timing the plain version too.  Returns per level the ns per
-    iteration of both, the kernel's step over the level below, the times
-    and the check; ``launches`` are those of the timed runs."""
+    iteration of both, the kernel's step over the level below, the times,
+    the check, and the level's ``occupancy`` and ``waves``; ``launches``
+    are those of the timed runs."""
     n_rays = N_RAYS if n_rays is None else n_rays
     niter = NITER if niter is None else niter
     dev = torch.device(device)
@@ -317,6 +333,8 @@ def run(flat, scene, device="cuda", n_rays: int | None = None, niter: int | None
         ns = (t_hi - t_lo) / (4 * niter) * 1e6
         res[level] = {"name": LEVEL_NAMES[level], "ns_per_iter": ns, "delta_ns": ns - prev,
                       "ms_lo": t_lo, "ms_hi": t_hi}
+        occ = KERNEL.occupancy(level, dev)
+        res[level].update({"occupancy": occ, "waves": waves(n_rays, occ)})
         prev = ns
     launches = dict(KERNEL.launches_by_form)
     for level in LEVELS:
@@ -358,10 +376,12 @@ def main(argv=None) -> None:
     print(f"ablate2 on {torch.cuda.get_device_name(0)}: {res['n_rays']} rays, "
           f"{res['n_nodes']} node records, {res['n_rows']} Woop rows")
     for level, r in res["levels"].items():
+        occ = r["occupancy"]
         print(f"level {level}: {r['ns_per_iter']:9.1f} ns/iter  (+{r['delta_ns']:7.1f})  "
-              f"{r['name']}; plain {r['plain_ns_per_iter']:.1f} ns/iter; vs plain on "
-              f"{r['check_rays']} rays x {r['check_iters']}: bits differ {r['bits_differ']}, "
-              f"nodes differ {r['node_differ']}")
+              f"{r['name']}; {occ['registers']} registers, {occ['blocks_per_sm']} blocks per "
+              f"SM, {r['waves']:.2f} waves; plain {r['plain_ns_per_iter']:.1f} ns/iter; vs "
+              f"plain on {r['check_rays']} rays x {r['check_iters']}: bits differ "
+              f"{r['bits_differ']}, nodes differ {r['node_differ']}")
     print(f"\nconfig tile={res['tile']} K={res['k']} U={res['u']} niter={res['niter']}")
     print(json.dumps(res))
     bad = check(res)

@@ -3,12 +3,13 @@
 Counterpart of ``tools/mosaic_probe3.py``, which timed on a TPU v5e the
 pieces of a design where one (16, 128) packet holds 16 traversals, one per
 row of 128 rays.  The kernel is ``tpu_rt_torch/csrc/mosaic_probe3.cu``: a
-packet is one block of 16 warps, warp r is row r with its own node cursor,
-and lane l holds the row's columns l, l + 32, l + 64 and l + 96.  Modes
-(see the source): ``empty``, ``x16`` (16 cross-row reads), ``fetch16`` (a
-record per row), ``fetch16T`` (and its spread to the row's lanes),
-``onehot_stack`` (a per-row shared-memory stack), ``rowstep`` (the full row
-step), ``div8`` / ``mul8`` / ``divmul`` (f32 division against
+packet is one block of 4 warps, each warp holds 4 rows of 8 lanes, row r
+has its own node cursor, and lane s of a row holds its columns
+32 v + 4 s .. + 3 (v = 0..3), so a warp's scalar row work serves 4 rows.
+Modes (see the source): ``empty``, ``x16`` (16 cross-row reads),
+``fetch16`` (a record per row), ``fetch16T`` (and its spread to the row's
+lanes), ``onehot_stack`` (a per-row shared-memory stack), ``rowstep`` (the
+full row step), ``div8`` / ``mul8`` / ``divmul`` (f32 division against
 multiplication).
 
 The functions take the tool's (64, 16, 128) table as a row-major [8192, 16]
@@ -20,16 +21,18 @@ CUDA events (median of 3), and per row step a sixteenth of it, as
 ``tools/mosaic_probe3.py:215-217`` takes them.  ``probe_plain`` computes
 what the kernel computes in PyTorch ops (on the card its step replayed as
 a CUDA graph), so ``run`` holds the output of every mode's timed launch
-at ``iters`` against it, on every packet.
+at ``iters`` against it, on every packet, and reports each mode's
+registers and resident packets per SM as the card reports them
+(``ProbeKernel.occupancy``).
 
 ``gather_rates`` times the row gather ``tab[idx]`` and the scatter-add
 ``index_add`` at the tool's sizes (:227-263): PyTorch calls, not kernels of
 this repository.
 
 Run on a card:  python -m tpu_rt_torch.probes.mosaic_probe3 [mode ...]
-[--iters N] [--packets P] [--gather] (prints one line per mode and a JSON
-line; ``chip_smoke.py`` runs the same ``run`` and ``gather_rates``).  On the
-CPU, ``probe`` takes the plain version.
+[--iters N] [--packets P (0: a full card)] [--gather] (prints one line per
+mode and a JSON line; ``chip_smoke.py`` runs the same ``run`` and
+``gather_rates``).  On the CPU, ``probe`` takes the plain version.
 """
 
 from __future__ import annotations
@@ -53,7 +56,10 @@ NB = 64                 # table blocks
 TABLE_ROWS = NB * 128   # node n's record is row n
 SLOTS = 64              # the stack's slots per row
 ITERS = 20000           # tools/mosaic_probe3.py ITERS; timed at ITERS and 5 ITERS
-BLOCKS_PER_SM = 4       # 2,048 threads of an SM / 512 per packet
+# The fixed size row 9's times compare at: 4 packets of 16 warps (an SM's
+# 2,048 threads) on each of an H100 SXM's 132 SMs, the first layout's
+# full card.  ``full_card`` is the present layout's.
+COMPARE_PACKETS = 528
 REPEATS = 3
 NO_SLOT = -3e38         # the tool's fill of the one-hot max
 INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
@@ -84,6 +90,8 @@ class MosaicProbe3Kernel(ProbeKernel):
             if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
                 raise ValueError(f"{self.name}: {what} must be contiguous f32 {shape}, got "
                                  f"{t.dtype} {tuple(t.shape)}")
+        if tab.data_ptr() % 16 or x.data_ptr() % 16:
+            raise ValueError(f"{self.name}: tab and x must start on 16 bytes")
         dev = x.device
         if dev.type != "cuda" or tab.device != dev:
             raise ValueError(f"{self.name} needs CUDA tensors on one device, got {tab.device}, "
@@ -228,9 +236,10 @@ def probe_inputs(packets: int, seed: int, device="cuda"):
 
 
 def full_card(device="cuda") -> int:
-    """Packets that fill the card: BLOCKS_PER_SM blocks of 512 threads on
-    each SM."""
-    return BLOCKS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+    """Packets that fill the card: the blocks of ``rowstep`` resident on an
+    SM (``KERNEL.occupancy``) times the SMs."""
+    occ = KERNEL.occupancy(FULL_MODE, torch.device(device))
+    return occ["blocks_per_sm"] * occ["sms"]
 
 
 def run(device="cuda", packets: int = 1, iters: int | None = None, modes=MODES) -> dict:
@@ -238,8 +247,8 @@ def run(device="cuda", packets: int = 1, iters: int | None = None, modes=MODES) 
     ITERS) on ``packets`` packets; then hold the output of each mode's
     timed launch at ``iters`` against its plain version on the same
     packets, timing the plain version too.  Returns per mode the ns per
-    iteration (and per row step) of both, the times and the check;
-    ``launches`` are those of the timed runs."""
+    iteration (and per row step) of both, the times, the check and the
+    mode's ``occupancy``; ``launches`` are those of the timed runs."""
     iters = ITERS if iters is None else iters
     dev = torch.device(device)
     tab, x = probe_inputs(packets, 0, dev)
@@ -252,6 +261,7 @@ def run(device="cuda", packets: int = 1, iters: int | None = None, modes=MODES) 
         outs[mode] = lo[-1]
         ns = (t_hi - t_lo) / (4 * iters) * 1e6
         res[mode] = {"ns_per_iter": ns, "ns_per_row_step": ns / R, "ms_lo": t_lo, "ms_hi": t_hi}
+        res[mode]["occupancy"] = KERNEL.occupancy(mode, dev)
     launches = dict(KERNEL.launches_by_form)
     for mode in modes:
         got, got_nodes = outs.pop(mode)
@@ -356,8 +366,10 @@ def main(argv=None) -> None:
     print(f"mosaic_probe3 on {torch.cuda.get_device_name(0)}: {packets} packets, "
           f"iters {res['iters']} and {5 * res['iters']}")
     for mode, r in res["modes"].items():
+        occ = r["occupancy"]
         print(f"{mode:14s} {r['ns_per_iter']:8.1f} ns/iter ({r['ns_per_row_step']:6.2f} "
-              f"ns/row-step); plain {r['plain_ns_per_iter']:.1f} ns/iter; vs plain on "
+              f"ns/row-step); {occ['registers']} registers, {occ['blocks_per_sm']} packets per "
+              f"SM; plain {r['plain_ns_per_iter']:.1f} ns/iter; vs plain on "
               f"{r['check_packets']} packets x {r['check_iters']}: bits differ "
               f"{r['bits_differ']}, nodes differ {r['nodes_differ']}", flush=True)
     if args.gather:
