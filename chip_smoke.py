@@ -116,6 +116,29 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      bunny primary and AO batch 1; every design's hits against the
      persistent kernel's and its launch shape against ``persistent_grid``
      (and ``MXU_SMEM``); the refill threshold.
+28.  the secondary-ray sort: the conference AO frame (8 samples) through
+     ``Renderer(tracer="auto", sort_secondary=True)``, ``"auto"`` with
+     ``compact_degenerate=True`` and ``"packet"`` with
+     ``compact_degenerate=True``, and the bunny AO frame (its batches hold
+     dead rays) through ``"auto"`` with and without
+     ``compact_degenerate=True``, each a path of its own: each image
+     bit-equal to the unsorted frame of its route (phases 6 and 11), each
+     batch the unsorted batch under the card's sort of its rays, the
+     per-id hits equal, ``rays_traced + rays_skipped`` the batch sizes and
+     ``rays_skipped`` what the live counts give; on AO batch 1 of both
+     scenes the card's three permutations equal to CPU stable sorts of the card's own keys,
+     and the card's keys against the CPU's on the same rays (a 192-bit key
+     may differ only where the normalized direction does); the any-hit
+     kernels on AO batch 1 in identity, coarse and 192-bit order, timed in
+     two passes; one bunny primary frame with ``profile_dir`` under
+     ``build/``, whose Chrome trace must hold the closest-hit kernel.
+29.  the training path on bunny's 640x480 primary rays (144,500 triangles,
+     307,200 rays): routing by the closest-hit kernel, a path of its own;
+     ``trace_diff`` with those hits against the wavefront-routed one
+     (disputed rays adjudicated by ``trace_flat_scalar``); one step's loss
+     and gradients on the card against the port's CPU step; ``fit`` for 6
+     steps twice and for 3 + a resume of 3 from a checkpoint under
+     ``build/``, bit-identical, the loss falling; ms per train step.
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
@@ -138,7 +161,8 @@ forms' entries carry ``first_ms``, their first version's time, and their
 ``ms`` from the same A/B (phase 27); the tensor-core frame forms' entries
 carry ``first_ms`` and ``ab_ms`` (the designs in phase 27) and their
 ``launch_shape``.  No single PyTorch call computes a BVH traversal or a
-probe, so ``library_ms`` is null.
+probe, so ``library_ms`` is null.  The four default frame forms' entries
+also carry ``paths``: the launches of phases 28-29's paths, by path name.
 """
 
 from __future__ import annotations
@@ -166,7 +190,13 @@ WARMUP, REPEATS = 2, 5        # as bench.py: BENCH_WARMUP / BENCH_REPEATS
 PLAIN_WARMUP, PLAIN_REPEATS = 1, 3
 ORACLE_RAYS = 8192
 DEVICE = "cuda"
-CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_bvhcache")
+BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+CACHE = os.path.join(BUILD, "chip_smoke_bvhcache")
+PROFILE_DIR = os.path.join(BUILD, "chip_smoke_profile")
+CKPT_DIR = os.path.join(BUILD, "chip_smoke_ckpt")
+# lr 1e-3: Adam moves every vertex by about lr a step, and bunny's median
+# edge is 0.0097, so at 1e-2 a step would move vertices by an edge.
+TRAIN_SEED, TRAIN_LR, TRAIN_STEPS = 10, 1e-3, 6
 PACKET2 = "tpu_rt/trace/packet2.py:404"
 
 
@@ -755,7 +785,7 @@ def conference(t0, kernel, dev):
     ctx = {"scene": scene, "camera": camera, "radius": radius, "ao": ao, "dif": dif,
            "b1_idx": b1_idx, "d_idx": d_idx, "b1_plain": b1_plain, "b1_oracle": b1_oracle,
            "b1_seen": b1_seen,
-           "occluded": occluded / live, "occluded_n": occluded,
+           "occluded": occluded / live, "occluded_n": occluded, "image": image,
            "b1_live": b1_live, "hits": hits}
     return anyhit, closest, ctx
 
@@ -883,6 +913,7 @@ def binary_conference(t0, flat_k, quad_k, cctx):
               "launches": counts["any"], "max_abs_err": any_err}
     closest = {"max_abs_err": dif_err}
     return anyhit, closest, {"ao": ao, "dif": dif, "plain": full, "oracle": oracle, "stats": st,
+                             "image": image,
                              "seen": seen}
 
 
@@ -2185,6 +2216,317 @@ def design_ab(t0, quad_k, flat_k, bctx, fb, cctx, fc, fctx):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 28-29: the secondary-ray sort and the training path
+# ---------------------------------------------------------------------------
+
+def check_card_sort(rays):
+    """The card's keys and permutations on ``rays``: each permutation equal
+    to a CPU stable sort of the card's own keys, and the card's keys against
+    the CPU's on the same rays.  A 192-bit key may differ only where the
+    card's normalized direction differs from the CPU's (torch's CUDA
+    vector_norm may round its sum otherwise); the coarse keys (origins only)
+    must be equal.  Returns the card's orders."""
+    from tpu_rt_torch.rays import buffer
+
+    orders = {"morton192": buffer.morton_sort_device(rays.origin, rays.dirn),
+              "coarse": buffer.morton_sort_device_coarse(rays.origin, rays.dirn),
+              "dead_last": buffer.sort_dead_last_device(rays)}
+    keys = buffer.ray_morton_keys_device(rays.origin, rays.dirn).cpu().numpy()
+    coarse = buffer.morton_keys_coarse_device(rays.origin).cpu().numpy()
+    dead = (rays.tmax < 0).cpu().numpy()
+    cols = tuple(keys[:, w] for w in range(6))
+    want = {"morton192": np.lexsort(cols), "coarse": np.argsort(coarse, kind="stable"),
+            "dead_last": np.lexsort(cols + (dead,))}
+    for name, order in orders.items():
+        bad = int((order.cpu().numpy() != want[name]).sum())
+        print(f"sort {name} on {rays.num} rays: card permutation vs a CPU stable sort of the "
+              f"card's keys: {bad} positions differ")
+        check(bad == 0, f"the card's {name} permutation is not the stable sort of its keys")
+    cpu = [x.cpu() for x in rays]
+    key_rows = (buffer.ray_morton_keys_device(cpu[0], cpu[1]).numpy() != keys).any(1)
+    coarse_bad = int((buffer.morton_keys_coarse_device(cpu[0]).numpy() != coarse).sum())
+
+    def unit(d):
+        return d / torch.linalg.vector_norm(d, dim=1, keepdim=True).clamp_min(1e-30)
+
+    dir_rows = (unit(rays.dirn).cpu().numpy() != unit(cpu[1]).numpy()).any(1)
+    print(f"keys card vs CPU on {rays.num} rays: 192-bit keys differ on {int(key_rows.sum())} "
+          f"rows, the normalized direction on {int(dir_rows.sum())} (keys differing elsewhere "
+          f"{int((key_rows & ~dir_rows).sum())}); coarse keys differ on {coarse_bad} rows")
+    check(not (key_rows & ~dir_rows).any() and coarse_bad == 0,
+          "card keys differ from CPU keys beyond the direction norm's rounding")
+    return orders
+
+
+def secondary_sort(t0, quad_k, flat_k, bctx, cctx, fc):
+    """Phase 28: the conference AO frame through Renderer("auto") with
+    sort_secondary and with compact_degenerate, and through
+    Renderer("packet") with compact_degenerate, and the bunny AO frame
+    (63% of its primary rays miss, so its batches have dead rays) through
+    Renderer("auto") with compact_degenerate and without, each a path of
+    its own.  Each image bit-equal to the unsorted frame of its route
+    (phases 6 and 11 for conference); each batch the unsorted batch under
+    the card's sort of its rays; rays_traced + rays_skipped the batch sizes
+    and rays_skipped what the live counts give; the card's permutations the
+    stable sorts of its own keys, and its keys against the CPU's (AO batch 1
+    of both scenes).  Then the
+    any-hit kernels on AO batch 1 in identity, coarse and 192-bit order,
+    and one bunny primary frame with profile_dir.  Returns {kernel entry:
+    {path: launches}}."""
+    from tpu_rt_torch.bench.workload import suite_ao_radius
+    from tpu_rt_torch.rays.buffer import (LIVE_PAD, morton_sort_device_coarse, permute_rays,
+                                          sort_dead_last_device)
+    from tpu_rt_torch.renderer import Renderer, RendererParams
+
+    paths = {"quad_trace": {}, "quad_trace_anyhit": {}, "flat_trace": {},
+             "flat_trace_anyhit": {}}
+
+    def ao_frame(scene_name, scene, camera, radius, tracer, flags):
+        kern, idle = (flat_k, quad_k) if tracer == "packet" else (quad_k, flat_k)
+        r = Renderer(WIDTH, HEIGHT, RendererParams(
+            ray_type="ao", num_samples=AO_SAMPLES, ao_radius=radius, max_batch=AO_MAX_BATCH,
+            cache_dir=CACHE, device=DEVICE, tracer=tracer, **flags))
+        r.set_scene(scene)
+        stats, image, counts, wall = render(r, camera, kern, idle=idle)
+        path = (f"{scene_name} AO frame, Renderer(tracer={tracer!r}"
+                + "".join(f", {k}=True" for k in flags) + ")")
+        frame_line(path, r, stats, counts, wall)
+        check(counts == {"closest": 1, "any": stats["batches"]}, f"{path} launched {counts}")
+        name = "flat_trace" if tracer == "packet" else "quad_trace"
+        paths[name][path] = counts["closest"]
+        paths[name + "_anyhit"][path] = counts["any"]
+        return path, r, stats, image
+
+    b_radius = suite_ao_radius(SCENE, bctx["scene"])
+    _, b_ao, _, b_image = ao_frame(SCENE, bctx["scene"], bctx["camera"], b_radius, "auto", {})
+    frames = ((SECONDARY_SCENE, "sort_secondary", "auto", cctx),
+              (SECONDARY_SCENE, "compact_degenerate", "auto", cctx),
+              (SECONDARY_SCENE, "compact_degenerate", "packet", fc),
+              (SCENE, "compact_degenerate", "auto", {"ao": b_ao, "image": b_image}))
+    for scene_name, flag, tracer, ref in frames:
+        ctx = cctx if scene_name == SECONDARY_SCENE else dict(bctx, radius=b_radius)
+        path, r, stats, image = ao_frame(scene_name, ctx["scene"], ctx["camera"], ctx["radius"],
+                                         tracer, {flag: True})
+        img_bad = int((image != ref["image"]).any(-1).sum())
+        unsorted = ref["ao"]._batches
+        check(len(r._batches) == len(unsorted) == stats["batches"], f"{path}: batches")
+        sizes = sum(b.rays.num for b in r._batches)
+        want_skipped = 0
+        for b, ub in zip(r._batches, unsorted):
+            live = int((ub.rays.tmax >= 0).sum())
+            if flag == "compact_degenerate":
+                want_skipped += b.rays.num - min(b.rays.num, -(-live // LIVE_PAD) * LIVE_PAD)
+                order = sort_dead_last_device(ub.rays)
+            else:
+                order = morton_sort_device_coarse(ub.rays.origin, ub.rays.dirn)
+            check(all(torch.equal(x, y[order]) for x, y in zip(b.rays, ub.rays))
+                  and torch.equal(b.slot_to_id, ub.slot_to_id[order]),
+                  f"{path}: a batch is not the unsorted batch under the card's sort")
+            check(torch.equal(b.hits.tri[b.id_to_slot.long()], ub.hits.tri[ub.id_to_slot.long()]),
+                  f"{path}: per-id hits differ from the unsorted frame's")
+        print(f"{path}: phase_s['sort'] {r.phase_s['sort'] * 1e3:.3f} ms; rays_traced "
+              f"{stats['rays_traced']}, rays_skipped {stats['rays_skipped']} (want "
+              f"{want_skipped}) of {sizes}; image pixels differing from the unsorted frame's "
+              f"{img_bad}")
+        check(img_bad == 0, f"{path}: image differs from the unsorted frame")
+        check(stats["rays_traced"] + stats["rays_skipped"] == sizes
+              and stats["rays_skipped"] == want_skipped,
+              f"{path}: traced {stats['rays_traced']} + skipped {stats['rays_skipped']} against "
+              f"{sizes} rays, want {want_skipped} skipped")
+        check(scene_name != SCENE or want_skipped > 0, f"{path}: no dead ray was skipped")
+    phase("sorted and compacted AO frames == unsorted", t0)
+
+    b1 = cctx["ao"]._batches[0]
+    orders = check_card_sort(b1.rays)
+    check_card_sort(b_ao._batches[0].rays)  # with dead rays, which conference lacks
+    fb1 = fc["ao"]._batches[0]
+    times = {}
+    cases = [(f"{kname} any-hit, AO batch 1, {oname}", k, rr.tracer_tables, rays, order)
+             for kname, k, rr, rays in (("quad", quad_k, cctx["ao"], b1.rays),
+                                        ("binary", flat_k, fc["ao"], fb1.rays))
+             for oname, order in (("identity", None), ("coarse", orders["coarse"]),
+                                  ("morton192", orders["morton192"]))]
+    permuted = {c[0]: c[3] if c[4] is None else permute_rays(c[3], c[4]) for c in cases}
+    for label, k, tables, rays, order in cases:
+        got = k(tables, permuted[label], any_hit=True)
+        want = b1.hits.tri if k is quad_k else fb1.hits.tri
+        check(torch.equal(got.tri, want if order is None else want[order]),
+              f"{label}: hits differ from the frame's under the permutation")
+    for p in (cases, cases[::-1]):
+        for label, k, tables, _, _ in p:
+            times.setdefault(label, []).extend(
+                time_ms(lambda: k(tables, permuted[label], any_hit=True), WARMUP, REPEATS))
+    for label, ms in times.items():
+        timing_line(label, ms, permuted[label], cctx["b1_live"])
+    phase("sort orders timed", t0)
+
+    # One bunny primary frame under torch.profiler: the trace holds the
+    # closest-hit kernel's launch.
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    r = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE,
+                                               profile_dir=PROFILE_DIR))
+    r.set_scene(bctx["scene"])
+    stats, image, counts, wall = render(r, bctx["camera"], quad_k, idle=flat_k)
+    path = f"{SCENE} primary frame, Renderer(tracer='auto', profile_dir=build/...)"
+    frame_line(path, r, stats, counts, wall)
+    check(counts == {"closest": 1}, f"{path} launched {counts}")
+    paths["quad_trace"][path] = counts["closest"]
+    with open(stats["profile_trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    launches = [e for e in events if e.get("cat") == "kernel" and "quad_trace_kernel" in e["name"]]
+    print(f"profile: {stats['profile_trace']} holds {len(events)} events, "
+          f"{sum(e.get('cat') == 'kernel' for e in events)} device kernels, "
+          f"{len(launches)} quad_trace_kernel launches "
+          f"({[round(e.get('dur', 0) / 1e3, 4) for e in launches]} ms)")
+    check(len(launches) == 1, "the profile trace lacks the trace kernel's launch")
+    check(bool((image == bctx["image"]).all()), "the profiled frame's image differs")
+    phase("profiled frame done", t0)
+    return paths
+
+
+def training(t0, quad_k, flat_k, bctx, dev):
+    """Phase 29: the training path on bunny's 640x480 primary rays (144,500
+    triangles, 307,200 rays).  Routing from the CUDA closest-hit kernel
+    (``Renderer(tracer="auto")``'s tracer), its own path; trace_diff with
+    it against the wavefront-routed trace_diff (disputed rays adjudicated by
+    trace_flat_scalar); the loss and gradients of one step on the card
+    against the port's CPU step; fit for TRAIN_STEPS steps, twice, and for
+    half of them + a resume from a checkpoint under build/: bit-identical,
+    the loss falling.  Returns (path, launches, ms per train step)."""
+    from tpu_rt_torch.diff import render_image_diff, trace_diff, train
+    from tpu_rt_torch.trace import device_bvh, trace_flat_scalar
+
+    scene, r = bctx["scene"], bctx["renderer"]
+    rays, flat = r.primary.rays, r.flat
+    vtx = torch.as_tensor(scene.vtx_pos, device=dev)
+    tvi = torch.as_tensor(scene.tri_vtx_index, device=dev)
+    mat_true = torch.as_tensor(scene.tri_material, device=dev)
+    rng = np.random.default_rng(TRAIN_SEED)
+    mat0 = torch.as_tensor(scene.tri_material + 0.3 * rng.normal(
+        size=scene.tri_material.shape).astype(np.float32), device=dev)
+    path = f"{SCENE} training, routing by Renderer(tracer='auto')'s tracer"
+
+    quad_k.reset_counts()
+    flat_k.reset_counts()
+    raw = r.routing(r.tracer_tables, rays)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in quad_k.launches_by_form.items() if v}
+    check(counts == {"closest": 1} and flat_k.launches == 0, f"{path} launched {counts}")
+
+    # trace_diff routed by the kernel against routed by the wavefront.
+    dflat = device_bvh(flat, dev)
+    t1 = time.perf_counter()
+    h_w = trace_diff(False, dflat, rays, vtx, tvi)
+    torch.cuda.synchronize()
+    w_s = time.perf_counter() - t1
+    h_k = trace_diff(False, dflat, rays, vtx, tvi, raw)
+    same = h_k.tri == h_w.tri
+    ids = torch.nonzero(~same).flatten().cpu().numpy()
+    wrong = 0
+    if ids.size:
+        # bench.py's rules, as in phase 13: each side may differ from the
+        # oracle only at an fp tie or an edge graze (the oracle's, or its
+        # own u, v from the recompute).
+        s_id, s_t, s_u, s_v = trace_flat_scalar(flat, *(x.cpu().numpy()[ids] for x in rays))
+        margin = np.minimum(np.minimum(s_u, s_v), 1.0 - s_u - s_v)
+        for side, h in (("kernel", h_k), ("wavefront", h_w)):
+            tri, t, u, v = (x.detach().cpu().numpy()[ids] for x in h)
+            own = np.minimum(np.minimum(u, v), 1.0 - u - v)
+            exact = tri == s_id
+            tie = ~exact & np.isclose(t, s_t, rtol=2e-4, atol=1e-5)
+            graze = ~exact & ~tie & (((s_id >= 0) & (margin < 1e-3)) | ((tri >= 0) & (own < 1e-3)))
+            wrong += int((~exact & ~tie & ~graze).sum())
+            for i in range(ids.size):
+                print(f"  disputed ray {ids[i]}: {side} tri {tri[i]} t {t[i]} u {u[i]} v {v[i]}; "
+                      f"oracle tri {s_id[i]} t {s_t[i]} u {s_u[i]} v {s_v[i]}; "
+                      f"{'exact' if exact[i] else 'tie' if tie[i] else 'graze' if graze[i] else 'WRONG'}")
+    t_bad = sum(bits_differ(a[same], b[same]) for a, b in zip(h_k[1:], h_w[1:]))
+    print(f"trace_diff on {rays.num} rays: kernel routing vs wavefront routing ({w_s:.3f} s): tri "
+          f"differs on {ids.size} rays (wrong after oracle adjudication {wrong}); t, u, v bit "
+          f"mismatches where tri is equal {t_bad}; hit fraction "
+          f"{float((h_k.tri >= 0).float().mean()):.4f}")
+    check(wrong == 0 and t_bad == 0, "trace_diff differs between kernel and wavefront routing")
+    check(bool((h_k.tri == r.primary.hits.tri).all()), "routing differs from the frame's hits")
+    target = render_image_diff(None, rays, vtx, tvi, mat_true, raw)
+    phase("trace_diff kernel-routed == wavefront-routed", t0)
+
+    # One step's loss and gradients: the card against the port's CPU step.
+    def step(device):
+        def to(x):
+            return x.detach().to(device)
+
+        vp, mat = to(vtx).clone().requires_grad_(True), to(mat0).clone().requires_grad_(True)
+        rgb = render_image_diff(None, type(rays)(*map(to, rays)), vp, to(tvi), mat,
+                                type(raw)(*map(to, raw)))
+        loss = torch.mean((rgb - to(target)) ** 2)
+        loss.backward()
+        return [x.detach().cpu().numpy() for x in (loss, vp.grad, mat.grad)]
+
+    card, host = step(dev), step("cpu")
+    errs = [float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+            for a, b in zip(card, host)]
+    ok = (np.allclose(card[0], host[0], rtol=1e-6, atol=0)
+          and all(np.allclose(a, b, rtol=1e-4, atol=1e-5 * float(np.abs(b).max()))
+                  for a, b in zip(card[1:], host[1:])))
+    print(f"one step, card vs CPU: loss {float(card[0])} / {float(host[0])}; largest deviation "
+          f"over the largest |value| (loss, vtx grad, material grad) {errs} (tolerance: loss "
+          "rtol 1e-6; grads rtol 1e-4, atol 1e-5 x max |grad|)")
+    check(ok, "the card's step differs from the CPU step")
+
+    # fit: uninterrupted twice, and half + resume.
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    args = (None, rays, tvi, target, vtx, mat0)
+    kw = {"lr": TRAIN_LR, "raw": raw, "device": dev}
+    t1 = time.perf_counter()
+    s_full, l_full = train.fit(*args, steps=TRAIN_STEPS, **kw)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    s_again, l_again = train.fit(*args, steps=TRAIN_STEPS, **kw)
+    s_a, l_a = train.fit(*args, steps=TRAIN_STEPS // 2, ckpt_dir=CKPT_DIR, **kw)
+    s_b, l_b = train.fit(*args, steps=TRAIN_STEPS, ckpt_dir=CKPT_DIR, **kw)
+    kept = sorted(os.listdir(CKPT_DIR))
+
+    def same_state(a, b):
+        return (a.step == b.step and torch.equal(a.vtx_pos, b.vtx_pos)
+                and torch.equal(a.tri_material, b.tri_material)
+                and all(torch.equal(a.opt_state[k][n], b.opt_state[k][n])
+                        for k in b.opt_state for n in b.opt_state[k]))
+
+    print(f"fit {TRAIN_STEPS} steps (lr {TRAIN_LR}): losses {l_full} ({fit_s:.3f} s); repeat "
+          f"{l_again}; {len(l_a)} + resume {len(l_b)}: {l_a + l_b}; checkpoints {kept}")
+    check(same_state(s_again, s_full) and l_again == l_full, "two fits differ")
+    check(same_state(s_b, s_full) and l_a + l_b == l_full, "the resumed fit differs")
+    check(l_full[-1] < l_full[0], "the loss did not fall")
+    check(not torch.are_deterministic_algorithms_enabled(), "deterministic mode left on")
+
+    state = train.init_state(vtx, mat0, TRAIN_LR, dev)
+    state, _ = train.train_step(state, None, rays, tvi, target, TRAIN_LR, raw)
+    torch.cuda.synchronize()
+    t1, n = time.perf_counter(), 5
+    for _ in range(n):
+        state, loss = train.train_step(state, None, rays, tvi, target, TRAIN_LR, raw)
+    float(loss)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / n * 1e3
+    # Where a step's time goes: one step under torch.profiler.
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state, loss = train.train_step(state, None, rays, tvi, target, TRAIN_LR, raw)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    print(f"train step on {rays.num} rays, {scene.num_triangles} triangles: {step_ms:.3f} ms "
+          f"(host clock over {n} steps, synchronized); one profiled step: device kernels "
+          f"{sum(by_kernel.values()):.3f} ms; by kernel: "
+          + "; ".join(f"{name[:72]} {ms:.3f} ms" for name, ms in top))
+    phase("training path done", t0)
+    return path, counts["closest"], step_ms
+
+
 # The probes are built with -fmad=false, so each f32 operation they count
 # is an instruction of its own: one per lane per clock, half of the 67
 # TFLOP/s peak, which counts a fused multiply-add as two.
@@ -2349,6 +2691,9 @@ def main() -> None:
     mp_runs, _ = mosaic_phase(t0, dev)
     p_entries = probe_entries(ab_runs, mp_runs)
     ab = design_ab(t0, kernel, flat_k, bctx, fb, cctx, fc, fctx)
+    new_paths = secondary_sort(t0, kernel, flat_k, bctx, cctx, fc)
+    train_path, train_launches, _ = training(t0, kernel, flat_k, bctx, dev)
+    new_paths["quad_trace"][train_path] = train_launches
     # The tensor-core frame forms' first versions, from the same A/B.
     for e in t_entries:
         if e["name"] in ("flat_trace_mxu", "flat_trace_mxu_anyhit"):
@@ -2400,6 +2745,7 @@ def main() -> None:
     print(json.dumps({"kernels": [{
         "name": "quad_trace",
         "route": "cuda",
+        "paths": new_paths["quad_trace"],
         "source": quad_src,
         "replaces": PACKET2,
         "path": closest["path"],
@@ -2412,6 +2758,7 @@ def main() -> None:
     }, {
         "name": "quad_trace_anyhit",
         "route": "cuda",
+        "paths": new_paths["quad_trace_anyhit"],
         "source": quad_src,
         "replaces": f"{PACKET2} (any_hit=True, :552-567, :881-883)",
         **anyhit,
@@ -2421,6 +2768,7 @@ def main() -> None:
     }, *form_entries("quad", quad_src, "quad_trace"), {
         "name": "flat_trace",
         "route": "cuda",
+        "paths": new_paths["flat_trace"],
         "source": flat_src,
         "replaces": f"{PACKET2} (binary f32 node unit :704-770, via trace_packet2 :1052)",
         "path": f_closest["path"],
@@ -2433,6 +2781,7 @@ def main() -> None:
     }, {
         "name": "flat_trace_anyhit",
         "route": "cuda",
+        "paths": new_paths["flat_trace_anyhit"],
         "source": flat_src,
         "replaces": f"{PACKET2} (binary node unit :704-770, any_hit=True :552-567, :881-883)",
         **f_anyhit,

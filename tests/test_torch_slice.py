@@ -194,10 +194,19 @@ def test_empty_scene_frame_is_background(ray_type):
 
 def test_secondary_ray_types_not_ported():
     # The secondary-ray sort and dead-ray compaction (rays/buffer.py) are
-    # not ported; they raise instead of being ignored.
-    for flag in ("sort_secondary", "compact_degenerate"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PRenderer(8, 8, PParams(ray_type="ao", **{flag: True}, device="cpu"))
+    # ported: each renders the unsorted frame's image (tests/test_torch_
+    # buffer.py holds them to tpu_rt's); unknown ray types and tracers raise.
+    scene = PScene(p_proc.make_blob(200, seed=3))
+    images = []
+    for flags in ({}, {"sort_secondary": True}, {"compact_degenerate": True}):
+        r = PRenderer(8, 8, PParams(ray_type="ao", num_samples=2, ao_radius=0.5, cache_dir=None,
+                                    device="cpu", **flags))
+        r.set_scene(scene)
+        stats = r.render_frame(p_suite_camera("bunny", scene))
+        assert stats["rays_traced"] + stats["rays_skipped"] == 128
+        images.append(r.update_result())
+    np.testing.assert_array_equal(images[1], images[0])
+    np.testing.assert_array_equal(images[2], images[0])
     with pytest.raises(ValueError):
         PRenderer(8, 8, PParams(ray_type="shadow", device="cpu"))
     with pytest.raises(ValueError, match="tracer"):
@@ -259,6 +268,7 @@ def test_route_secondary_frame_matches_tpu_rt(route_frames, ray_type):
 def test_port_imports_no_jax():
     code = textwrap.dedent("""
         import sys
+        import torch
         import tpu_rt_torch
         from tpu_rt_torch.renderer import Renderer, RendererParams
         from tpu_rt_torch.scene import Camera, procedural
@@ -277,13 +287,25 @@ def test_port_imports_no_jax():
         import tpu_rt_torch.trace.flat_kernel, tpu_rt_torch.trace.wavefront
         import tpu_rt_torch.probes.mxu_ablate, tpu_rt_torch.native
         import tpu_rt_torch.probes.ablate2, tpu_rt_torch.probes.mosaic_probe3
+        import tpu_rt_torch.rays, tpu_rt_torch.diff, tpu_rt_torch.diff.train
+        import tpu_rt_torch.debug, tpu_rt_torch.debug.dumps, tpu_rt_torch.core.intersect
+        from tpu_rt_torch.diff.train import fit
+        sr = Renderer(16, 12, RendererParams(ray_type="ao", num_samples=2, ao_radius=0.5,
+                                             cache_dir=None, device="cpu",
+                                             compact_degenerate=True))
+        sr.set_scene(r.scene)
+        assert sr.render_frame(Camera.for_bbox(*r.scene.bbox()))["rays_skipped"] >= 0
+        rays = r.primary.rays
+        state, losses = fit(r.flat, rays, r.scene.tri_vtx_index, torch.zeros(rays.num, 3),
+                            r.scene.vtx_pos, r.scene.tri_material, steps=2, device="cpu")
+        assert state.step == 2 and len(losses) == 2
         for tracer in ("packet", "xla"):
             rr = Renderer(16, 12, RendererParams(ray_type="ao", num_samples=2, ao_radius=0.5,
                                                  cache_dir=None, tracer=tracer, device="cpu"))
             rr.set_scene(r.scene)
             assert rr.render_frame(Camera.for_bbox(*r.scene.bbox()))["total_rays"] > 0
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_rt"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_rt", "optax", "orbax"))
         print("BAD", bad)
         sys.exit(1 if bad else 0)
     """)
@@ -291,3 +313,21 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_profile_dir_writes_chrome_trace(tmp_path):
+    # RendererParams.profile_dir: render_frame runs under torch.profiler and
+    # writes a Chrome trace there; off by default.
+    import json
+
+    scene = PScene(p_proc.make_blob(200, seed=3))
+    r = PRenderer(8, 6, PParams(cache_dir=None, device="cpu", profile_dir=str(tmp_path / "prof")))
+    r.set_scene(scene)
+    stats = r.render_frame(p_suite_camera("bunny", scene))
+    path = stats["profile_trace"]
+    assert os.path.dirname(path) == str(tmp_path / "prof") and os.path.isfile(path)
+    events = json.load(open(path))["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    r2 = PRenderer(8, 6, PParams(cache_dir=None, device="cpu"))
+    r2.set_scene(scene)
+    assert r2.render_frame(p_suite_camera("bunny", scene))["profile_trace"] is None

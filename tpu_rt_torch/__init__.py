@@ -4,7 +4,8 @@ The JAX package ``tpu_rt`` beside it is the reference.  This package imports
 torch and numpy, never JAX or ``tpu_rt``, and mirrors ``tpu_rt``'s layout
 so the counterpart of every module is easy to find:
 
-    core/    SoA Rays/Hits (torch), host math + hashing
+    core/    SoA Rays/Hits (torch), host math + hashing, host intersection
+             primitives
     scene/   meshes, Scene flattening, camera (+ signature codec), Morton
              pixel table, procedural test scenes
     bench/   reference-calibrated workload (suite cameras, AO radii)
@@ -16,7 +17,11 @@ so the counterpart of every module is easy to find:
              optional u, v and per-ray counters: CUDA kernels
              (csrc/quad_trace.cu, csrc/flat_trace.cu) and their plain
              PyTorch versions; the wavefront tracer; the host oracles
+    rays/    RayBuffer and the device Morton sorts of secondary batches
     shade/   image reconstruction
+    diff/    differentiable trace and shading (torch autograd), the training
+             loop with checkpoint / resume
+    debug/   golden hex-word and ray dumps
     renderer.py  the frame orchestrator
 
 Device work takes an explicit ``device``.  What is not ported yet is listed

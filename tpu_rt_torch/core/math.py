@@ -6,6 +6,8 @@ Counterpart of the numpy paths of ``tpu_rt.core.math``, bit-for-bit:
 - Sobol 2D + Hammersley       (RayGenKernels.cu:49-75, the shadow path)
 - ABGR8 color pack            (src/framework/base/Math.cc:45-52)
 - float<->bits                (Math.hh floatToBits/bitsToFloat)
+- 192-bit ray Morton keys     (RayBufferKernels.cu:66-179), the host oracle
+                              of the device sort (rays/buffer.py)
 - the Morton pixel swizzle    (src/rt/ray/PixelTable.cc:70-161)
 """
 
@@ -132,6 +134,61 @@ def to_abgr(rgba: np.ndarray) -> np.ndarray:
     with np.errstate(over="ignore"):
         ch = ((((fixed * np.uint64(255)) >> np.uint64(55)) + np.uint64(1)) >> np.uint64(1)).astype(np.uint32)
     return (ch[..., 0] | (ch[..., 1] << 8) | (ch[..., 2] << 16) | (ch[..., 3] << 24)).astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# 192-bit ray Morton keys (coherence sort)
+# ---------------------------------------------------------------------------
+
+def ray_morton_keys(origin: np.ndarray, dirn: np.ndarray, aabb_lo, aabb_hi) -> np.ndarray:
+    """Per-ray 192-bit Morton keys as [N, 6] uint32, matching the stride-6
+    interleave of genMortonKeysKernel (RayBufferKernels.cu:66-179):
+
+    6 quantized streams — origin xyz at 24 bits (scaled into the batch AABB),
+    direction xyz at 21 bits (normalized to [0,1]) — bit j of stream d lands
+    at global bit position j*6 + d of the 192-bit key.
+
+    Keys compare most-significant-word-last (hash[5] down to hash[0],
+    reference RayBuffer.cc:237-249); sort with np.lexsort(keys.T).
+    """
+    origin = np.asarray(origin, np.float32)
+    dirn = np.asarray(dirn, np.float32)
+    lo = np.asarray(aabb_lo, np.float32)
+    hi = np.asarray(aabb_hi, np.float32)
+    extent = np.where(hi - lo > 0, hi - lo, 1.0)
+    a = (origin - lo) / extent
+    n = dirn / np.maximum(np.linalg.norm(dirn, axis=-1, keepdims=True), 1e-30)
+    b = (n + 1.0) * 0.5
+
+    streams = np.empty((origin.shape[0], 6), np.uint32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        streams[:, 0] = (a[:, 0].astype(np.float64) * 256.0 * 65536.0).astype(np.int64).astype(np.uint32)
+        streams[:, 1] = (a[:, 1].astype(np.float64) * 256.0 * 65536.0).astype(np.int64).astype(np.uint32)
+        streams[:, 2] = (a[:, 2].astype(np.float64) * 256.0 * 65536.0).astype(np.int64).astype(np.uint32)
+        streams[:, 3] = (b[:, 0].astype(np.float64) * 32.0 * 65536.0).astype(np.int64).astype(np.uint32)
+        streams[:, 4] = (b[:, 1].astype(np.float64) * 32.0 * 65536.0).astype(np.int64).astype(np.uint32)
+        streams[:, 5] = (b[:, 2].astype(np.float64) * 32.0 * 65536.0).astype(np.int64).astype(np.uint32)
+
+    keys = np.zeros((origin.shape[0], 6), np.uint32)
+    for d in range(6):
+        v = streams[:, d]
+        for i in range(32):
+            pos = d + i * 6
+            if pos >= 192:
+                break
+            word, bit = pos >> 5, pos & 31
+            keys[:, word] |= ((v >> np.uint32(i)) & np.uint32(1)) << np.uint32(bit)
+    return keys
+
+
+def morton_sort_order(origin: np.ndarray, dirn: np.ndarray) -> np.ndarray:
+    """Permutation that sorts rays by their 192-bit Morton key (host)."""
+    lo = origin.min(axis=0)
+    hi = origin.max(axis=0)
+    keys = ray_morton_keys(origin, dirn, lo, hi)
+    # np.lexsort sorts by the LAST key first; reference compares hash[5]
+    # first, so feed columns in order 0..5.
+    return np.lexsort(tuple(keys[:, i] for i in range(6)))
 
 
 # ---------------------------------------------------------------------------

@@ -10,14 +10,17 @@ recorded around each trace call and summed over the batches; on the CPU
 the seed is explicit and batch results are kept on the device until one
 reconstruction over the frame.  ``RendererParams.tracer`` picks the route
 (``tpu_rt_torch.trace.make_routing_tracer``): the 4-wide or the binary
-traversal kernel, or the wavefront tracer (``"xla"``).  The secondary-ray
-sort and the dead-ray compaction (``sort_secondary``,
-``compact_degenerate``) need ``rays/buffer.py``, which is not ported yet
-(ROADMAP.md).
+traversal kernel, or the wavefront tracer (``"xla"``).  Secondary batches
+can be Morton-sorted (``sort_secondary``, the 30-bit coarse key) or sorted
+dead-last with only the live prefix traced (``compact_degenerate``), on the
+device (``tpu_rt_torch.rays.buffer``); the sort's time goes to
+``phase_s["sort"]``, never to the trace time.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass
 
@@ -28,6 +31,13 @@ from tpu_rt_torch.bvh import BuildParams, Platform, load_or_build_bvh
 from tpu_rt_torch.core.math import to_abgr
 from tpu_rt_torch.core.types import Hits, Rays
 from tpu_rt_torch.raygen import RayGen
+from tpu_rt_torch.rays.buffer import (
+    inverse_permutation,
+    morton_sort_device_coarse,
+    permute_rays,
+    sort_dead_last_device,
+    trace_live_prefix,
+)
 from tpu_rt_torch.scene import Camera, Scene
 from tpu_rt_torch.shade import count_hits, reconstruct_image
 from tpu_rt_torch.trace import TRACERS, check_cursors, make_routing_tracer
@@ -42,8 +52,13 @@ class RendererParams:
     ray_type: str = "primary"
     ao_radius: float = 5.0
     num_samples: int = 8
-    # Not ported (rays/buffer.py): True raises NotImplementedError.
+    # Off by default, as in tpu_rt (the reference's committed benchmark
+    # forces sortSecondary off, App.cc:157): Morton-sort each secondary
+    # batch by the coarse 30-bit origin key before it is traced.
     sort_secondary: bool = False
+    # Sort degenerate (primary-miss, tmax < 0) rays to the end of each
+    # secondary batch and trace only the live prefix (rays/buffer.py
+    # sort_dead_last_device / trace_live_prefix); implies the sort.
     compact_degenerate: bool = False
     # Output rays per secondary batch (Renderer.cc:46).
     max_batch: int = 1 << 21
@@ -62,6 +77,9 @@ class RendererParams:
     # a ray holds before it drains them (1..4; make_routing_tracer).
     mxu: bool = False
     cursors: int = 1
+    # Directory for a torch.profiler trace of each render_frame, exported as
+    # a Chrome trace (None = off).
+    profile_dir: str | None = None
 
 
 @dataclass
@@ -86,10 +104,6 @@ class Renderer:
         check_cursors(p.cursors)
         if p.mxu and p.tracer != "packet":
             raise ValueError(f"mxu=True needs tracer='packet', not {p.tracer!r}")
-        if p.sort_secondary or p.compact_degenerate:
-            raise NotImplementedError(
-                "sort_secondary / compact_degenerate need rays/buffer.py, which is not "
-                "ported to tpu_rt_torch yet (ROADMAP.md)")
         self.device = torch.device(p.device)
         self.platform = Platform.gpu()
         self.build_params = BuildParams()
@@ -99,6 +113,7 @@ class Renderer:
         self.bvh_stats = None
         self.trace_time_s = 0.0
         self.rays_traced = 0
+        self.rays_skipped = 0
         self.batch_trace_s: list[float] = []
         self.setup_s = 0.0
 
@@ -150,6 +165,7 @@ class Renderer:
                                    input_range=(0, rays.num))
         self.trace_time_s = 0.0
         self.rays_traced = 0
+        self.rays_skipped = 0
         self.batch_trace_s = []
         if self.params.ray_type != "primary":
             # Not part of the metric (Renderer.cc: the primary pre-trace of
@@ -157,6 +173,7 @@ class Renderer:
             self.primary.hits = self._timed_trace(rays, any_hit=False, count=False)
         self._new_batch = True
         self._batch: BatchRecord | None = None
+        self._batch_live: int | None = None
         self._batches: list[BatchRecord] = []
 
     def _timed_trace(self, rays: Rays, any_hit: bool, count: bool = True) -> Hits:
@@ -212,6 +229,22 @@ class Renderer:
             self._batch = None
             return False
         rays, s2i, i2s, rng = out
+        self._batch_live = None
+        if p.sort_secondary or p.compact_degenerate:
+            # Keys, sort and permutation on the device; the ID<->slot maps
+            # are permuted there too.  compact_degenerate takes the
+            # dead-last 192-bit sort; sort_secondary alone the coarse key.
+            t0 = time.perf_counter()
+            if p.compact_degenerate:
+                order = sort_dead_last_device(rays)
+                self._batch_live = int((rays.tmax >= 0).sum())
+            else:
+                order = morton_sort_device_coarse(rays.origin, rays.dirn)
+            rays = permute_rays(rays, order)
+            s2i = s2i[order]
+            i2s = inverse_permutation(order)[i2s.long()]
+            self._sync()
+            self.phase_s["sort"] += time.perf_counter() - t0
         self._batch = BatchRecord(rays=rays, hits=None, slot_to_id=s2i, id_to_slot=i2s,
                                   input_range=rng)
         self._batches.append(self._batch)
@@ -224,7 +257,16 @@ class Renderer:
             raise RuntimeError("next_batch() first")
         t0 = self.trace_time_s
         any_hit = self.params.ray_type == "ao"
-        self._batch.hits = self._timed_trace(self._batch.rays, any_hit=any_hit)
+        rays = self._batch.rays
+        if self._batch_live is None:
+            self._batch.hits = self._timed_trace(rays, any_hit=any_hit)
+        else:
+            # Only the live prefix is traced (and timed, and counted); the
+            # dead suffix is counted as skipped.
+            traced = self.rays_traced
+            self._batch.hits = trace_live_prefix(
+                lambda r: self._timed_trace(r, any_hit=any_hit), rays, self._batch_live)
+            self.rays_skipped += rays.num - (self.rays_traced - traced)
         return self.trace_time_s - t0
 
     def render_frame(self, camera: Camera) -> dict:
@@ -236,16 +278,37 @@ class Renderer:
         misses (App.cc:188-204 with Renderer.cc:221-238).  The denominator
         is the kernel-only trace time summed over the batches.  ``timer``
         says which clock timed the trace: "cuda_event" on a CUDA device,
-        "host" on the CPU."""
-        self.begin_frame(camera)
-        total_rays = self.get_total_num_rays()
-        while self.next_batch():
-            self.trace_batch()
+        "host" on the CPU.  ``rays_skipped`` counts the dead rays of
+        ``compact_degenerate`` batches that were not traced.
+
+        With ``RendererParams.profile_dir`` the frame runs under
+        ``torch.profiler`` (CPU, and CUDA on a CUDA device), and the trace
+        is written there as a Chrome trace, ``profile_trace`` its path."""
+        profile_dir = self.params.profile_dir
+        prof = contextlib.nullcontext()
+        if profile_dir:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=activities)
+        with prof:
+            self.begin_frame(camera)
+            total_rays = self.get_total_num_rays()
+            while self.next_batch():
+                self.trace_batch()
+            self._sync()
+        trace_path = None
+        if profile_dir:
+            os.makedirs(profile_dir, exist_ok=True)
+            trace_path = os.path.join(profile_dir,
+                                      f"render_frame_{time.time_ns()}.pt.trace.json")
+            prof.export_chrome_trace(trace_path)
         mrays_per_s = (total_rays / (self.trace_time_s * 1e6)
                        if self.trace_time_s > 0 else float("inf"))
         return {
             "total_rays": total_rays,
             "rays_traced": self.rays_traced,
+            "rays_skipped": self.rays_skipped,
             "batches": len(self._batches),
             "batch_trace_s": list(self.batch_trace_s),
             "trace_time_s": self.trace_time_s,
@@ -254,6 +317,7 @@ class Renderer:
             "tracer": self.active_tracer,
             "device": str(self.device),
             "timer": "cuda_event" if self.device.type == "cuda" else "host",
+            "profile_trace": trace_path,
         }
 
     # -- reconstruction ------------------------------------------------------
