@@ -139,6 +139,18 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      and gradients on the card against the port's CPU step; ``fit`` for 6
      steps twice and for 3 + a resume of 3 from a checkpoint under
      ``build/``, bit-identical, the loss falling; ms per train step.
+30.  the sharded ray path (``tpu_rt_torch.dist``) on bunny's primary rays
+     with the frames' tables: (a) an NCCL world of 1 in this process
+     (``init_multihost`` over a file store under ``build/``), (b) a gloo
+     world of 2, both ranks on the one card, each this script run again
+     with ``--dist-worker``.  On each rank: ``trace_sharded`` through
+     ``"auto"`` (closest and any hit) and ``"packet"``, hits bit-equal to
+     its block of the unsharded kernels' hits on every ray;
+     ``grad_step_sharded`` against the unsharded step (loss rtol 1e-5,
+     gradients rtol 1e-4 / atol 1e-7); ``collective_audit`` no collective
+     forward and three all-reduces in the step; ``measure_scaling`` (in (b)
+     two processes sharing a card, not scaling); ms per sharded step; in
+     (b) ``dryrun_multichip``.  A rank that fails or times out fails the run.
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
@@ -162,7 +174,8 @@ forms' entries carry ``first_ms``, their first version's time, and their
 carry ``first_ms`` and ``ab_ms`` (the designs in phase 27) and their
 ``launch_shape``.  No single PyTorch call computes a BVH traversal or a
 probe, so ``library_ms`` is null.  The four default frame forms' entries
-also carry ``paths``: the launches of phases 28-29's paths, by path name.
+also carry ``paths``: the launches of phases 28-30's paths, by path name
+(phase 30b's summed over its ranks).
 """
 
 from __future__ import annotations
@@ -2527,6 +2540,259 @@ def training(t0, quad_k, flat_k, bctx, dev):
     return path, counts["closest"], step_ms
 
 
+# Phase 30: the sharded ray path.  NCCL takes one card per rank, so on one
+# card it runs a world of 1; a world of DIST_WORLD runs over gloo, every rank
+# on cuda:0 (processes sharing the card: its rates are not scaling).
+DIST_DIR = os.path.join(BUILD, "chip_smoke_dist")
+DIST_WORLD, DIST_TIMEOUT, STEP_REPEATS = 2, 300, 5
+
+
+def unsharded_step(rays, vtx, tvi, mat, target, raw):
+    """The loss and gradients of one unsharded step (mean L2 loss, kernel
+    routing ``raw``), the backward deterministic as in train_step."""
+    from tpu_rt_torch.diff import render_image_diff
+    from tpu_rt_torch.diff.train import _deterministic
+
+    vp, m = vtx.clone().requires_grad_(True), mat.clone().requires_grad_(True)
+    loss = torch.mean((render_image_diff(None, rays, vp, tvi, m, raw) - target) ** 2)
+    with _deterministic():
+        loss.backward()
+    return [x.detach().cpu().numpy() for x in (loss, vp.grad, m.grad)]
+
+
+def step_agrees(got, want) -> tuple[bool, list[float]]:
+    """The sharded step against the unsharded one at the dry run's
+    tolerances: loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-7 (NaN equal
+    to NaN, as in numpy's assert_allclose).  Returns (ok, each part's
+    largest deviation over its largest |value|)."""
+    ok = (np.allclose(got[0], want[0], rtol=1e-5, atol=0, equal_nan=True)
+          and all(np.allclose(a, b, rtol=1e-4, atol=1e-7, equal_nan=True)
+                  for a, b in zip(got[1:], want[1:])))
+    errs = [float(np.nanmax(np.abs(a - b)) / max(float(np.nanmax(np.abs(b))), 1e-30))
+            for a, b in zip(got, want)]
+    return ok, errs
+
+
+def sharded_runs(mesh, rays, geom, routes, scaling_modes):
+    """Phase 30's path on one rank, launch counts set to 0 just before it
+    and read just after: trace_sharded through both routes ("auto" closest
+    and any hit, "packet" closest), grad_step_sharded and collective_audit
+    with "auto" routing, measure_scaling in each mode.  Returns (hits,
+    step, audit, scaling, launches by kernel entry, ms per step timed after
+    the counted run)."""
+    import torch.distributed as dist
+
+    from tpu_rt_torch.dist import (collective_audit, grad_step_sharded, measure_scaling,
+                                   shard_rays, trace_sharded)
+    from tpu_rt_torch.dist.sharding import shard_rows
+    from tpu_rt_torch.trace import flat_kernel, quad_kernel
+
+    vtx, tvi, mat, target = geom
+    srays, starget = shard_rays(rays, mesh), shard_rows(target, mesh)
+    (fn, tables), (ffn, ftables) = routes["auto"], routes["packet"]
+    quad_k, flat_k = quad_kernel.KERNEL, flat_kernel.KERNEL
+    quad_k.reset_counts()
+    flat_k.reset_counts()
+    hits = {"auto": trace_sharded(None, srays, mesh, routing=fn, tables=tables),
+            "auto_any": trace_sharded(None, srays, mesh, any_hit=True, routing=fn, tables=tables),
+            "packet": trace_sharded(None, srays, mesh, routing=ffn, tables=ftables)}
+    step = grad_step_sharded(mesh, None, srays, vtx, tvi, mat, starget, routing=fn,
+                             tables=tables)
+    audit = collective_audit(mesh, None, srays, vtx, tvi, mat, starget, routing=fn,
+                             tables=tables)
+    scaling = {mode: measure_scaling(None, rays, routing=fn, tables=tables, repeats=REPEATS,
+                                     warmup=WARMUP, mode=mode, mesh=mesh)
+               for mode in scaling_modes}
+    torch.cuda.synchronize()
+    launches = {"quad_trace": quad_k.launches_by_form["closest"],
+                "quad_trace_anyhit": quad_k.launches_by_form["any"],
+                "flat_trace": flat_k.launches_by_form["closest"]}
+    check(quad_k.launches == launches["quad_trace"] + launches["quad_trace_anyhit"]
+          and flat_k.launches == launches["flat_trace"],
+          f"the sharded path launched other forms: {quad_k.launches_by_form} "
+          f"{flat_k.launches_by_form}")
+    # ms per sharded step: host clock over STEP_REPEATS steps between
+    # synchronizations and barriers, after the counted run.
+    dist.barrier(group=mesh.group)
+    t1 = time.perf_counter()
+    for _ in range(STEP_REPEATS):
+        grad_step_sharded(mesh, None, srays, vtx, tvi, mat, starget, routing=fn, tables=tables)
+    torch.cuda.synchronize()
+    dist.barrier(group=mesh.group)
+    step_ms = (time.perf_counter() - t1) / STEP_REPEATS * 1e3
+    step = [x.detach().cpu().numpy() for x in step]
+    return hits, step, audit, scaling, launches, step_ms
+
+
+def sharded_checks(mesh, hits, want, step, want_step, audit, what):
+    """Each route's hits bit-equal to this rank's block of the unsharded
+    kernel hits (tri and t), the step within the dry run's tolerances, the
+    audit {} forward and three all-reduces in the step."""
+    n = hits["auto"].tri.shape[0]
+    block = slice(mesh.rank * n, (mesh.rank + 1) * n)
+    bad = {}
+    for route, h in hits.items():
+        tri, t = want[route]
+        bad[route] = (int((h.tri.cpu().numpy() != tri[block]).sum()),
+                      np_bits_differ(h.t.cpu().numpy(), t[block]))
+    ok, errs = step_agrees(step, want_step)
+    print(f"{what}: rank {mesh.rank} of {mesh.size} on {mesh.device}, rays {block.start}-"
+          f"{block.stop - 1}: tri / t bit mismatches against the unsharded kernels' hits "
+          f"{bad}; grad step loss {float(step[0])} (unsharded {float(want_step[0])}), largest "
+          f"deviation over the largest |value| (loss, vtx grad, material grad) {errs} "
+          "(tolerance: loss rtol 1e-5, grads rtol 1e-4 / atol 1e-7); audit "
+          f"{json.dumps(audit)}")
+    check(all(v == (0, 0) for v in bad.values()), f"{what}: hits differ from unsharded: {bad}")
+    check(ok, f"{what}: the sharded step differs from the unsharded step")
+    check(audit == {"n_devices": mesh.size, "forward": {}, "grad_step": {"all_reduce": 3}},
+          f"{what}: collective audit {audit}")
+
+
+def sharded(t0, quad_k, flat_k, bctx, fb, dev):
+    """Phase 30: the sharded ray path on bunny's 640x480 primary rays with
+    the frames' tables (phases 2-5 "auto", phase 10 "packet").  (a) an NCCL
+    world of 1 in this process, over a file store under build/; (b) a gloo
+    world of DIST_WORLD, each rank this script run again with --dist-worker
+    on cuda:0.  Each rank's hits must be bit-equal to its block of the
+    unsharded kernel hits, its grad step agree with the unsharded step, the
+    audit count no forward collective and three all-reduces; (b) also runs
+    dryrun_multichip.  Returns {kernel entry: {path: launches}}."""
+    import torch.distributed as dist
+
+    from tpu_rt_torch.diff import render_image_diff
+    from tpu_rt_torch.dist import init_multihost, make_ray_mesh
+
+    r, rf, scene = bctx["renderer"], fb["renderer"], bctx["scene"]
+    rays = r.primary.rays
+    routes = {"auto": (r.routing, r.tracer_tables), "packet": (rf.routing, rf.tracer_tables)}
+    vtx = torch.as_tensor(scene.vtx_pos, device=dev)
+    tvi = torch.as_tensor(scene.tri_vtx_index, device=dev)
+    rng = np.random.default_rng(TRAIN_SEED)
+    mat0 = torch.as_tensor(scene.tri_material + 0.3 * rng.normal(
+        size=scene.tri_material.shape).astype(np.float32), device=dev)
+    # The unsharded references, before the counted runs: the frames' hits
+    # and the any-hit form on the same rays.
+    raw = r.primary.hits
+    target = render_image_diff(None, rays, vtx, tvi, torch.as_tensor(scene.tri_material,
+                                                                     device=dev), raw).detach()
+    want = {k: (h.tri.cpu().numpy(), h.t.cpu().numpy()) for k, h in (
+        ("auto", raw), ("packet", rf.primary.hits),
+        ("auto_any", r.routing(r.tracer_tables, rays, True)))}
+    want_step = unsharded_step(rays, vtx, tvi, mat0, target, raw)
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    paths = {"quad_trace": {}, "quad_trace_anyhit": {}, "flat_trace": {}}
+    what = (f"{SCENE} primary rays, trace_sharded / grad_step_sharded / collective_audit / "
+            "measure_scaling")
+
+    # (a) NCCL, a world of 1.
+    t1 = time.perf_counter()
+    check(init_multihost(num_processes=1, process_id=0, backend="nccl",
+                         init_method=f"file://{DIST_DIR}/nccl_store") == 1, "NCCL world size")
+    mesh = make_ray_mesh(dev)
+    try:
+        hits, step, audit, scaling, launches, step_ms = sharded_runs(
+            mesh, rays, (vtx, tvi, mat0, target), routes, ("strong", "weak"))
+        sharded_checks(mesh, hits, want, step, want_step, audit, "NCCL world of 1")
+        print(f"grad_step_sharded, NCCL world of 1, {rays.num} rays, routing 'auto': "
+              f"{step_ms:.3f} ms per step (host clock over {STEP_REPEATS} steps, synchronized)")
+    finally:
+        dist.destroy_process_group()
+    for mode, out in scaling.items():
+        print(f"measure_scaling ({mode}, NCCL world of 1, routing 'auto'): {json.dumps(out)}")
+    # trace 1 + grad step 1 + audit 2 + strong (rate_1 only) and weak windows.
+    closest = 4 + 2 * (WARMUP + REPEATS)
+    check(launches == {"quad_trace": closest, "quad_trace_anyhit": 1, "flat_trace": 1},
+          f"NCCL world of 1 launched {launches}")
+    for name, n in launches.items():
+        paths[name][f"{what}, NCCL world of 1 (phase 30a)"] = n
+    phase(f"sharded path, NCCL world of 1 ({time.perf_counter() - t1:.2f} s)", t0)
+
+    # (b) gloo, DIST_WORLD ranks sharing the card.
+    t1 = time.perf_counter()
+    inputs = os.path.join(DIST_DIR, "inputs.npz")
+    host = {f"want_{k}_{i}": v for k, w in want.items() for i, v in zip(("tri", "t"), w)}
+    np.savez(inputs, **dict(zip(("origin", "dirn", "tmin", "tmax"),
+                                (x.cpu().numpy() for x in rays))),
+             **dict(zip(("nodes", "tri_woop", "tri_index", "leaf_counts"), r.flat)),
+             **{k: x.cpu().numpy() for k, x in (("vtx_pos", vtx), ("tri_vtx_index", tvi),
+                                                 ("mat0", mat0), ("target", target))},
+             **{f"want_step_{i}": x for i, x in enumerate(want_step)}, **host)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker",
+                               str(rank), str(DIST_WORLD), f"{DIST_DIR}/gloo_store", inputs],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(DIST_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        print("\n".join(f"  [rank {rank}] {ln}" for ln in out.splitlines()))
+        check(p.returncode == 0, f"gloo world rank {rank} exited {p.returncode}")
+    ranks = [json.loads(out.strip().splitlines()[-1]) for out in outs]
+    for name in paths:
+        paths[name][f"{what}, gloo world of {DIST_WORLD} on one card, ranks summed "
+                    "(phase 30b)"] = sum(x["launches"][name] for x in ranks)
+    check(len({json.dumps(x["scaling"]) for x in ranks}) == 1, "ranks disagree on the rates")
+    print(f"grad_step_sharded, gloo world of {DIST_WORLD} on one card, "
+          f"{rays.num // DIST_WORLD} rays a rank: {[x['step_ms'] for x in ranks]} ms per step "
+          f"by rank (host clock over {STEP_REPEATS} steps between barriers)")
+    print(f"measure_scaling (strong, gloo world of {DIST_WORLD}, both ranks on one card: "
+          f"processes sharing a card, not scaling): {json.dumps(ranks[0]['scaling'])}")
+    phase(f"sharded path, gloo world of {DIST_WORLD} on one card "
+          f"({time.perf_counter() - t1:.2f} s)", t0)
+    return paths
+
+
+def dist_worker(rank: str, world: str, store: str, inputs: str) -> None:
+    """Phase 30 (b), one rank: the sharded path on cuda:0 in a gloo world,
+    its checks, then dryrun_multichip.  The last line is its JSON."""
+    import torch.distributed as dist
+
+    from tpu_rt_torch.core.types import FlatBVH, Rays
+    from tpu_rt_torch.dist import init_multihost, make_ray_mesh
+    from tpu_rt_torch.dist.dryrun import dryrun_multichip
+    from tpu_rt_torch.trace import make_routing_tracer
+
+    dev = torch.device(DEVICE, 0)
+    check(init_multihost(num_processes=int(world), process_id=int(rank), backend="gloo",
+                         init_method=f"file://{store}") == int(world), "gloo world size")
+    mesh = make_ray_mesh(dev)
+    try:
+        z = np.load(inputs)
+        flat = FlatBVH(*(z[k] for k in ("nodes", "tri_woop", "tri_index", "leaf_counts")))
+        rays = Rays(*(torch.as_tensor(z[k], device=dev) for k in ("origin", "dirn", "tmin",
+                                                                  "tmax")))
+        geom = tuple(torch.as_tensor(z[k], device=dev)
+                     for k in ("vtx_pos", "tri_vtx_index", "mat0", "target"))
+        routes = {}
+        for prefer, kind in (("auto", "quad-cuda"), ("packet", "flat-cuda")):
+            fn, got, tables = make_routing_tracer(flat, prefer, dev, cache_dir=CACHE)
+            check(got == kind, f"rank {rank}: {prefer!r} routes to {got}")
+            routes[prefer] = (fn, tables)
+        hits, step, audit, scaling, launches, step_ms = sharded_runs(mesh, rays, geom, routes,
+                                                                     ("strong",))
+        want = {k: (z[f"want_{k}_tri"], z[f"want_{k}_t"]) for k in hits}
+        sharded_checks(mesh, hits, want, step, [z[f"want_step_{i}"] for i in range(3)], audit,
+                       f"gloo world of {world} on one card")
+        # trace 1 + grad step 1 + audit 2 + the strong windows: rate_1 and
+        # rate_1_small on rank 0 alone, rate_n on every rank.
+        closest = 4 + (3 if mesh.rank == 0 else 1) * (WARMUP + REPEATS)
+        check(launches == {"quad_trace": closest, "quad_trace_anyhit": 1, "flat_trace": 1},
+              f"rank {rank} launched {launches}")
+        dry = dryrun_multichip(mesh)
+        print(f"dryrun_multichip on rank {rank}: {json.dumps(dry)}")
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"rank": mesh.rank, "launches": launches, "scaling": scaling["strong"],
+                      "audit": audit, "dryrun": dry, "step_ms": step_ms}), flush=True)
+
+
 # The probes are built with -fmad=false, so each f32 operation they count
 # is an instruction of its own: one per lane per clock, half of the 67
 # TFLOP/s peak, which counts a fused multiply-add as two.
@@ -2591,6 +2857,9 @@ def probe_entries(ab_runs, mp_runs):
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    if sys.argv[1:2] == ["--dist-worker"]:
+        dist_worker(*sys.argv[2:6])
+        return
     from tpu_rt_torch.probes import ablate2, mosaic_probe3, mxu_ablate
     from tpu_rt_torch.trace import common, flat_kernel, quad_kernel
 
@@ -2694,6 +2963,10 @@ def main() -> None:
     new_paths = secondary_sort(t0, kernel, flat_k, bctx, cctx, fc)
     train_path, train_launches, _ = training(t0, kernel, flat_k, bctx, dev)
     new_paths["quad_trace"][train_path] = train_launches
+    t1 = time.perf_counter()
+    for name, p in sharded(t0, kernel, flat_k, bctx, fb, dev).items():
+        new_paths[name].update(p)
+    phase(f"sharded path done ({time.perf_counter() - t1:.2f} s of phase 30)", t0)
     # The tensor-core frame forms' first versions, from the same A/B.
     for e in t_entries:
         if e["name"] in ("flat_trace_mxu", "flat_trace_mxu_anyhit"):

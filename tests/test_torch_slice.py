@@ -304,6 +304,19 @@ def test_port_imports_no_jax():
                                                  cache_dir=None, tracer=tracer, device="cpu"))
             rr.set_scene(r.scene)
             assert rr.render_frame(Camera.for_bbox(*r.scene.bbox()))["total_rays"] > 0
+        import tpu_rt_torch.dist, tpu_rt_torch.dist.dryrun, tpu_rt_torch.bench.scaling
+        import tpu_rt_torch.image, tpu_rt_torch.scene.objio
+        from tpu_rt_torch.dist import grad_step_sharded, make_ray_mesh, shard_rays, trace_sharded
+        from tpu_rt_torch.dist.sharding import replicate_bvh
+        mesh = make_ray_mesh("cpu")
+        srays = shard_rays(rays, mesh)
+        hits = trace_sharded(replicate_bvh(r.flat, mesh), srays, mesh)
+        assert torch.equal(hits.tri, r.primary.hits.tri)
+        vtx, tvi, mat = (torch.as_tensor(x) for x in (r.scene.vtx_pos, r.scene.tri_vtx_index,
+                                                      r.scene.tri_material))
+        loss, g_vtx, g_mat = grad_step_sharded(mesh, replicate_bvh(r.flat, mesh), srays, vtx,
+                                               tvi, mat, torch.zeros(rays.num, 3))
+        assert g_vtx.shape == vtx.shape and g_mat.shape == mat.shape
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "tpu_rt", "optax", "orbax"))
         print("BAD", bad)

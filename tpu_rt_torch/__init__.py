@@ -6,9 +6,10 @@ so the counterpart of every module is easy to find:
 
     core/    SoA Rays/Hits (torch), host math + hashing, host intersection
              primitives
-    scene/   meshes, Scene flattening, camera (+ signature codec), Morton
-             pixel table, procedural test scenes
-    bench/   reference-calibrated workload (suite cameras, AO radii)
+    scene/   meshes (OBJ / MTL import and export), Scene flattening, camera
+             (+ signature codec), Morton pixel table, procedural test scenes
+    bench/   reference-calibrated workload (suite cameras, AO radii), the
+             scaling run (``torchrun -m tpu_rt_torch.bench.scaling``)
     bvh/     SBVH builder (host), flatten + Woop transform, 4-wide collapse,
              hash-keyed build cache
     native/  the C++ SBVH builder (its own copy of sbvh.cc) via ctypes
@@ -21,7 +22,10 @@ so the counterpart of every module is easy to find:
     shade/   image reconstruction
     diff/    differentiable trace and shading (torch autograd), the training
              loop with checkpoint / resume
+    dist/    rays sharded over torch.distributed ranks: the sharded trace,
+             render and grad step, the collective audit, scaling, dry run
     debug/   golden hex-word and ray dumps
+    image.py pixel formats, blit, PPM / npy files
     renderer.py  the frame orchestrator
 
 Device work takes an explicit ``device``.  What is not ported yet is listed

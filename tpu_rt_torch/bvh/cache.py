@@ -82,6 +82,13 @@ def platform_from_env() -> Platform:
 QUAD_LAYOUT_VERSION = 1  # bump when the QuadBVH layout changes
 
 
+def _tmp_path(path: str) -> str:
+    """A temporary file of this process's own for a cache entry: ranks that
+    share a cache directory may build one entry at once, and each
+    ``os.replace`` then installs a whole file."""
+    return f"{path}.{os.getpid()}.tmp.npz"
+
+
 def load_or_collapse_quad(flat: FlatBVH, leaf_max: int | None = None,
                           cache_dir: str | None = "bvhcache"):
     """Collapse the binary FlatBVH to a QuadBVH (bvh.collapse.collapse4),
@@ -110,7 +117,7 @@ def load_or_collapse_quad(flat: FlatBVH, leaf_max: int | None = None,
     quad = collapse4(flat, leaf_max=leaf_max)
     if path is not None:
         os.makedirs(cache_dir, exist_ok=True)
-        tmp = path + ".tmp.npz"
+        tmp = _tmp_path(path)
         np.savez_compressed(tmp, nodes=quad.nodes, tri_woop=quad.tri_woop,
                             tri_index=quad.tri_index)
         os.replace(tmp, path)
@@ -166,7 +173,7 @@ def load_or_build_bvh(
 
     if path is not None:
         os.makedirs(cache_dir, exist_ok=True)
-        tmp = path + ".tmp.npz"
+        tmp = _tmp_path(path)
         np.savez_compressed(
             tmp,
             nodes=np.asarray(flat.nodes),

@@ -147,3 +147,29 @@ def flatten_bvh(bvh: BVH, tri_vtx_index: np.ndarray, vtx_pos: np.ndarray) -> Fla
         tri_index=order.astype(np.int32),
         leaf_counts=leaf_counts,
     )
+
+
+def node_links(flat: FlatBVH) -> np.ndarray:
+    """[N,4] i32 copy of (child0, child1, count0, count1)."""
+    return np.ascontiguousarray(np.asarray(flat.nodes)[:, 12:16]).view(np.int32)
+
+
+def validate_flat_bvh(flat: FlatBVH, num_scene_tris: int) -> None:
+    """Structural invariants (debug/tests): links in range, every triangle
+    covered at least once, child boxes valid."""
+    nodes = np.asarray(flat.nodes)
+    links = np.ascontiguousarray(nodes[:, 12:16]).view(np.int32)
+    n = nodes.shape[0]
+    m = flat.tri_woop.shape[0]
+    covered = np.zeros(num_scene_tris, bool)
+    for row in range(n):
+        for i in range(2):
+            c = int(links[row, i])
+            if c >= 0:
+                assert c < n, (row, i, c)
+            else:
+                first = ~c
+                count = int(links[row, 2 + i])
+                assert 0 <= first <= m and first + count <= m, (row, i, first, count)
+                covered[np.asarray(flat.tri_index)[first : first + count]] = True
+    assert covered.all() or num_scene_tris == 0, f"{(~covered).sum()} triangles unreachable"

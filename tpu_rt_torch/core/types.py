@@ -129,6 +129,11 @@ def make_rays(origin, dirn, tmin, tmax, device="cuda") -> Rays:
                 tmin=f32(tmin, (-1,)), tmax=f32(tmax, (-1,)))
 
 
+def concat_rays(a: Rays, b: Rays) -> Rays:
+    """The rays of ``a``, then those of ``b`` (both on one device)."""
+    return Rays(*(torch.cat([x, y]) for x, y in zip(a, b)))
+
+
 def pad_rays(rays: Rays, multiple: int) -> tuple[Rays, int]:
     """Pad the batch up to a multiple of ``multiple``.
 
