@@ -151,6 +151,28 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      forward and three all-reduces in the step; ``measure_scaling`` (in (b)
      two processes sharing a card, not scaling); ms per sharded step; in
      (b) ``dryrun_multichip``.  A rank that fails or times out fails the run.
+31.  the command-line app (``tpu_rt_torch.bench.cli``): (a) ``python -m
+     tpu_rt_torch.bench.cli --scene bunny --size 640x480`` at the suite
+     camera's signature, in a subprocess: its ``Results =`` and JSON lines,
+     route ``quad-cuda``, its PPM byte-equal to a Renderer frame on the
+     decoded signature in this process; the same command through
+     ``cli.main`` here, counted; (b) a two-line cookbook under ``build/``:
+     the conference line replayed as AO (8 samples, 640x480) on its
+     surrogate, a line without a surrogate refused; (c)
+     ``Renderer.set_build_params(split_alpha=1e-6)`` on bunny: t bit-equal
+     to the 1e-5 frame's on every ray, tri only at exact-t ties
+     (``trace_flat_scalar`` adjudicates), both builds' stats.
+32.  the orbit viewer (``tpu_rt_torch.bench.viewer``) on bunny at 640x480
+     behind ``make_server(port=0)``: ``/frame`` equal to
+     ``ViewerState.render``'s image (PNG, and BMP with Pillow's import
+     failing), ``X-Mrays-Per-S`` > 0, another yaw
+     another image, ``w=100000`` refused with 400, the renderers kept at
+     their bound and the evicted one freed.
+33.  the leaf-width tune tool (``tpu_rt_torch.bench.tune_quad``) on bunny
+     and dragon at leaf 16 and 32 (ms and Mray/s per width), then a fresh
+     ``Renderer(tracer="auto")`` on each, routed at the recorded width and
+     held to ``trace_quad_scalar`` on 8,192 rays; a file at ``tpu_rt``'s
+     tune path does not move the route; every tune file written is deleted.
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
@@ -174,8 +196,9 @@ forms' entries carry ``first_ms``, their first version's time, and their
 carry ``first_ms`` and ``ab_ms`` (the designs in phase 27) and their
 ``launch_shape``.  No single PyTorch call computes a BVH traversal or a
 probe, so ``library_ms`` is null.  The four default frame forms' entries
-also carry ``paths``: the launches of phases 28-30's paths, by path name
-(phase 30b's summed over its ranks).
+also carry ``paths``: the launches of phases 28-33's paths, by path name
+(phase 30b's summed over its ranks; phases 31-33 as ``cli``, ``viewer`` and
+``tune``).
 """
 
 from __future__ import annotations
@@ -2793,6 +2816,376 @@ def dist_worker(rank: str, world: str, store: str, inputs: str) -> None:
                       "audit": audit, "dryrun": dry, "step_ms": step_ms}), flush=True)
 
 
+# Phases 31-33: the app layer (the command-line app, the orbit viewer and
+# the leaf-width tune tool), each through the entry points a user starts.
+APP_DIR = os.path.join(BUILD, "chip_smoke_cli")
+REPO = os.path.dirname(os.path.abspath(__file__))
+# The conference line of the reference's command cookbook (grtcmdline.txt)
+# and a line whose mesh has no procedural surrogate.
+GRT_LINES = ('--mesh=scenes/rt/conference/conference.obj '
+             '--camera="6omr/04j3200bR6Z/0/3ZEAz/x4smy19///c/05frY109Qx7w////m100" '
+             '--sbvh-alpha=1.0e-5 --ao-radius=5',
+             '--mesh=scenes/cornellbox/cornellbox.obj '
+             '--camera="6omr/04j3200bR6Z/0/3ZEAz/x4smy19///c/05frY109Qx7w////m100" '
+             '--sbvh-alpha=1.0e-5')
+TUNE_WIDTHS, TUNE_CHAIN, TUNE_REPEATS = (16, 32), 16, 3
+
+
+def app_counts(quad_k, flat_k, what):
+    """The quad kernel's frame-form launches since the last reset; the
+    binary kernel and every other form must not have launched."""
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in quad_k.launches_by_form.items() if v}
+    check(flat_k.launches == 0 and set(counts) <= {"closest", "any"},
+          f"{what} launched {counts}, binary {flat_k.launches_by_form}")
+    return {"closest": counts.get("closest", 0), "any": counts.get("any", 0)}
+
+
+def run_cli(argv):
+    """``tpu_rt_torch.bench.cli.main(argv)`` in this process, its output
+    echoed indented.  Returns (exit code or SystemExit text, output)."""
+    import contextlib
+    import io
+
+    from tpu_rt_torch.bench import cli
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    except SystemExit as e:
+        rc = str(e)
+    print("\n".join(f"  | {ln}" for ln in out.getvalue().splitlines()))
+    return rc, out.getvalue()
+
+
+def cli_phase(t0, quad_k, flat_k, bctx):
+    """Phase 31: the command-line app on the card.  (a) ``python -m
+    tpu_rt_torch.bench.cli`` on bunny at the suite camera's signature in a
+    subprocess: its ``Results =`` and JSON lines, route ``quad-cuda``, and
+    its PPM byte-equal to a Renderer frame on ``Camera.decode_signature`` of
+    the same string in this process; then the same command through
+    ``cli.main`` here, counted.  (b) a two-line cookbook: the conference
+    line replayed as AO, 8 samples, 640x480; a line without a surrogate
+    refused.  (c) ``set_build_params(split_alpha=1e-6)`` on a bunny
+    Renderer: t bit-equal to the 1e-5 frame's on every ray, tri only where
+    t ties (adjudicated by ``trace_flat_scalar``).  Returns {kernel entry:
+    launches} of the cli path."""
+    from tpu_rt_torch.bench.cli import _write_ppm
+    from tpu_rt_torch.bvh import BuildParams
+    from tpu_rt_torch.renderer import Renderer, RendererParams
+    from tpu_rt_torch.scene import Camera
+    from tpu_rt_torch.trace import trace_flat_scalar
+
+    from tpu_rt_torch.bench.cli import build_parser
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(APP_DIR, ignore_errors=True)
+    os.makedirs(APP_DIR)
+    launches = {"closest": 0, "any": 0}
+    sig = bctx["camera"].encode_signature().strip(",").strip('"')
+    ppm = os.path.join(APP_DIR, "cli_bunny.ppm")
+    argv = ["--scene", SCENE, "--size", f"{WIDTH}x{HEIGHT}", f"--camera={sig}",
+            "--warmup-repeats", "1", "--measure-repeats", "3", "--cache-dir", CACHE, "--json",
+            "--device", DEVICE]
+
+    # (a) The command a user types, in a process of its own.
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_rt_torch.bench.cli", *argv, "--image", ppm],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t1
+    print("\n".join(f"  | {ln}" for ln in (proc.stdout + proc.stderr).splitlines()))
+    check(proc.returncode == 0, f"python -m tpu_rt_torch.bench.cli exited {proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    rate = [float(m.group(1)) for ln in lines if (m := re.fullmatch(r"Results = (\S+) M Rays/s", ln))]
+    res = json.loads(lines[-1])
+    check(len(rate) == 1 and res["tracer"] == "quad-cuda" and res["total_rays"] == WIDTH * HEIGHT,
+          f"the CLI printed rate {rate}, result {res}")
+    r = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE))
+    r.set_scene(bctx["scene"])
+    r.render_frame(Camera.decode_signature(sig))
+    own = os.path.join(APP_DIR, "renderer_bunny.ppm")
+    _write_ppm(own, r.update_result())
+    with open(ppm, "rb") as f, open(own, "rb") as g:
+        same = f.read() == g.read()
+    print(f"cli (a): python -m tpu_rt_torch.bench.cli, {SCENE} {WIDTH}x{HEIGHT} primary, camera "
+          f"{sig}: {sub_s:.2f} s in its process; Results = {rate[0]:.2f} M Rays/s (best of 3), "
+          f"mean {res['mean_mrays_per_s']} Mray/s, tracer {res['tracer']}, bvh {res['bvh']}; "
+          f"PPM byte-equal to this process's Renderer frame: {same}")
+    check(same, "the CLI's PPM differs from the Renderer frame's")
+    quad_k.reset_counts()
+    flat_k.reset_counts()
+    rc, _ = run_cli(argv + ["--image", os.path.join(APP_DIR, "cli_bunny_here.ppm")])
+    counts = app_counts(quad_k, flat_k, "cli.main on bunny")
+    check(rc == 0 and counts == {"closest": 4, "any": 0}, f"cli.main: rc {rc}, launches {counts}")
+    launches = {k: launches[k] + counts[k] for k in launches}
+
+    # (b) Cookbook replay.
+    book = os.path.join(APP_DIR, "grtcmdline.txt")
+    with open(book, "w") as f:
+        f.write("##conference\n" + GRT_LINES[0] + "\n##cornell box\n" + GRT_LINES[1] + "\n")
+    quad_k.reset_counts()
+    flat_k.reset_counts()
+    t1 = time.perf_counter()
+    rc, out = run_cli(["--grt-file", book, "--grt-line", "1", "--ray-type", "ao", "--samples",
+                       str(AO_SAMPLES), "--size", f"{WIDTH}x{HEIGHT}", "--cache-dir", CACHE,
+                       "--json", "--device", DEVICE])
+    counts = app_counts(quad_k, flat_k, "cookbook replay")
+    res = json.loads(out.strip().splitlines()[-1])
+    defaults = build_parser()
+    frames = defaults.get_default("warmup_repeats") + defaults.get_default("measure_repeats")
+    batches = -(-WIDTH * HEIGHT * AO_SAMPLES // AO_MAX_BATCH)
+    print(f"cli (b): cookbook line 1 replayed as AO ({time.perf_counter() - t1:.2f} s): exit {rc}, "
+          f"{res['mrays_per_s']} Mray/s, total_rays {res['total_rays']} (primary hits x "
+          f"{AO_SAMPLES}), tris {res['tris']}, "
+          f"tracer {res['tracer']}; launches {counts}")
+    check(rc == 0 and "procedural surrogate 'conference'" in out and res["tracer"] == "quad-cuda",
+          "the conference line did not replay on its surrogate")
+    check(counts == {"closest": frames, "any": frames * batches},
+          f"the replay launched {counts}")
+    launches = {k: launches[k] + counts[k] for k in launches}
+    rc, _ = run_cli(["--grt-file", book, "--grt-line", "2", "--cache-dir", CACHE, "--device",
+                     DEVICE])
+    print(f"cli (b): cookbook line 2: {rc}")
+    check(isinstance(rc, str) and "no procedural surrogate" in rc, "line 2 was not refused")
+
+    # (c) A rebuild in the process.
+    r = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE))
+    r.set_scene(bctx["scene"])
+    quad_k.reset_counts()
+    flat_k.reset_counts()
+    r.render_frame(bctx["camera"])
+    a_hits, a_stats, a_flat, a_tables = r.primary.hits, r.bvh_stats, r.flat, r.tracer_tables
+    t1 = time.perf_counter()
+    r.set_build_params(BuildParams(split_alpha=1e-6))
+    check(r.flat is None and r.tracer_tables is None, "set_build_params kept the old tables")
+    r.render_frame(bctx["camera"])
+    rebuild_s = time.perf_counter() - t1
+    counts = app_counts(quad_k, flat_k, "set_build_params")
+    check(counts == {"closest": 2, "any": 0} and r.tracer_tables is not a_tables,
+          f"the rebuild launched {counts}")
+    launches = {k: launches[k] + counts[k] for k in launches}
+    b_hits = r.primary.hits
+    t_bad = bits_differ(a_hits.t, b_hits.t)
+    ids = torch.nonzero(a_hits.tri != b_hits.tri).flatten().cpu().numpy()
+    for name, s in (("1e-5", a_stats), ("1e-6", r.bvh_stats)):
+        print(f"cli (c): split_alpha {name}: {s.num_inner_nodes} inner nodes, {s.num_tris} refs, "
+              f"{s.num_duplicates} duplicates ({s.duplicate_pct:.1f}%), SAH {s.sah_cost:.3f}")
+    same_tree = all(x.shape == y.shape and x.tobytes() == y.tobytes()
+                    for x, y in zip(a_flat, r.flat))
+    print(f"cli (c): set_build_params(split_alpha=1e-6) and a frame: {rebuild_s:.2f} s (the SBVH "
+          f"build included); the trees' arrays equal: {same_tree}; against the 1e-5 frame on "
+          f"{b_hits.tri.numel()} rays: t bit mismatches {t_bad}, tri disputes {ids.size}")
+    check(t_bad == 0, "t differs between the 1e-5 and 1e-6 trees")
+    if ids.size:
+        sub = [x.cpu().numpy()[ids] for x in r.primary.rays]
+        s_id, s_t, _, _ = trace_flat_scalar(a_flat, *sub)
+        for flat, hits, what in ((a_flat, a_hits, "1e-5 tree"), (r.flat, b_hits, "1e-6 tree")):
+            adjudicate(flat, sub, hits.tri.cpu().numpy()[ids], hits.t.cpu().numpy()[ids], s_id,
+                       s_t, f"cli (c), {what}")
+    phase(f"command-line app done ({time.perf_counter() - t_phase:.2f} s of phase 31)", t0)
+    return {"quad_trace": launches["closest"], "quad_trace_anyhit": launches["any"]}
+
+
+def decode_frame(body: bytes, ctype: str) -> np.ndarray:
+    """[h, w, 3] u8 of a viewer frame: the BMP fallback read by hand, a PNG
+    through Pillow."""
+    if ctype == "image/png":
+        import io
+
+        from PIL import Image
+
+        return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+    check(ctype == "image/bmp" and body[:2] == b"BM", f"viewer frame of type {ctype}")
+    w, h = (int.from_bytes(body[k:k + 4], "little") for k in (18, 22))
+    row = w * 3 + (-w * 3) % 4
+    pix = np.frombuffer(body[54:54 + h * row], np.uint8).reshape(h, row)[::-1, :w * 3]
+    return np.ascontiguousarray(pix.reshape(h, w, 3)[..., ::-1])
+
+
+def viewer_phase(t0, quad_k, flat_k, bctx):
+    """Phase 32: the orbit viewer on the card.  ``ViewerState`` on bunny at
+    640x480 and ``make_server(port=0)`` on a thread: ``/frame`` at the
+    default orbit equal to ``ViewerState.render``'s image for the same
+    camera, as PNG when Pillow imports and as BMP when it does not, a
+    positive ``X-Mrays-Per-S``, another yaw another image,
+    ``w=100000`` refused with 400, and the renderers kept at their bound
+    after more sizes than it, the evicted ones freed.  Returns {kernel
+    entry: launches} of the viewer path."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from tpu_rt_torch.bench import viewer
+    from tpu_rt_torch.renderer import RendererParams
+
+    t_phase = time.perf_counter()
+    state = viewer.ViewerState(bctx["scene"], WIDTH, HEIGHT,
+                               RendererParams(cache_dir=CACHE, device=DEVICE))
+    srv = viewer.make_server(state, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/frame"
+
+    def get(query=""):
+        t1 = time.perf_counter()
+        with urllib.request.urlopen(url + query, timeout=300) as resp:
+            body, headers = resp.read(), resp.headers
+        return decode_frame(body, headers["Content-Type"]), headers, time.perf_counter() - t1
+
+    try:
+        quad_k.reset_counts()
+        flat_k.reset_counts()
+        img, headers, wall = get()
+        want, _ = state.render(0.0, 0.3, 1.0)
+        bad = int((img != want).any(-1).sum())
+        rate = float(headers["X-Mrays-Per-S"])
+        print(f"viewer: GET /frame ({WIDTH}x{HEIGHT}, {headers['Content-Type']}, {wall:.3f} s "
+              f"with the renderer's set-up): X-Mrays-Per-S {headers['X-Mrays-Per-S']}, "
+              f"X-Trace-Ms {headers['X-Trace-Ms']}; pixels differing from ViewerState.render's "
+              f"{bad}")
+        check(img.shape == (HEIGHT, WIDTH, 3) and bad == 0,
+              "the viewer's frame differs from ViewerState.render's")
+        check(rate > 0, "X-Mrays-Per-S is not positive")
+        # The other encoder: with Pillow's import failing the viewer falls
+        # back to BMP.
+        pil = sys.modules.get("PIL", ...)
+        sys.modules["PIL"] = None
+        try:
+            bmp, headers, wall = get()
+        finally:
+            if pil is ...:
+                del sys.modules["PIL"]
+            else:
+                sys.modules["PIL"] = pil
+        bad = int((bmp != want).any(-1).sum())
+        print(f"viewer: GET /frame with Pillow's import failing ({headers['Content-Type']}, "
+              f"{wall:.3f} s): pixels differing from ViewerState.render's {bad}")
+        check(headers["Content-Type"] == "image/bmp" and bad == 0, "the BMP frame differs")
+        other, headers, wall = get("?yaw=2.0")
+        print(f"viewer: GET /frame?yaw=2.0 ({wall:.3f} s): X-Mrays-Per-S "
+              f"{headers['X-Mrays-Per-S']}, pixels differing from yaw 0 "
+              f"{int((other != img).any(-1).sum())}")
+        check(not np.array_equal(other, img), "another yaw gave the same image")
+        kept = list(state._renderers)
+        try:
+            urllib.request.urlopen(url + "?w=100000", timeout=60)
+            code, err = 200, None
+        except urllib.error.HTTPError as e:
+            code, err = e.code, json.loads(e.read())
+        print(f"viewer: GET /frame?w=100000: {code} {err}")
+        check(code == 400 and list(state._renderers) == kept, "w=100000 was not refused")
+        first = state._renderers[kept[0]]
+        sizes = [(64 * (i + 1), 48 * (i + 1)) for i in range(viewer.MAX_RENDERERS + 2)]
+        for w, h in sizes:
+            img, headers, wall = get(f"?w={w}&h={h}")
+            check(img.shape == (h, w, 3), f"viewer frame {w}x{h}")
+        print(f"viewer: {len(sizes)} more sizes {sizes}: {len(state._renderers)} renderers kept "
+              f"(bound {viewer.MAX_RENDERERS}); the first one freed: "
+              f"{first.tracer_tables is None and first.flat is None}")
+        check(len(state._renderers) == viewer.MAX_RENDERERS, "the renderer cache passed its bound")
+        check(first not in state._renderers.values() and first.tracer_tables is None,
+              "the least recently used renderer was not freed")
+        counts = app_counts(quad_k, flat_k, "viewer")
+        check(counts == {"closest": 4 + len(sizes), "any": 0}, f"the viewer launched {counts}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+    phase(f"orbit viewer done ({time.perf_counter() - t_phase:.2f} s of phase 32)", t0)
+    return {"quad_trace": counts["closest"]}
+
+
+def tpu_rt_tune_path(flat, cache_dir: str) -> str:
+    """Where ``tpu_rt``'s tune tool writes (``tpu_rt/trace/__init__.py``
+    ``_tune_path``: salt ``quad-tune``, ``t<hash>.json``)."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=8)
+    h.update(np.ascontiguousarray(flat.nodes).tobytes())
+    h.update(b"quad-tune")
+    return os.path.join(cache_dir, f"t{h.hexdigest()[:8]}.json")
+
+
+def tune_phase(t0, quad_k, flat_k, bctx, dctx, dev):
+    """Phase 33 (last: it writes tune files into the shared cache): the
+    leaf-width tune tool on bunny and dragon at widths 16 and 32, then a
+    fresh ``Renderer(tracer="auto")`` on each scene, which must route at the
+    recorded width and agree with ``trace_quad_scalar`` on 8,192 rays; a file
+    at ``tpu_rt``'s tune path must not move the route.  Every tune file the
+    phase wrote is deleted at its end.  Returns ({kernel entry: launches} of
+    the tune path, {scene: record})."""
+    from tpu_rt_torch.bench import tune_quad
+    from tpu_rt_torch.bench.workload import FRAME_H, FRAME_W, suite_camera
+    from tpu_rt_torch.bvh import load_or_collapse_quad
+    from tpu_rt_torch.bvh.collapse import trace_quad_scalar
+    from tpu_rt_torch.renderer import Renderer, RendererParams
+    from tpu_rt_torch.trace import make_routing_tracer
+    from tpu_rt_torch.trace.tables import _tune_path
+
+    t_phase = time.perf_counter()
+    scenes = {SCENE: (bctx["scene"], bctx["renderer"].flat), DRAGON: (dctx["scene"], dctx["flat"])}
+    written = [p for _, flat in scenes.values()
+               for p in (_tune_path(flat, CACHE), tpu_rt_tune_path(flat, CACHE))]
+    records, closest = {}, 0
+    try:
+        quad_k.reset_counts()
+        flat_k.reset_counts()
+        for name in scenes:
+            t1 = time.perf_counter()
+            records[name] = rec = tune_quad.tune(name, TUNE_WIDTHS, TUNE_CHAIN, TUNE_REPEATS,
+                                                 cache_dir=CACHE, device=dev)
+            print(f"tune {name} ({time.perf_counter() - t1:.2f} s): " + "; ".join(
+                f"leaf {w} {ms:.4f} ms/frame {FRAME_W * FRAME_H / (ms * 1e3):.2f} Mray/s"
+                for w, ms in rec["ms"].items()) + f"; recorded leaf_max {rec['leaf_max']} "
+                f"({rec['device']})")
+            check(os.path.exists(_tune_path(scenes[name][1], CACHE)), f"{name}: no tune file")
+        counts = app_counts(quad_k, flat_k, "tune")
+        want = len(scenes) * len(TUNE_WIDTHS) * (1 + TUNE_REPEATS) * TUNE_CHAIN
+        check(counts == {"closest": want, "any": 0}, f"the tune tool launched {counts}")
+        closest += counts["closest"]
+        for name, (scene, flat) in scenes.items():
+            width = records[name]["leaf_max"]
+            r = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE))
+            r.set_scene(scene)
+            stats, image, counts, wall = render(r, suite_camera(name, scene), quad_k, idle=flat_k)
+            frame_line(f"{name} primary frame after the tune", r, stats, counts, wall)
+            check(counts == {"closest": 1} and stats["tracer"] == "quad-cuda",
+                  f"{name}: the tuned frame launched {counts} on {stats['tracer']}")
+            closest += 1
+
+            def routed_at(tables, q):
+                got = tables.nodes.cpu().numpy().view(np.int32)
+                return got.shape == q.nodes.shape and np.array_equal(
+                    got, np.ascontiguousarray(q.nodes, np.float32).view(np.int32))
+
+            quads = {w: load_or_collapse_quad(flat, leaf_max=w, cache_dir=CACHE)
+                     for w in TUNE_WIDTHS}
+            matches = [w for w, q in quads.items() if routed_at(r.tracer_tables, q)]
+            print(f"{name}: the fresh Renderer's quad tables equal the leaf {matches} collapse "
+                  f"({r.tracer_tables.nodes.shape[0]} nodes)")
+            check(matches == [width], f"{name}: routed at leaf {matches}, recorded {width}")
+            quad = quads[width]
+            rays = r.primary.rays
+            against_oracle(quad_k, r.tracer_tables, partial(trace_quad_scalar, quad),
+                           subset(rays, strided(rays.num, dev)), False,
+                           f"{name} primary at the tuned leaf {width}")
+            with open(tpu_rt_tune_path(flat, CACHE), "w") as f:
+                json.dump({"scene": name, "leaf_max": 64}, f)
+            _, kind, tables = make_routing_tracer(flat, "auto", dev, cache_dir=CACHE)
+            print(f"{name}: a tpu_rt tune file (leaf_max 64) beside it: route {kind} at leaf "
+                  f"{width}: {routed_at(tables, quad)}")
+            check(kind == "quad-cuda" and routed_at(tables, quad),
+                  f"{name}: tpu_rt's tune file moved the route")
+    finally:
+        for p in written:
+            if os.path.exists(p):
+                os.remove(p)
+    check(not any(os.path.exists(p) for p in written), "a tune file was left behind")
+    phase(f"leaf-width tune done ({time.perf_counter() - t_phase:.2f} s of phase 33)", t0)
+    return {"quad_trace": closest}, records
+
+
 # The probes are built with -fmad=false, so each f32 operation they count
 # is an instruction of its own: one per lane per clock, half of the 67
 # TFLOP/s peak, which counts a fused multiply-add as two.
@@ -2967,6 +3360,16 @@ def main() -> None:
     for name, p in sharded(t0, kernel, flat_k, bctx, fb, dev).items():
         new_paths[name].update(p)
     phase(f"sharded path done ({time.perf_counter() - t1:.2f} s of phase 30)", t0)
+    t1 = time.perf_counter()
+    app = {"cli": cli_phase(t0, kernel, flat_k, bctx),
+           "viewer": viewer_phase(t0, kernel, flat_k, bctx)}
+    app["tune"], tuned = tune_phase(t0, kernel, flat_k, bctx, dctx, dev)
+    for path, launches in app.items():
+        for name, n in launches.items():
+            new_paths[name][path] = n
+    print(f"app layer: launches by path {json.dumps(app)}; tuned leaf widths "
+          f"{ {k: v['leaf_max'] for k, v in tuned.items()} }")
+    phase(f"app layer done ({time.perf_counter() - t1:.2f} s of phases 31-33)", t0)
     # The tensor-core frame forms' first versions, from the same A/B.
     for e in t_entries:
         if e["name"] in ("flat_trace_mxu", "flat_trace_mxu_anyhit"):

@@ -76,6 +76,19 @@ def test_native_source_is_the_ports_own_copy():
     assert code(src) == code(os.path.join(os.path.dirname(t_native.__file__), "sbvh.cc"))
 
 
+def test_native_available_equals_tpu_rt(monkeypatch):
+    import tpu_rt.native as t_native
+    import tpu_rt_torch.native as p_native
+
+    assert p_native.native_available() is t_native.native_available() is True
+    assert p_native.build_error() is None
+    # A build that failed reports False and its error, as in tpu_rt.
+    monkeypatch.setattr(p_native, "_lib", None)
+    monkeypatch.setattr(p_native, "_build_error", "g++: not found")
+    assert p_native.native_available() is False
+    assert p_native.build_error() == "g++: not found"
+
+
 @pytest.mark.parametrize("backend", ["native", "numpy"])
 def test_flat_bvh_bit_equal(scenes, backend):
     ts, ps = scenes

@@ -6,6 +6,9 @@ the plain versions record as read, and the card default of every entry
 point."""
 
 import inspect
+import json
+import os
+import warnings
 
 import numpy as np
 import pytest
@@ -133,21 +136,50 @@ def test_binary_policy_equals_tpu_rt(flat, monkeypatch):
 
 
 def test_quad_policy_and_tune_cache_equal_tpu_rt(flat, monkeypatch, tmp_path):
+    from tpu_rt.trace import _tune_path as t_tune_path
+
     n64 = flat.nodes.shape[0] * 64
     for budget in (n64 - 1, n64, VMEM_TABLE_BUDGET):
         monkeypatch.setattr(t_packet2, "VMEM_TABLE_BUDGET", budget)
         assert quad_policy(flat, None, budget) == t_quad_policy(flat) == (
             32 if budget < n64 else 16)
-    # A recorded per-scene leaf width wins in both, under the same file name.
-    path = _tune_path(flat, str(tmp_path))
+    cache = str(tmp_path)
+    path, t_path = _tune_path(flat, cache), t_tune_path(flat, cache)
     assert path is not None and _tune_path(flat, None) is None
+    assert os.path.dirname(path) == os.path.dirname(t_path) and path != t_path
+    # A width tpu_rt's tool recorded routes tpu_rt, never the port.
+    with open(t_path, "w") as f:
+        f.write('{"leaf_max": 8}')
+    assert t_quad_policy(flat, cache) == 8
+    assert quad_policy(flat, cache, n64) == 16 and quad_policy(flat, cache, n64 - 1) == 32
+    # The port's own file wins in the port, and tpu_rt does not read it.
+    os.remove(t_path)
     with open(path, "w") as f:
         f.write('{"leaf_max": 8}')
-    assert quad_policy(flat, str(tmp_path), n64) == t_quad_policy(flat, str(tmp_path)) == 8
-    with open(path, "w") as f:
-        f.write("not json")
+    assert quad_policy(flat, cache, n64) == 8
     monkeypatch.setattr(t_packet2, "VMEM_TABLE_BUDGET", n64 - 1)
-    assert quad_policy(flat, str(tmp_path), n64 - 1) == t_quad_policy(flat, str(tmp_path)) == 32
+    assert t_quad_policy(flat, cache) == 32
+    # A corrupt file, or one without leaf_max, gives the static rule in both
+    # packages, silently.
+    for text in ("not json", '{"width": 8}'):
+        for p in (path, t_path):
+            with open(p, "w") as f:
+                f.write(text)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            assert quad_policy(flat, cache, n64 - 1) == t_quad_policy(flat, cache) == 32
+    os.remove(t_path)
+    # Out of range, or not an int: a warning naming the file and the value,
+    # and the static rule.
+    for bad in (0, 128, "x", 8.0, True):
+        with open(path, "w") as f:
+            json.dump({"leaf_max": bad}, f)
+        with pytest.warns(RuntimeWarning, match=f"{os.path.basename(path)}.*{bad!r}"):
+            assert quad_policy(flat, cache, n64 - 1) == 32
+    for good in (1, 127):
+        with open(path, "w") as f:
+            json.dump({"leaf_max": good}, f)
+        assert quad_policy(flat, cache, n64) == good
 
 
 def test_routed_kinds_equal_tpu_rt(flat, monkeypatch):

@@ -317,6 +317,11 @@ def test_port_imports_no_jax():
         loss, g_vtx, g_mat = grad_step_sharded(mesh, replicate_bvh(r.flat, mesh), srays, vtx,
                                                tvi, mat, torch.zeros(rays.num, 3))
         assert g_vtx.shape == vtx.shape and g_mat.shape == mat.shape
+        import tpu_rt_torch.bench.viewer, tpu_rt_torch.bench.tune_quad
+        from tpu_rt_torch.bench import cli
+        assert tpu_rt_torch.native.native_available() in (True, False)
+        assert cli.main(["--scene", "knob", "--size", "16x12", "--warmup-repeats", "0",
+                         "--measure-repeats", "1", "--device", "cpu", "--cache-dir", ""]) == 0
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "tpu_rt", "optax", "orbax"))
         print("BAD", bad)

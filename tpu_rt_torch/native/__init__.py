@@ -63,6 +63,12 @@ def get_lib():
         return _lib
 
 
+def native_available() -> bool:
+    """Whether the native builder built and loaded (``tpu_rt.native``'s
+    ``native_available``)."""
+    return get_lib() is not None
+
+
 def build_error() -> str | None:
     return _build_error
 

@@ -40,7 +40,7 @@ from tpu_rt_torch.rays.buffer import (
 )
 from tpu_rt_torch.scene import Camera, Scene
 from tpu_rt_torch.shade import count_hits, reconstruct_image
-from tpu_rt_torch.trace import TRACERS, check_cursors, make_routing_tracer
+from tpu_rt_torch.trace import TRACERS, check_cursors, make_routing_tracer, release_persisting_l2
 
 RAY_TYPES = ("primary", "ao", "diffuse")
 
@@ -109,8 +109,8 @@ class Renderer:
         self.build_params = BuildParams()
         self.raygen = RayGen(p.max_batch)
         self.scene: Scene | None = None
-        self.flat = None
-        self.bvh_stats = None
+        self.tracer_tables = None
+        self._drop_bvh()
         self.trace_time_s = 0.0
         self.rays_traced = 0
         self.rays_skipped = 0
@@ -124,7 +124,34 @@ class Renderer:
 
     def set_scene(self, scene: Scene) -> None:
         self.scene = scene
+        self._drop_bvh()
+
+    def set_build_params(self, params: BuildParams) -> None:
+        """Build the scene's SBVH with ``params`` from the next frame on
+        (``tpu_rt``'s ``Renderer.set_build_params``): the tree, its stats,
+        the routing tracer and the device tables are dropped, and the next
+        ``begin_frame`` loads or builds them again under a cache key that
+        hashes ``params``."""
+        self.build_params = params
+        self._drop_bvh()
+
+    def free(self) -> None:
+        """Let go of the device memory the renderer holds: the tables (a
+        ``mixed`` L2 window given back) and the last frame's rays and hits.
+        A later frame loads them again."""
+        self._drop_bvh()
+        self.primary = self._batch = None
+        self._batches = []
+
+    def _drop_bvh(self) -> None:
+        """Forget the scene's tree and everything made from it.  Tables in
+        the ``mixed`` residency give back the persisting L2 first."""
+        if getattr(self.tracer_tables, "residency", None) == "mixed":
+            release_persisting_l2()
         self.flat = None
+        self.bvh_stats = None
+        self.routing = self.tracer_tables = None
+        self._tri_normal_dev = self._tri_shaded_dev = self._tri_material_dev = None
 
     def _ensure_bvh(self) -> None:
         if self.flat is None:

@@ -5,7 +5,7 @@ Counterpart of ``tpu_rt/trace/packet2.py``'s bf16 node packing
 policy (``tables2_fit_vmem`` :333-336, ``choose_node_format`` :339-358,
 ``tables2_residency`` :361-373, ``_residency_flags`` :376-381, the packet4
 rule of ``trace_packet4`` :1168-1175), and of ``tpu_rt/trace/__init__.py``
-``_tune_path`` / ``quad_policy`` (:66-108).
+``quad_policy`` (:79-108), with a tune file of the port's own.
 
 Residencies keep ``tpu_rt``'s names; on the card they are cache policies:
 
@@ -26,6 +26,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import warnings
 
 import numpy as np
 
@@ -42,6 +43,8 @@ TABLE_BUDGET = float("inf")
 RESIDENCIES = ("vmem", "mixed", "hbm")
 # Bytes per row: f32 binary node, bf16 binary node, quad node, Woop row.
 FLAT_NODE_BYTES, BF16_NODE_BYTES, QUAD_NODE_BYTES, WOOP_ROW_BYTES = 64, 32, 128, 64
+# The widest leaf a quad leaf link ~(first | count << 24) can encode.
+MAX_LEAF_LINK = 127
 
 
 def _bf16_round_dir(x: np.ndarray, up: bool) -> np.ndarray:
@@ -155,26 +158,38 @@ def check_residency(residency: str) -> str:
 
 
 def _tune_path(flat, cache_dir: str | None) -> str | None:
-    """Per-scene tune-cache file, ``tpu_rt``'s name (content-keyed like the
-    quad cache), so a leaf width that ``tools/tune_quad.py`` recorded is
-    read here too."""
+    """Per-scene leaf-width tune file of the port, ``c<hash>.json``: content
+    keyed like the quad cache and beside it, under a salt and a name that
+    ``tpu_rt`` never writes (its ``_tune_path`` is ``t<hash>.json``, salt
+    ``quad-tune``), so a width tuned on a TPU does not route the card's
+    kernel.  ``tpu_rt_torch.bench.tune_quad`` writes it."""
     if cache_dir is None:
         return None
     h = hashlib.blake2b(digest_size=8)
     h.update(np.ascontiguousarray(flat.nodes).tobytes())
-    h.update(b"quad-tune")
-    return os.path.join(cache_dir, f"t{h.hexdigest()[:8]}.json")
+    h.update(b"quad-tune-cuda")
+    return os.path.join(cache_dir, f"c{h.hexdigest()[:8]}.json")
 
 
 def quad_policy(flat, cache_dir: str | None, budget_bytes: int) -> int:
-    """leaf_max of the 4-wide collapse: a recorded per-scene tune wins;
-    else 32 when the binary f32 node table exceeds the budget, 16
-    (MAX_LEAF4) otherwise."""
+    """leaf_max of the 4-wide collapse: a width recorded in the port's tune
+    file (``_tune_path``) wins; else 32 when the binary f32 node table
+    exceeds the budget, 16 (MAX_LEAF4) otherwise.  A missing file, one that
+    is not JSON or one without ``leaf_max`` gives the static rule silently,
+    as in ``tpu_rt``; a ``leaf_max`` that is not an int in [1, MAX_LEAF_LINK]
+    (a leaf link holds the count in 7 bits, ``quad_trace.cuh``) warns and
+    gives the static rule."""
     p = _tune_path(flat, cache_dir)
     if p is not None and os.path.exists(p):
         try:
             with open(p) as f:
-                return int(json.load(f)["leaf_max"])
-        except (OSError, KeyError, ValueError):
+                leaf_max = json.load(f)["leaf_max"]
+        except (OSError, KeyError, TypeError, ValueError):
             pass
+        else:
+            if type(leaf_max) is int and 1 <= leaf_max <= MAX_LEAF_LINK:
+                return leaf_max
+            warnings.warn(f"tpu_rt_torch: tune file {p}: leaf_max {leaf_max!r} is not an int "
+                          f"in [1, {MAX_LEAF_LINK}]; using the static rule", RuntimeWarning,
+                          stacklevel=2)
     return 32 if _rows(flat.nodes) * FLAT_NODE_BYTES > budget_bytes else MAX_LEAF4
