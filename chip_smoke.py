@@ -173,6 +173,25 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      ``Renderer(tracer="auto")`` on each, routed at the recorded width and
      held to ``trace_quad_scalar`` on 8,192 rays; a file at ``tpu_rt``'s
      tune path does not move the route; every tune file written is deleted.
+34.  the headline run (``tpu_rt_torch.bench.bench``, bench.py's
+     counterpart): ``python -m tpu_rt_torch.bench.bench`` in a subprocess
+     with bench.py's defaults (bunny primary 640x480), then ``bench.main``
+     here on dragon primary and conference AO, counted: each JSON line
+     printed, verified rays and Mray/s above 0, route ``quad-cuda``,
+     ``detail.device`` the card's nvidia-smi line.
+35.  the suite (``tpu_rt_torch.bench.bench_suite``): every row of its 19
+     but those on hairball and sanmiguel (``SUITE_SKIP``: their SBVH builds
+     would take minutes), grouped by scene, at 640x480 with the census and
+     the cost model, ``build/bench/SUITE.md`` printed; then
+     ``--verify-full`` (bunny, conference and dragon through "auto", and
+     the binary vmem f32, mixed f32, mixed bf16 and hbm f32 forms, every
+     ray of each frame against the wavefront, disputes adjudicated by
+     ``trace_flat_scalar``: no kernel-wrong ray) and ``--verify-ao`` (knob
+     AO, 8 samples, at least 3 batches, none wrong).  A row with an error
+     fails the run.
+36.  the differentiable-path bench (``tpu_rt_torch.bench.bench_diff``) on
+     bunny: routing, forward and grad step through ``dist/`` on a world of
+     1, ms and Mray/s.
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
@@ -196,9 +215,11 @@ forms' entries carry ``first_ms``, their first version's time, and their
 carry ``first_ms`` and ``ab_ms`` (the designs in phase 27) and their
 ``launch_shape``.  No single PyTorch call computes a BVH traversal or a
 probe, so ``library_ms`` is null.  The four default frame forms' entries
-also carry ``paths``: the launches of phases 28-33's paths, by path name
-(phase 30b's summed over its ranks; phases 31-33 as ``cli``, ``viewer`` and
-``tune``).
+also carry ``paths``: the launches of phases 28-36's paths, by path name
+(phase 30b's summed over its ranks; phases 31-36 as ``cli``, ``viewer``,
+``tune``, ``bench``, ``suite``, ``fullframe`` and ``diff``; the entries of
+the stats forms and of the forced layouts carry the last four where those
+paths launched them).
 """
 
 from __future__ import annotations
@@ -224,6 +245,9 @@ AO_SAMPLES = 8
 AO_MAX_BATCH = 1 << 21        # the Renderer's default: 2 AO batches at 640x480
 WARMUP, REPEATS = 2, 5        # as bench.py: BENCH_WARMUP / BENCH_REPEATS
 PLAIN_WARMUP, PLAIN_REPEATS = 1, 3
+# The dragon plain versions take 1.2-7.2 s a call: one timed call each keeps
+# phase 19 about 40 s shorter.
+DRAGON_PLAIN_REPEATS = 1
 ORACLE_RAYS = 8192
 DEVICE = "cuda"
 BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -1608,9 +1632,9 @@ def dragon_timing(t0, quad_k, flat_k, dctx, fctx):
               f"pass 2 {passes[(label, 2)][1]:.4f}")
     plain_ms = {}
     for tree, p in fctx["plains"].items():
-        p_c = time_ms(lambda: p["plain"](p["tables"], rays), PLAIN_WARMUP, PLAIN_REPEATS)
+        p_c = time_ms(lambda: p["plain"](p["tables"], rays), PLAIN_WARMUP, DRAGON_PLAIN_REPEATS)
         p_a = time_ms(lambda: p["plain"](p["tables"], b1.rays, any_hit=True), PLAIN_WARMUP,
-                      PLAIN_REPEATS)
+                      DRAGON_PLAIN_REPEATS)
         timing_line(f"dragon plain {tree} closest hit, primary", p_c, rays)
         timing_line(f"dragon plain {tree} any hit, AO batch 1", p_a, b1.rays, b1_live)
         plain_ms[tree] = (median(p_c), median(p_a))
@@ -3186,6 +3210,184 @@ def tune_phase(t0, quad_k, flat_k, bctx, dctx, dev):
     return {"quad_trace": closest}, records
 
 
+# ---------------------------------------------------------------------------
+# Phases 34-36: the measurement harness (tpu_rt_torch.bench.bench,
+# bench_suite, bench_diff)
+# ---------------------------------------------------------------------------
+
+BENCH_OUT = os.path.join(BUILD, "bench")   # the harness's default output, git-ignored
+# Settings the harness reads from the environment (bench.py's BENCH_*, the
+# suite's BS_*, the diff bench's BD_*); none here: their defaults, 640x480.
+HEADLINE_ENV: dict = {}
+SUITE_ENV: dict = {}
+DIFF_ENV: dict = {}
+# The suite's rows on hairball (6.47M triangles) and sanmiguel (1.50M) are
+# left out: their SBVH builds alone would take minutes of this run.
+SUITE_SKIP = ("hairball", "sanmiguel")
+# Kernels-line entry of each frame and stats form.
+ENTRY_OF_FORM = {"closest": "", "any": "_anyhit", "closest_stats": "_stats",
+                 "any_stats": "_stats"}
+
+
+def entry_counts(quad_k, flat_k) -> dict:
+    """{kernels-line entry: launches} of both kernels since the last reset
+    (the layouts' entries as ``flat_trace@mixed-bf16``); a uv form must not
+    have launched."""
+    torch.cuda.synchronize()
+    out = {}
+    for k in (quad_k, flat_k):
+        for form, n in k.launches_by_form.items():
+            if n:
+                base, _, lay = form.partition("@")
+                check(base in ENTRY_OF_FORM, f"{k.name} launched its {form} form")
+                name = k.name + ENTRY_OF_FORM[base] + (f"@{lay}" if lay else "")
+                out[name] = out.get(name, 0) + n
+    return out
+
+
+def reset_counts(*kernels) -> None:
+    for k in kernels:
+        k.reset_counts()
+
+
+def headline_phase(t0, quad_k, flat_k):
+    """Phase 34: the headline run (``tpu_rt_torch.bench.bench``, bench.py's
+    counterpart).  (a) ``python -m tpu_rt_torch.bench.bench`` in a
+    subprocess with bench.py's defaults (bunny primary 640x480); (b)
+    ``bench.main`` in this process on dragon primary (BASELINE.md's primary
+    metric) and conference AO, counted.  Each line: verified rays and Mray/s
+    above 0, the route ``quad-cuda`` (as phase 5's), ``detail.device`` the
+    card's nvidia-smi line.  Returns ({kernel entry: launches} of (b), the
+    lines)."""
+    from tpu_rt_torch.bench import bench
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(BENCH_OUT, ignore_errors=True)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(HEADLINE_ENV)
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_rt_torch.bench.bench", "--device", DEVICE,
+                           "--cache-dir", CACHE, "--out", BENCH_OUT],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    print("\n".join(f"  | {ln}" for ln in (proc.stdout + proc.stderr).splitlines()))
+    check(proc.returncode == 0, f"python -m tpu_rt_torch.bench.bench exited {proc.returncode}")
+    lines = {f"{SCENE} primary (python -m tpu_rt_torch.bench.bench, "
+             f"{time.perf_counter() - t1:.2f} s in its process)":
+             json.loads(proc.stdout.strip().splitlines()[-1])}
+    reset_counts(quad_k, flat_k)
+    for scene, ray_type in ((DRAGON, "primary"), (SECONDARY_SCENE, "ao")):
+        t1 = time.perf_counter()
+        res = bench.main(dict(HEADLINE_ENV, BENCH_SCENE=scene, BENCH_RAY_TYPE=ray_type),
+                         device=DEVICE, cache_dir=CACHE, out_dir=BENCH_OUT)
+        lines[f"{scene} {ray_type} (bench.main, {time.perf_counter() - t1:.2f} s)"] = res
+    counts = entry_counts(quad_k, flat_k)
+    card = torch.cuda.get_device_name(0)
+    for what, res in lines.items():
+        d = res["detail"]
+        print(f"headline {what}: {res['metric']} {res['value']:.2f} Mray/s, vs_baseline "
+              f"{res['vs_baseline']}, best {d['best_s'] * 1e3:.4f} ms mean "
+              f"{d['mean_s'] * 1e3:.4f} ms per trace, rays_metric {d['rays_metric']}, "
+              f"verified_rays {d['verified_rays']}, tracer {d['tracer']}, device {d['device']}")
+        check(d["verified_rays"] > 0 and res["value"] > 0 and d["tracer"] == "quad-cuda"
+              and card in d["device"], f"headline {what}: {res}")
+    # Each in-process run: one verification trace, the warm-up traces and
+    # the timed chains, all on the routed kernel (closest for primary rays,
+    # any hit for AO).
+    s = bench.settings(HEADLINE_ENV)
+    per = 1 + s["warmup"] + s["repeats"] * s["chain"]
+    print(f"headline: launches of bench.main {counts}")
+    check(counts == {"quad_trace": per, "quad_trace_anyhit": per}, f"bench.main launched {counts}")
+    phase(f"headline runs done ({time.perf_counter() - t_phase:.2f} s of phase 34)", t0)
+    return counts, lines
+
+
+def suite_phase(t0, quad_k, flat_k):
+    """Phase 35: the suite (``tpu_rt_torch.bench.bench_suite``): every row of
+    ``ROWS`` on a scene not in ``SUITE_SKIP``, grouped by scene, at 640x480
+    with census and cost model, writing ``build/bench/SUITE.md``; then
+    ``--verify-full`` (the seven targets, every ray of each frame, no
+    kernel-wrong ray) and ``--verify-ao`` (at least 3 batches, none wrong).
+    Returns {path: {kernel entry: launches}} for "suite" and "fullframe"."""
+    from tpu_rt_torch.bench import bench_suite
+
+    t_phase = time.perf_counter()
+    scenes = list(dict.fromkeys(s for s, _ in bench_suite.ROWS if s not in SUITE_SKIP))
+    rows = [r for name in scenes for r in bench_suite.ROWS if r[0] == name]
+    args = ["--out", BENCH_OUT, "--device", DEVICE, "--cache-dir", CACHE]
+    reset_counts(quad_k, flat_k)
+    results = bench_suite.main([f"{s}:{t}" for s, t in rows] + args, env=SUITE_ENV)
+    suite = entry_counts(quad_k, flat_k)
+    for r in results:
+        check("error" not in r and r.get("mrays", 0) > 0 and "iters" in r, f"suite row {r}")
+    # Per row: 2 warm-up traces and the timed chains on the row's form, one
+    # census trace (stats form), and for a secondary row the closest-hit
+    # pre-trace of its primary rays.
+    chains = int(SUITE_ENV.get("BS_REPEATS", 3)) * int(SUITE_ENV.get("BS_CHAIN", 32))
+    want = {}
+    for r in results:
+        check(r["tracer"] in ("quad-cuda", "flat-cuda"), f"suite row routed {r['tracer']}")
+        k = "quad_trace" if r["tracer"] == "quad-cuda" else "flat_trace"
+        for name, n in ((k + ("_anyhit" if r["ray_type"] == "ao" else ""), 2 + chains),
+                        (k + "_stats", 1), (k, int(r["ray_type"] != "primary"))):
+            want[name] = want.get(name, 0) + n
+    print(f"suite: {len(results)} rows ({', '.join(scenes)}; left out: "
+          f"{', '.join(dict.fromkeys(s for s, _ in bench_suite.ROWS if s in SUITE_SKIP))}) "
+          f"in {time.perf_counter() - t_phase:.2f} s; launches {suite}")
+    check(suite == {k: v for k, v in want.items() if v}, f"the suite launched {suite}, want {want}")
+    with open(os.path.join(BENCH_OUT, bench_suite.SUITE_MD)) as f:
+        print("\n".join(f"  | {ln}" for ln in f.read().splitlines()))
+    phase(f"suite done ({time.perf_counter() - t_phase:.2f} s)", t0)
+
+    t1 = time.perf_counter()
+    reset_counts(quad_k, flat_k)
+    full = bench_suite.main(["--verify-full"] + args, env=SUITE_ENV)
+    ao = bench_suite.main(["--verify-ao"] + args, env=SUITE_ENV)
+    fullframe = entry_counts(quad_k, flat_k)
+    n_rays = int(SUITE_ENV.get("BS_WIDTH", WIDTH)) * int(SUITE_ENV.get("BS_HEIGHT", HEIGHT))
+    print(f"fullframe: {json.dumps(full)}")
+    print(f"fullframe ao: {json.dumps(ao)}")
+    check(len(full) == len(bench_suite.FULLFRAME_TARGETS), f"{len(full)} full-frame entries")
+    check(all(e["kernel_wrong"] == 0 and e["verified"] and e["rays"] == n_rays
+              for e in full.values()), "a full-frame target has kernel-wrong rays")
+    check(ao["batches"] >= 3 and ao["kernel_wrong"] == 0 and ao["verified"]
+          and ao["image_nonempty"], f"the AO frame check: {ao}")
+    # The default route (4-wide) on the three "auto" targets and the AO
+    # frame's primary pre-trace and batches; each forced binary form once.
+    want = {"quad_trace": 4, "quad_trace_anyhit": ao["batches"], "flat_trace": 1,
+            "flat_trace@mixed": 1, "flat_trace@mixed-bf16": 1, "flat_trace@hbm": 1}
+    print(f"fullframe: launches {fullframe}")
+    check(fullframe == want, f"the full-frame checks launched {fullframe}, want {want}")
+    phase(f"full-frame checks done ({time.perf_counter() - t1:.2f} s; "
+          f"{time.perf_counter() - t_phase:.2f} s of phase 35)", t0)
+    return {"suite": suite, "fullframe": fullframe}
+
+
+def diff_phase(t0, quad_k, flat_k):
+    """Phase 36: the differentiable-path bench
+    (``tpu_rt_torch.bench.bench_diff``) on bunny's primary frame: routing,
+    forward and grad step through ``dist/`` on a world of 1, ms and Mray/s.
+    Returns ({kernel entry: launches}, the row)."""
+    from tpu_rt_torch.bench import bench_diff
+
+    t_phase = time.perf_counter()
+    reset_counts(quad_k, flat_k)
+    out = bench_diff.main([SCENE, "--device", DEVICE, "--cache-dir", CACHE, "--out", BENCH_OUT],
+                          env=DIFF_ENV)
+    counts = entry_counts(quad_k, flat_k)
+    print("diff: " + "; ".join(f"{k} {out[f'{k}_s'] * 1e3:.4f} ms {out[f'{k}_mrays']:.2f} Mray/s"
+                               for k in ("routing", "forward", "grad_step"))
+          + f"; diff overhead {out['diff_overhead_s'] * 1e3:.4f} ms, backward "
+          f"{out['backward_s'] * 1e3:.4f} ms, psum_bytes {out['psum_bytes']}; launches {counts}")
+    check(all(out[f"{k}_s"] > 0 for k in ("routing", "forward", "grad_step"))
+          and out["routing"] == "quad-cuda", f"the diff bench: {out}")
+    # Routing, forward and step each route through the kernel once a call:
+    # 2 warm-up calls and the timed chains.
+    per = 2 + int(DIFF_ENV.get("BD_REPEATS", 3)) * int(DIFF_ENV.get("BD_CHAIN", 2))
+    check(counts == {"quad_trace": 3 * per}, f"the diff bench launched {counts}")
+    phase(f"diff bench done ({time.perf_counter() - t_phase:.2f} s of phase 36)", t0)
+    return counts, out
+
+
 # The probes are built with -fmad=false, so each f32 operation they count
 # is an instruction of its own: one per lane per clock, half of the 67
 # TFLOP/s peak, which counts a fused multiply-add as two.
@@ -3370,6 +3572,11 @@ def main() -> None:
     print(f"app layer: launches by path {json.dumps(app)}; tuned leaf widths "
           f"{ {k: v['leaf_max'] for k, v in tuned.items()} }")
     phase(f"app layer done ({time.perf_counter() - t1:.2f} s of phases 31-33)", t0)
+    t1 = time.perf_counter()
+    harness = {"bench": headline_phase(t0, kernel, flat_k)[0]}
+    harness.update(suite_phase(t0, kernel, flat_k))
+    harness["diff"] = diff_phase(t0, kernel, flat_k)[0]
+    phase(f"measurement harness done ({time.perf_counter() - t1:.2f} s of phases 34-36)", t0)
     # The tensor-core frame forms' first versions, from the same A/B.
     for e in t_entries:
         if e["name"] in ("flat_trace_mxu", "flat_trace_mxu_anyhit"):
@@ -3418,7 +3625,7 @@ def main() -> None:
     quad_src, flat_src = "tpu_rt_torch/csrc/quad_trace.cu", "tpu_rt_torch/csrc/flat_trace.cu"
     f_bunny = times["flat closest-hit, bunny primary"]
     f_b1 = times["flat any-hit, AO batch 1"]
-    print(json.dumps({"kernels": [{
+    entries = [{
         "name": "quad_trace",
         "route": "cuda",
         "paths": new_paths["quad_trace"],
@@ -3465,7 +3672,14 @@ def main() -> None:
         "first_ms": ab[("flat_trace", "conference AO batch 1")]["first"],
         "plain_ms": f_b1[1],
         **bounds["flat_any"], "library_ms": None,
-    }, *form_entries("flat", flat_src, "flat_trace"), *d_entries, *t_entries, *p_entries]}))
+    }, *form_entries("flat", flat_src, "flat_trace"), *d_entries, *t_entries, *p_entries]
+    # Phases 34-36's paths, by entry.
+    by_name = {e["name"]: e for e in entries}
+    for path, counts in harness.items():
+        for name, n in counts.items():
+            check(name in by_name, f"{path}: launches of {name}, which has no entry")
+            by_name[name].setdefault("paths", {})[path] = n
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -322,6 +322,11 @@ def test_port_imports_no_jax():
         assert tpu_rt_torch.native.native_available() in (True, False)
         assert cli.main(["--scene", "knob", "--size", "16x12", "--warmup-repeats", "0",
                          "--measure-repeats", "1", "--device", "cpu", "--cache-dir", ""]) == 0
+        import tpu_rt_torch.bench.bench, tpu_rt_torch.bench.bench_suite
+        import tpu_rt_torch.bench.calibrate, tpu_rt_torch.bench.bench_diff
+        row = tpu_rt_torch.bench.bench_suite.bench_row("knob", "ao", 16, 12, 1, 1, device="cpu",
+                                                       cache_dir=None)
+        assert row["mrays"] > 0 and row["groups"] == 6
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "tpu_rt", "optax", "orbax"))
         print("BAD", bad)
