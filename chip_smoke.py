@@ -192,6 +192,24 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 36.  the differentiable-path bench (``tpu_rt_torch.bench.bench_diff``) on
      bunny: routing, forward and grad step through ``dist/`` on a world of
      1, ms and Mray/s.
+37.  the 4-wide against the binary kernel (``tpu_rt_torch.bench.
+     quad_probe``) on bunny and knob, primary and AO rays at 640x480
+     (``QP_CHAIN`` 8): Mray/s of each, the census (a group per 32 rays) and
+     4,096 rays of each against ``trace_flat_scalar`` (no ray wrong).
+38.  AO-batch schedules (``tpu_rt_torch.bench.ao_probe``) on knob AO at
+     1024x768 (786,432 rays): unsorted, 192-bit Morton, compacted
+     (the live prefix only), spread, and 2 leaf cursors unsorted and
+     compacted; every schedule the same hit count.
+39.  the iteration census (``tpu_rt_torch.bench.iter_probe --subsets``) on
+     knob at 640x480: primary, AO and diffuse in Morton and
+     direction-octant order, and the secondary batches split by the
+     surface their primary ray hit (plane and blob live rays together the
+     batch's).
+40.  the host simulators on bunny at 1024x768: ``packet_stats`` at tiles
+     1024 and 2048 and ``treelet_sim`` on AO rays at treelets of 256 and
+     1,024 nodes (8 packets each; the AO pre-trace on the binary kernel).
+     In phases 37-40 the launches of each tool's run are counted and held
+     to what its loop implies.
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
@@ -215,11 +233,12 @@ forms' entries carry ``first_ms``, their first version's time, and their
 carry ``first_ms`` and ``ab_ms`` (the designs in phase 27) and their
 ``launch_shape``.  No single PyTorch call computes a BVH traversal or a
 probe, so ``library_ms`` is null.  The four default frame forms' entries
-also carry ``paths``: the launches of phases 28-36's paths, by path name
-(phase 30b's summed over its ranks; phases 31-36 as ``cli``, ``viewer``,
-``tune``, ``bench``, ``suite``, ``fullframe`` and ``diff``; the entries of
-the stats forms and of the forced layouts carry the last four where those
-paths launched them).
+also carry ``paths``: the launches of phases 28-40's paths, by path name
+(phase 30b's summed over its ranks; phases 31-40 as ``cli``, ``viewer``,
+``tune``, ``bench``, ``suite``, ``fullframe``, ``diff``, ``quad_probe``,
+``ao_probe``, ``iter_probe`` and ``treelet``; the entries of the stats
+forms, of the forced layouts and of the postponed-leaf any-hit form carry
+those of phases 34-40 where those paths launched them).
 """
 
 from __future__ import annotations
@@ -3229,16 +3248,18 @@ ENTRY_OF_FORM = {"closest": "", "any": "_anyhit", "closest_stats": "_stats",
                  "any_stats": "_stats"}
 
 
-def entry_counts(quad_k, flat_k) -> dict:
-    """{kernels-line entry: launches} of both kernels since the last reset
-    (the layouts' entries as ``flat_trace@mixed-bf16``); a uv form must not
-    have launched."""
+def entry_counts(*kernels) -> dict:
+    """{kernels-line entry: launches} of the kernels since the last reset
+    (the layouts' entries as ``flat_trace@mixed-bf16``, a postponed-leaf
+    library's as ``flat_trace_c_anyhit``); a uv form must not have
+    launched."""
     torch.cuda.synchronize()
     out = {}
-    for k in (quad_k, flat_k):
+    for k in kernels:
         for form, n in k.launches_by_form.items():
             if n:
                 base, _, lay = form.partition("@")
+                base = base[:len(base) - len(k.suffix)] if k.suffix else base
                 check(base in ENTRY_OF_FORM, f"{k.name} launched its {form} form")
                 name = k.name + ENTRY_OF_FORM[base] + (f"@{lay}" if lay else "")
                 out[name] = out.get(name, 0) + n
@@ -3386,6 +3407,154 @@ def diff_phase(t0, quad_k, flat_k):
     check(counts == {"quad_trace": 3 * per}, f"the diff bench launched {counts}")
     phase(f"diff bench done ({time.perf_counter() - t_phase:.2f} s of phase 36)", t0)
     return counts, out
+
+
+# ---------------------------------------------------------------------------
+# Phases 37-40: the design tools (tpu_rt_torch.bench.quad_probe, ao_probe,
+# iter_probe, packet_stats, treelet_sim)
+# ---------------------------------------------------------------------------
+
+TOOL_SCENE = "knob"     # the scene of ao_probe's and iter_probe's defaults
+TOOL_FRAME = (1024, 768)    # the frame of ao_probe, packet_stats and treelet_sim
+# The tools' settings (their environment variables): quad_probe's chains
+# cut from 32 to 8 traces, the simulators' samples from 64 / 48 packets to 8.
+QUAD_PROBE_ENV = {"QP_CHAIN": "8"}
+PACKET_STATS_ENV = {"PS_MAX_PACKETS": "8"}
+TREELET_ENV = {"TS_MAX_PACKETS": "8", "TS_WH": "x".join(map(str, TOOL_FRAME))}
+
+
+def quad_probe_phase(t0, quad_k, flat_k):
+    """Phase 37: ``quad_probe`` on bunny and knob, primary and AO rays: each
+    row verified (``bad`` 0 against ``trace_flat_scalar``), Mray/s above 0,
+    the census a group per 32 rays, the launches its loop implies.
+    Returns ({kernel entry: launches}, the rows)."""
+    from tpu_rt_torch.bench import quad_probe
+
+    t_phase = time.perf_counter()
+    scenes, types = (SCENE, TOOL_SCENE), ("primary", "ao")
+    reset_counts(quad_k, flat_k)
+    rows = quad_probe.main([*scenes, f"--types={','.join(types)}"], env=QUAD_PROBE_ENV,
+                           device=DEVICE, cache_dir=CACHE, width=WIDTH, height=HEIGHT)
+    counts = entry_counts(quad_k, flat_k)
+    check(len(rows) == 2 * len(scenes) * len(types), f"quad_probe: {len(rows)} rows")
+    for r in rows:
+        check(r["bad"] == 0 and r["mrays"] > 0 and r["groups"] == -(-r["rays"] // 32)
+              and r["rays"] == WIDTH * HEIGHT, f"quad_probe row {r}")
+    # Per scene and type, each kernel: two warm chains and the timed ones,
+    # one census trace (stats form); per scene, the AO rays' closest-hit
+    # pre-trace on the binary kernel.
+    s = quad_probe.settings(QUAD_PROBE_ENV)
+    per = (2 + s["repeats"]) * s["chain"]
+    n = len(scenes)
+    want = {"flat_trace": n * (per + 1), "flat_trace_anyhit": n * per,
+            "flat_trace_stats": 2 * n, "quad_trace": n * per, "quad_trace_anyhit": n * per,
+            "quad_trace_stats": 2 * n}
+    for r in rows:
+        print(f"quad_probe {r['scene']} {r['ray_type']} {r['kernel']}: best "
+              f"{r['best_s'] * 1e3:.6f} ms, {r['mrays']:.4f} Mray/s, iters {r['iters']}, "
+              f"groups {r['groups']}, {r['best_s'] / r['iters'] * 1e9:.6f} ns a warp-iteration"
+              + (f", packet4/packet2 {r['vs_flat']:.4f} (iters {r['iters_vs_flat']:.4f})"
+                 if "vs_flat" in r else ""))
+    print(f"quad_probe: launches {counts}")
+    check(counts == want, f"quad_probe launched {counts}, want {want}")
+    phase(f"quad_probe done ({time.perf_counter() - t_phase:.2f} s of phase 37)", t0)
+    return counts, rows
+
+
+def ao_probe_phase(t0, quad_k, flat_k, flat_c):
+    """Phase 38: ``ao_probe`` on knob AO at 1024x768: every schedule the same
+    hit count, ``compact`` and ``cmp-c2`` only the live prefix padded to
+    the tile, the launches its loop implies.  Returns ({kernel entry:
+    launches}, the rows)."""
+    from tpu_rt_torch.bench import ao_probe
+
+    t_phase = time.perf_counter()
+    reset_counts(quad_k, flat_k, flat_c)
+    rows = ao_probe.main([TOOL_SCENE, "ao"], env={}, device=DEVICE, cache_dir=CACHE,
+                         width=TOOL_FRAME[0], height=TOOL_FRAME[1])
+    counts = entry_counts(quad_k, flat_k, flat_c)
+    n, live, tile = TOOL_FRAME[0] * TOOL_FRAME[1], rows[0]["live"], 2048
+    prefix = min(n, -(-live // tile) * tile)
+    check(len({r["hits"] for r in rows}) == 1 and rows[0]["hits"] > 0 and 0 < live < n,
+          f"ao_probe: hits by schedule {[(r['name'], r['hits']) for r in rows]}")
+    for r in rows:
+        cut = r["name"] in ("compact", "cmp-c2")
+        check(r["rays"] == n and r["rays_traced"] == (prefix if cut else n) and r["mrays"] > 0,
+              f"ao_probe row {r}")
+    check(prefix < n, f"ao_probe: the live prefix {prefix} is the whole batch")
+    # Each schedule: one trace for the hits, one warm, 3 chains of 3; the
+    # primary pre-trace on the binary kernel.
+    per = 2 + 3 * 3
+    want = {"flat_trace": 1, "flat_trace_anyhit": 4 * per, "flat_trace_c_anyhit": 2 * per}
+    print(f"ao_probe: {n} rays, {live} live, compact prefix {prefix}; " + "; ".join(
+        f"{r['name']} {r['best_s'] * 1e3:.6f} ms ({r['best_s'] / rows[0]['best_s']:.4f}x "
+        f"unsorted)" for r in rows) + f"; launches {counts}")
+    check(counts == want, f"ao_probe launched {counts}, want {want}")
+    phase(f"ao_probe done ({time.perf_counter() - t_phase:.2f} s of phase 38)", t0)
+    return counts, rows
+
+
+def iter_probe_phase(t0, quad_k, flat_k):
+    """Phase 39: ``iter_probe --subsets`` on knob (primary, AO, diffuse):
+    each line a group per 32 rays, the plane's and the blob's live rays
+    together the batch's, two stats traces a line.  Returns ({kernel entry:
+    launches}, the rows)."""
+    from tpu_rt_torch.bench import iter_probe
+
+    t_phase = time.perf_counter()
+    reset_counts(quad_k, flat_k)
+    rows = iter_probe.main([TOOL_SCENE, "--subsets"], env={}, device=DEVICE, cache_dir=CACHE,
+                           width=WIDTH, height=HEIGHT)
+    counts = entry_counts(quad_k, flat_k)
+    by = {r["name"]: r for r in rows}
+    names = ["primary"] + [f"{rt}-{v}" for rt in ("ao", "diffuse")
+                           for v in ("suite", "diroct", "plane", "blob")]
+    check(list(by) == names, f"iter_probe lines {list(by)}")
+    for r in rows:
+        check(r["groups"] == -(-r["rays"] // 32) and r["iters"] > 0 and r["wall_s"] > 0,
+              f"iter_probe line {r}")
+    for rt in ("ao", "diffuse"):
+        live = by[f"{rt}-suite"]["live"]
+        check(by[f"{rt}-plane"]["live"] + by[f"{rt}-blob"]["live"] == live
+              == by[f"{rt}-diroct"]["live"], f"iter_probe {rt}: subsets' live rays")
+        for v in ("plane", "blob"):
+            check(by[f"{rt}-{v}"]["rays"] % (iter_probe.TILE * iter_probe.K) == 0,
+                  f"iter_probe {rt}-{v} not padded")
+    want = {"flat_trace_stats": 2 * len(rows)}
+    print("iter_probe: " + "; ".join(
+        f"{r['name']} {r['wall_s'] * 1e3:.6f} ms, {r['wall_s'] / r['iters'] * 1e9:.4f} ns a "
+        f"warp-iteration" for r in rows) + f"; launches {counts}")
+    check(counts == want, f"iter_probe launched {counts}, want {want}")
+    phase(f"iter_probe done ({time.perf_counter() - t_phase:.2f} s of phase 39)", t0)
+    return counts, rows
+
+
+def simulators_phase(t0, quad_k, flat_k):
+    """Phase 40: the host simulators on bunny at 1024x768: ``packet_stats``
+    at tiles 1024 and 2048, ``treelet_sim`` on AO rays at T 256 and 1024,
+    its primary pre-trace on the binary kernel.  Returns ({kernel entry:
+    launches} of treelet_sim, the rows)."""
+    from tpu_rt_torch.bench import packet_stats, treelet_sim
+
+    t_phase = time.perf_counter()
+    reset_counts(quad_k, flat_k)
+    ps = packet_stats.main([SCENE, "1024", "2048"], env=PACKET_STATS_ENV, device=DEVICE,
+                           cache_dir=CACHE, width=TOOL_FRAME[0], height=TOOL_FRAME[1])
+    check(entry_counts(quad_k, flat_k) == {}, "packet_stats launched a kernel")
+    check([(r["tile"], r["packets"]) for r in ps] == [(1024, 8), (2048, 8)]
+          and ps[0]["rays"] == TOOL_FRAME[0] * TOOL_FRAME[1]
+          and all(r["steps_per_ray"] > 0 for r in ps), f"packet_stats rows {ps}")
+    t_ps = time.perf_counter() - t_phase
+    ts = treelet_sim.main([SCENE, "ao", "256", "1024"], env=TREELET_ENV, device=DEVICE,
+                          cache_dir=CACHE)
+    counts = entry_counts(quad_k, flat_k)
+    check([r["T"] for r in ts] == [None, 256, 1024] and ts[0]["packets"] == 8
+          and ts[0]["rays"] == TOOL_FRAME[0] * TOOL_FRAME[1]
+          and all(r["steps_per_ray"] > 0 for r in ts), f"treelet_sim rows {ts}")
+    check(counts == {"flat_trace": 1}, f"treelet_sim launched {counts}")
+    phase(f"simulators done (packet_stats {t_ps:.2f} s, treelet_sim "
+          f"{time.perf_counter() - t_phase - t_ps:.2f} s of phase 40)", t0)
+    return counts, {"packet_stats": ps, "treelet_sim": ts}
 
 
 # The probes are built with -fmad=false, so each f32 operation they count
@@ -3577,6 +3746,12 @@ def main() -> None:
     harness.update(suite_phase(t0, kernel, flat_k))
     harness["diff"] = diff_phase(t0, kernel, flat_k)[0]
     phase(f"measurement harness done ({time.perf_counter() - t1:.2f} s of phases 34-36)", t0)
+    t1 = time.perf_counter()
+    harness["quad_probe"] = quad_probe_phase(t0, kernel, flat_k)[0]
+    harness["ao_probe"] = ao_probe_phase(t0, kernel, flat_k, flat_kernel.KERNEL_C)[0]
+    harness["iter_probe"] = iter_probe_phase(t0, kernel, flat_k)[0]
+    harness["treelet"] = simulators_phase(t0, kernel, flat_k)[0]
+    phase(f"design tools done ({time.perf_counter() - t1:.2f} s of phases 37-40)", t0)
     # The tensor-core frame forms' first versions, from the same A/B.
     for e in t_entries:
         if e["name"] in ("flat_trace_mxu", "flat_trace_mxu_anyhit"):
@@ -3673,7 +3848,7 @@ def main() -> None:
         "plain_ms": f_b1[1],
         **bounds["flat_any"], "library_ms": None,
     }, *form_entries("flat", flat_src, "flat_trace"), *d_entries, *t_entries, *p_entries]
-    # Phases 34-36's paths, by entry.
+    # Phases 34-40's paths, by entry.
     by_name = {e["name"]: e for e in entries}
     for path, counts in harness.items():
         for name, n in counts.items():

@@ -327,8 +327,14 @@ def test_port_imports_no_jax():
         row = tpu_rt_torch.bench.bench_suite.bench_row("knob", "ao", 16, 12, 1, 1, device="cpu",
                                                        cache_dir=None)
         assert row["mrays"] > 0 and row["groups"] == 6
+        import tpu_rt_torch.bench.packet_stats, tpu_rt_torch.bench.treelet_sim
+        import tpu_rt_torch.bench.iter_probe, tpu_rt_torch.bench.ao_probe
+        import tpu_rt_torch.bench.quad_probe
+        rows = tpu_rt_torch.bench.iter_probe.main(["knob", "primary"], {}, device="cpu",
+                                                  cache_dir=None, width=16, height=12)
+        assert rows[0]["groups"] == 6
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_rt", "optax", "orbax"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "tpu_rt", "optax", "orbax", "tools"))
         print("BAD", bad)
         sys.exit(1 if bad else 0)
     """)

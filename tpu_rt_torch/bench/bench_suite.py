@@ -109,14 +109,21 @@ def _setup_scene(scene_name: str, cache_dir: str | None = "bvhcache"):
     return scene, flat
 
 
+def warp_iters(stats: dict) -> torch.Tensor:
+    """Each 32-ray warp's largest per-ray node_tests + tri_tests (int64,
+    one per warp; the last warp padded with zeros)."""
+    work = stats["node_tests"].long() + stats["tri_tests"].long()
+    groups = -(-work.numel() // WARP)
+    work = torch.nn.functional.pad(work, (0, groups * WARP - work.numel()))
+    return work.view(groups, WARP).amax(1)
+
+
 def census(stats: dict) -> tuple[int, int]:
     """(groups, iters) of a trace's per-ray counters: the number of 32-ray
     warps, and the sum over warps of the warp's largest per-ray
     node_tests + tri_tests."""
-    work = stats["node_tests"].long() + stats["tri_tests"].long()
-    groups = -(-work.numel() // WARP)
-    work = torch.nn.functional.pad(work, (0, groups * WARP - work.numel()))
-    return groups, int(work.view(groups, WARP).amax(1).sum())
+    it = warp_iters(stats)
+    return it.numel(), int(it.sum())
 
 
 def bench_row(scene_name: str, ray_type: str, width: int, height: int, repeats: int,
