@@ -6,9 +6,10 @@ and holds every kernel form against its plain PyTorch version and the host
 oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 
 1.   builds every kernel library (quad_trace.cu, quad_trace_c.cu,
-     flat_trace.cu, flat_trace_c.cu, flat_trace_mxu.cu, mxu_ablate.cu,
+     flat_trace.cu, flat_trace_c.cu, flat_trace_mxu.cu, the slot libraries
+     quad_trace_k{1,2,4,8}.cu and flat_trace_k{1,2,4,8}.cu, mxu_ablate.cu,
      ablate2.cu, mosaic_probe3.cu; one nvcc each, all run together;
-     28 + 24 + 52 + 48 + 50 + 6 + 10 + 9 forms) and prints ptxas' registers,
+     28 + 24 + 52 + 48 + 50 + 4 x 24 + 4 x 48 + 6 + 10 + 9 forms) and prints ptxas' registers,
      stack and spills per form; the vmem f32 frame forms of the persistent
      kernels and their first versions must keep their registers and stack
      (``PTXAS_VMEM_F32``), no persistent frame form (the tensor-core ones
@@ -193,13 +194,18 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      bunny: routing, forward and grad step through ``dist/`` on a world of
      1, ms and Mray/s.
 37.  the 4-wide against the binary kernel (``tpu_rt_torch.bench.
-     quad_probe``) on bunny and knob, primary and AO rays at 640x480
-     (``QP_CHAIN`` 8): Mray/s of each, the census (a group per 32 rays) and
-     4,096 rays of each against ``trace_flat_scalar`` (no ray wrong).
+     quad_probe``) on bunny and knob, primary and AO rays at 640x480, in
+     two runs at ``QP_CHAIN`` 8: the tool's default forms, then the 4-wide
+     rows at ``QP_U4`` 4 and 16, ``QP_K`` 2, ``QP_TILE`` 512 on the slot
+     forms.  Mray/s of each, the census (a group per 32 rays), the 4-wide
+     rows' hits equal across U, and 4,096 rays of each against
+     ``trace_flat_scalar`` (no ray wrong).
 38.  AO-batch schedules (``tpu_rt_torch.bench.ao_probe``) on knob AO at
-     1024x768 (786,432 rays): unsorted, 192-bit Morton, compacted
-     (the live prefix only), spread, and 2 leaf cursors unsorted and
-     compacted; every schedule the same hit count.
+     1024x768 (786,432 rays), the JAX tool's eleven: unsorted, 192-bit
+     Morton, compacted (the live prefix only), spread, the slot forms at
+     tiles of 512 and 1,024 rays and K 4 and 8 unsorted (and 512, 8
+     compacted), and 2 leaf cursors unsorted and compacted; every schedule
+     the same hit count.
 39.  the iteration census (``tpu_rt_torch.bench.iter_probe --subsets``) on
      knob at 640x480: primary, AO and diffuse in Morton and
      direction-octant order, and the secondary batches split by the
@@ -210,6 +216,17 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      1,024 nodes (8 packets each; the AO pre-trace on the binary kernel).
      In phases 37-40 the launches of each tool's run are counted and held
      to what its loop implies.
+41.  the slot forms (``tpu_rt``'s ``k``, ``u`` and ``tile`` through
+     ``trace_quad`` / ``trace_flat``) of both kernels on bunny primary
+     (closest hit, 307,200 rays) and conference AO batch 1 (any hit,
+     2,097,152 rays), each kernel on its own frames' rays: K 1, 2, 4, 8; U
+     1, 3, 16 and tiles of 128, 512, 2,048 rays at K = 1; ``tpu_rt``'s
+     defaults (binary K 2, U 3, tile 2,048; 4-wide K 1, U 16, tile 2,048).
+     Every launch's tri and t bit-equal to the default form's (and the
+     plain version's) on every ray, the stats forms' counters too; each
+     setting and the default form timed with ``bench.chain_times`` (best
+     of 3 chains of 32); registers, spills and blocks per SM of each
+     library.  A path of its own: counts set to 0 before it, read after.
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
@@ -236,9 +253,16 @@ probe, so ``library_ms`` is null.  The four default frame forms' entries
 also carry ``paths``: the launches of phases 28-40's paths, by path name
 (phase 30b's summed over its ranks; phases 31-40 as ``cli``, ``viewer``,
 ``tune``, ``bench``, ``suite``, ``fullframe``, ``diff``, ``quad_probe``,
-``ao_probe``, ``iter_probe`` and ``treelet``; the entries of the stats
+``quad_probe_slots``, ``ao_probe``, ``iter_probe`` and ``treelet``; the entries of the stats
 forms, of the forced layouts and of the postponed-leaf any-hit form carry
-those of phases 34-40 where those paths launched them).
+those of phases 34-40 where those paths launched them).  The slot
+forms' entries (one per library and hit kind, ``quad_trace_k2``,
+``flat_trace_k8_anyhit``) count phase 41's launches at every setting and
+carry each setting's time under ``settings``, the default form's time,
+their registers, spills and blocks per SM; their plain time and bound are
+the default form's on the same rays (the same node and triangle tests),
+and phases 37-38's launches of them are in their ``paths`` (of their
+stats forms, in ``stats_paths``).
 """
 
 from __future__ import annotations
@@ -360,15 +384,18 @@ PTXAS_VMEM_F32 = {"quad_trace<any=0,uv=0,stats=0>": (48, 256),
 KERNEL_FLAGS = {"quad_trace": ("any", "uv", "stats", "sn", "st", "c", "shared"),
                 "flat_trace": ("any", "uv", "stats", "bf16", "sn", "st", "c", "shared"),
                 "flat_trace_mxu": ("any", "uv", "stats", "bf16", "sn", "st"),
-                "quad_first": ("any",), "flat_first": ("any",), "flat_mxu_first": ("any",)}
+                "quad_first": ("any",), "flat_first": ("any",), "flat_mxu_first": ("any",),
+                "quad_slots": ("any", "uv", "stats", "sn", "st"),
+                "flat_slots": ("any", "uv", "stats", "bf16", "sn", "st")}
 # The library of each kernel template.
 KERNEL_LIB = {"quad_trace": "quad_trace", "flat_trace": "flat_trace",
               "flat_trace_mxu": "flat_trace_mxu", "quad_first": "quad_trace",
               "flat_first": "flat_trace", "flat_mxu_first": "flat_trace_mxu"}
 # quad (+ 2 first versions and 2 with the shared-memory stack), quad_c, flat
-# (+ 2 + 2), flat_c, flat_mxu (+ 2 first versions); the probes mxu_ablate,
+# (+ 2 + 2), flat_c, flat_mxu (+ 2 first versions); the slot libraries,
+# quad_trace_k{1,2,4,8} and flat_trace_k{1,2,4,8}; the probes mxu_ablate,
 # ablate2, mosaic_probe3
-N_FORMS = 24 + 4 + 24 + 48 + 4 + 48 + 48 + 2 + 6 + 10 + 9
+N_FORMS = 24 + 4 + 24 + 48 + 4 + 48 + 48 + 2 + 4 * 24 + 4 * 48 + 6 + 10 + 9
 # The mxu_ablate variants whose SASS holds DMMA (noM replaces each mma by an
 # add and a subtract; scalar has none).
 DMMA_VARIANTS = ("full", "noL", "epi0", "smem")
@@ -429,15 +456,19 @@ def ptxas_forms(log: str) -> list[tuple[str, int, int, int, str]]:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             flags = re.search(r"(quad_trace|flat_trace_mxu|flat_trace|quad_first|flat_first|"
-                              r"flat_mxu_first)_kernelI((?:Lb[01]E)+)E", m.group(1))
+                              r"flat_mxu_first|quad_slots|flat_slots)_kernelI(?:Li(\d)E)?"
+                              r"((?:Lb[01]E)+)E", m.group(1))
             probe = re.search(r"(mxu_ablate|ablate2|mosaic_probe3)_kernelILi(\d)E", m.group(1))
             if flags:
                 f = dict(zip(KERNEL_FLAGS[flags.group(1)],
-                             (int(x) for x in re.findall(r"Lb([01])E", flags.group(2)))))
+                             (int(x) for x in re.findall(r"Lb([01])E", flags.group(3)))))
                 res = ("hbm" if f.get("sn") else "mixed") if f.get("st") else "vmem"
                 bf16 = f.get("bf16", 0) == 1
                 lay = "" if res == "vmem" and not bf16 else f"@{res}" + ("-bf16" if bf16 else "")
-                lib = KERNEL_LIB[flags.group(1)] + ("_c" if f.get("c") else "")
+                if flags.group(2):
+                    lib = f"{flags.group(1)[:4]}_trace_k{flags.group(2)}"
+                else:
+                    lib = KERNEL_LIB[flags.group(1)] + ("_c" if f.get("c") else "")
                 if flags.group(1).endswith("_first"):
                     lay += "/first"
                 elif f.get("shared"):
@@ -3251,8 +3282,10 @@ ENTRY_OF_FORM = {"closest": "", "any": "_anyhit", "closest_stats": "_stats",
 def entry_counts(*kernels) -> dict:
     """{kernels-line entry: launches} of the kernels since the last reset
     (the layouts' entries as ``flat_trace@mixed-bf16``, a postponed-leaf
-    library's as ``flat_trace_c_anyhit``); a uv form must not have
-    launched."""
+    library's as ``flat_trace_c_anyhit``, a slot library's frame forms at
+    every U and tile as ``quad_trace_k2`` / ``flat_trace_k8_anyhit`` and its
+    stats forms as ``quad_trace_k2_stats`` / ``quad_trace_k2_anyhit_stats``);
+    a uv form must not have launched."""
     torch.cuda.synchronize()
     out = {}
     for k in kernels:
@@ -3260,8 +3293,15 @@ def entry_counts(*kernels) -> dict:
             if n:
                 base, _, lay = form.partition("@")
                 base = base[:len(base) - len(k.suffix)] if k.suffix else base
+                if k.slots:
+                    base = base.split(f"_k{k.slots}")[0]
                 check(base in ENTRY_OF_FORM, f"{k.name} launched its {form} form")
-                name = k.name + ENTRY_OF_FORM[base] + (f"@{lay}" if lay else "")
+                if k.slots:
+                    name = (k.name + ("_anyhit" if base.startswith("any") else "")
+                            + ("_stats" if base.endswith("_stats") else ""))
+                else:
+                    name = k.name + ENTRY_OF_FORM[base]
+                name += f"@{lay}" if lay else ""
                 out[name] = out.get(name, 0) + n
     return out
 
@@ -3419,73 +3459,100 @@ TOOL_FRAME = (1024, 768)    # the frame of ao_probe, packet_stats and treelet_si
 # The tools' settings (their environment variables): quad_probe's chains
 # cut from 32 to 8 traces, the simulators' samples from 64 / 48 packets to 8.
 QUAD_PROBE_ENV = {"QP_CHAIN": "8"}
+# quad_probe's second run: its 4-wide rows on the slot forms, a row per U.
+QUAD_PROBE_SLOTS_ENV = {**QUAD_PROBE_ENV, "QP_U4": "4,16", "QP_K": "2", "QP_TILE": "512"}
 PACKET_STATS_ENV = {"PS_MAX_PACKETS": "8"}
 TREELET_ENV = {"TS_MAX_PACKETS": "8", "TS_WH": "x".join(map(str, TOOL_FRAME))}
 
 
-def quad_probe_phase(t0, quad_k, flat_k):
-    """Phase 37: ``quad_probe`` on bunny and knob, primary and AO rays: each
-    row verified (``bad`` 0 against ``trace_flat_scalar``), Mray/s above 0,
-    the census a group per 32 rays, the launches its loop implies.
-    Returns ({kernel entry: launches}, the rows)."""
+def quad_probe_phase(t0, quad_k, flat_k, env):
+    """Phase 37: ``quad_probe`` on bunny and knob, primary and AO rays, with
+    the tool's settings ``env``: the default forms (``QUAD_PROBE_ENV``) or
+    a U sweep, K and tile (``QUAD_PROBE_SLOTS_ENV``: the 4-wide rows on the
+    slot forms).  Each row verified (``bad`` 0 against
+    ``trace_flat_scalar``), Mray/s above 0, the census a group per 32 rays,
+    the 4-wide rows' hits equal across U, the launches its loop implies.
+    Each run is a path of its own: the counts are set to 0 before it and
+    read after.  Returns ({kernel entry: launches}, the rows)."""
     from tpu_rt_torch.bench import quad_probe
+    from tpu_rt_torch.trace import quad_kernel
 
     t_phase = time.perf_counter()
     scenes, types = (SCENE, TOOL_SCENE), ("primary", "ao")
-    reset_counts(quad_k, flat_k)
-    rows = quad_probe.main([*scenes, f"--types={','.join(types)}"], env=QUAD_PROBE_ENV,
-                           device=DEVICE, cache_dir=CACHE, width=WIDTH, height=HEIGHT)
-    counts = entry_counts(quad_k, flat_k)
-    check(len(rows) == 2 * len(scenes) * len(types), f"quad_probe: {len(rows)} rows")
+    s = quad_probe.settings(env)
+    slotted = s["k"] is not None or s["tile"] is not None or s["u4"] != [None]
+    kernels = (quad_k, flat_k, *([quad_kernel.KERNEL_K[s["k"] or 1]] if slotted else []))
+    reset_counts(*kernels)
+    rows = quad_probe.main([*scenes, f"--types={','.join(types)}"], env=env, device=DEVICE,
+                           cache_dir=CACHE, width=WIDTH, height=HEIGHT)
+    counts = entry_counts(*kernels)
+    nu = len(s["u4"])
+    check(len(rows) == (1 + nu) * len(scenes) * len(types), f"quad_probe: {len(rows)} rows")
     for r in rows:
         check(r["bad"] == 0 and r["mrays"] > 0 and r["groups"] == -(-r["rays"] // 32)
               and r["rays"] == WIDTH * HEIGHT, f"quad_probe row {r}")
-    # Per scene and type, each kernel: two warm chains and the timed ones,
-    # one census trace (stats form); per scene, the AO rays' closest-hit
-    # pre-trace on the binary kernel.
-    s = quad_probe.settings(QUAD_PROBE_ENV)
+    for i in range(0, len(rows), 1 + nu):
+        check(len({r["hits"] for r in rows[i + 1:i + 1 + nu]}) == 1,
+              f"quad_probe: hits by U {[(r['u'], r['hits']) for r in rows[i + 1:i + 1 + nu]]}")
+    # Per scene and type, each kernel (each U of the 4-wide one): two warm
+    # chains and the timed ones, one census trace (stats form); per scene,
+    # the AO rays' closest-hit pre-trace on the binary kernel.
     per = (2 + s["repeats"]) * s["chain"]
     n = len(scenes)
     want = {"flat_trace": n * (per + 1), "flat_trace_anyhit": n * per,
-            "flat_trace_stats": 2 * n, "quad_trace": n * per, "quad_trace_anyhit": n * per,
-            "quad_trace_stats": 2 * n}
+            "flat_trace_stats": 2 * n}
+    if slotted:
+        slot = kernels[-1].name
+        want.update({slot: n * nu * per, f"{slot}_anyhit": n * nu * per,
+                     f"{slot}_stats": n * nu, f"{slot}_anyhit_stats": n * nu})
+    else:
+        want.update({"quad_trace": n * per, "quad_trace_anyhit": n * per,
+                     "quad_trace_stats": 2 * n})
     for r in rows:
-        print(f"quad_probe {r['scene']} {r['ray_type']} {r['kernel']}: best "
-              f"{r['best_s'] * 1e3:.6f} ms, {r['mrays']:.4f} Mray/s, iters {r['iters']}, "
-              f"groups {r['groups']}, {r['best_s'] / r['iters'] * 1e9:.6f} ns a warp-iteration"
+        print(f"quad_probe {r['scene']} {r['ray_type']} {r['kernel']}"
+              + (f" U={r['u']} K={r['k']} tile={r['tile']}" if slotted and "u" in r else "")
+              + f": best {r['best_s'] * 1e3:.6f} ms, {r['mrays']:.4f} Mray/s, iters "
+              f"{r['iters']}, groups {r['groups']}, "
+              f"{r['best_s'] / r['iters'] * 1e9:.6f} ns a warp-iteration"
               + (f", packet4/packet2 {r['vs_flat']:.4f} (iters {r['iters_vs_flat']:.4f})"
                  if "vs_flat" in r else ""))
     print(f"quad_probe: launches {counts}")
     check(counts == want, f"quad_probe launched {counts}, want {want}")
-    phase(f"quad_probe done ({time.perf_counter() - t_phase:.2f} s of phase 37)", t0)
+    phase(f"quad_probe{' (slot forms)' if slotted else ''} done "
+          f"({time.perf_counter() - t_phase:.2f} s of phase 37)", t0)
     return counts, rows
 
 
 def ao_probe_phase(t0, quad_k, flat_k, flat_c):
-    """Phase 38: ``ao_probe`` on knob AO at 1024x768: every schedule the same
-    hit count, ``compact`` and ``cmp-c2`` only the live prefix padded to
-    the tile, the launches its loop implies.  Returns ({kernel entry:
-    launches}, the rows)."""
+    """Phase 38: ``ao_probe`` on knob AO at 1024x768, its eleven schedules:
+    every schedule the same hit count, ``compact``, ``cmp-t512k8`` and
+    ``cmp-c2`` only the live prefix padded to the tile, the launches its
+    loop implies (the tile / interleave schedules on the slot forms of K =
+    4 and 8).  Returns ({kernel entry: launches}, the rows)."""
     from tpu_rt_torch.bench import ao_probe
+    from tpu_rt_torch.trace import flat_kernel
 
     t_phase = time.perf_counter()
-    reset_counts(quad_k, flat_k, flat_c)
+    slots = (flat_kernel.KERNEL_K[4], flat_kernel.KERNEL_K[8])
+    reset_counts(quad_k, flat_k, flat_c, *slots)
     rows = ao_probe.main([TOOL_SCENE, "ao"], env={}, device=DEVICE, cache_dir=CACHE,
                          width=TOOL_FRAME[0], height=TOOL_FRAME[1])
-    counts = entry_counts(quad_k, flat_k, flat_c)
+    counts = entry_counts(quad_k, flat_k, flat_c, *slots)
+    check(len(rows) == 11, f"ao_probe: {len(rows)} schedules")
     n, live, tile = TOOL_FRAME[0] * TOOL_FRAME[1], rows[0]["live"], 2048
     prefix = min(n, -(-live // tile) * tile)
     check(len({r["hits"] for r in rows}) == 1 and rows[0]["hits"] > 0 and 0 < live < n,
           f"ao_probe: hits by schedule {[(r['name'], r['hits']) for r in rows]}")
     for r in rows:
-        cut = r["name"] in ("compact", "cmp-c2")
+        cut = r["name"].startswith(("compact", "cmp"))
         check(r["rays"] == n and r["rays_traced"] == (prefix if cut else n) and r["mrays"] > 0,
               f"ao_probe row {r}")
     check(prefix < n, f"ao_probe: the live prefix {prefix} is the whole batch")
     # Each schedule: one trace for the hits, one warm, 3 chains of 3; the
     # primary pre-trace on the binary kernel.
     per = 2 + 3 * 3
-    want = {"flat_trace": 1, "flat_trace_anyhit": 4 * per, "flat_trace_c_anyhit": 2 * per}
+    want = {"flat_trace": 1, "flat_trace_anyhit": 4 * per, "flat_trace_c_anyhit": 2 * per,
+            "flat_trace_k4_anyhit": 2 * per, "flat_trace_k8_anyhit": 3 * per}
     print(f"ao_probe: {n} rays, {live} live, compact prefix {prefix}; " + "; ".join(
         f"{r['name']} {r['best_s'] * 1e3:.6f} ms ({r['best_s'] / rows[0]['best_s']:.4f}x "
         f"unsorted)" for r in rows) + f"; launches {counts}")
@@ -3555,6 +3622,172 @@ def simulators_phase(t0, quad_k, flat_k):
     phase(f"simulators done (packet_stats {t_ps:.2f} s, treelet_sim "
           f"{time.perf_counter() - t_phase - t_ps:.2f} s of phase 40)", t0)
     return counts, {"packet_stats": ps, "treelet_sim": ts}
+
+
+# ---------------------------------------------------------------------------
+# Phase 41: the slot forms (tpu_rt's k, u and tile)
+# ---------------------------------------------------------------------------
+
+# The settings phase 41 sweeps on both kernels: K at U and tile None, U and
+# the block pool at K = 1 (k None), and tpu_rt's own defaults of each
+# kernel (packet2.py K, U, TILE; K4, U4, TILE4).
+SLOT_SWEEP = ([{"k": k} for k in (1, 2, 4, 8)] + [{"u": u} for u in (1, 3, 16)]
+              + [{"tile": t} for t in (128, 512, 2048)])
+TPU_RT_SLOTS = {"quad": {"k": 1, "u": 16, "tile": 2048}, "flat": {"k": 2, "u": 3, "tile": 2048}}
+SLOT_CHAIN, SLOT_REPEATS = 32, 3
+SLOT_REPLACES = (f"{PACKET2} (K packets interleaved :521-535, U triangle units, tile S x 128 "
+                 "_trace2_jit :950-957; trace_packet2 / trace_packet4 tile=, k=, u= :1052, :1150)")
+
+
+def slot_name(tree: str, setting: dict, any_hit: bool) -> str:
+    """The kernels-line name of a slot form: "quad_trace_k2", then "_u<U>"
+    and "_t<tile>" where given, then "_anyhit"."""
+    k = setting.get("k", 1)
+    return (f"{tree}_trace_k{k}" + "".join(f"_{tag}{setting[key]}" for tag, key in
+                                          (("u", "u"), ("t", "tile")) if key in setting)
+            + ("_anyhit" if any_hit else ""))
+
+
+def slot_registers(kernels) -> dict:
+    """{library: {"registers": [min, max], "spill_bytes": max, "frame_registers": [...],
+    "frame_spill_bytes": max}} from each slot library's ptxas (phase 1)."""
+    out = {}
+    for k in kernels:
+        forms = ptxas_forms(k.build_log)
+        frame = [f for f in forms if re.search(r"uv=0,stats=0>", f[0])]
+        out[k.name] = {"registers": [min(f[1] for f in forms), max(f[1] for f in forms)],
+                       "stack_bytes": max(f[2] for f in forms),
+                       "spill_bytes": max(f[3] for f in forms),
+                       "frame_registers": sorted({f[1] for f in frame}),
+                       "frame_spill_bytes": max(f[3] for f in frame)}
+    return out
+
+
+def slots_phase(t0, cases, device):
+    """Phase 41: every slot form of both kernels, tpu_rt's ``k``, ``u`` and
+    ``tile`` through ``trace_quad`` / ``trace_flat``: each setting of
+    ``SLOT_SWEEP`` and the kernel's ``TPU_RT_SLOTS`` on each case (tree
+    "quad" or "flat", label, tables, rays, any_hit, plain (hits, counters)
+    or None): the frame form's tri and t bit-equal to the default form's on
+    every ray (and to the plain version's), the stats form's counters too;
+    each setting and the default form timed with ``bench.chain_times``
+    (chains of SLOT_CHAIN, best of SLOT_REPEATS after a warm chain), the
+    launch shape (blocks per SM) of each.  The phase is a path of its own:
+    the counts are set to 0 before it and read after.  Returns ({entry:
+    run}, {library: {form: launches}})."""
+    from tpu_rt_torch.bench.bench import chain_times
+    from tpu_rt_torch.trace import flat_kernel, quad_kernel, trace_flat, trace_quad
+    from tpu_rt_torch.trace.common import form_name
+
+    t_phase = time.perf_counter()
+    libs = {"quad": quad_kernel, "flat": flat_kernel}
+    kernels = [*quad_kernel.KERNEL_K.values(), *flat_kernel.KERNEL_K.values()]
+    reset_counts(*kernels, quad_kernel.KERNEL, flat_kernel.KERNEL)
+    runs = {}
+    for tree, label, tables, rays, any_hit, plain in cases:
+        trace = trace_quad if tree == "quad" else trace_flat
+        base_k = libs[tree].KERNEL
+        want = trace(tables, rays, any_hit)
+        want_h, want_c = trace(tables, rays, any_hit, with_stats=True)
+        check(torch.equal(want_h.tri, want.tri) and bits_differ(want_h.t, want.t) == 0,
+              f"phase 41 {tree} {label}: the default stats form's hits")
+        if plain is not None:
+            check(torch.equal(want.tri, plain[0].tri) and bits_differ(want.t, plain[0].t) == 0
+                  and all(torch.equal(want_c[c], plain[1][c]) for c in want_c),
+                  f"phase 41 {tree} {label}: the default form against plain")
+        ms_default = min(chain_times(lambda: trace(tables, rays, any_hit), SLOT_CHAIN,
+                                     1 + SLOT_REPEATS, device)[1:]) * 1e3
+        shape_default = dict(base_k.last_shape)
+        hit = want.tri >= 0
+        for setting in SLOT_SWEEP + [TPU_RT_SLOTS[tree]]:
+            name = slot_name(tree, setting, any_hit)
+            kern = libs[tree].KERNEL_K[setting.get("k", 1)]
+            got = trace(tables, rays, any_hit, **setting)
+            shape = dict(kern.last_shape)
+            got_h, got_c = trace(tables, rays, any_hit, with_stats=True, **setting)
+            tri_bad = int((got.tri != want.tri).sum()) + int((got_h.tri != want.tri).sum())
+            t_bad = bits_differ(got.t, want.t) + bits_differ(got_h.t, want.t)
+            c_bad = sum(int((got_c[c] != want_c[c]).sum()) for c in want_c)
+            check(tri_bad == t_bad == c_bad == 0,
+                  f"phase 41 {name} on {label}: {tri_bad} tri, {t_bad} t, {c_bad} counters "
+                  "differ from the default form")
+            times = chain_times(lambda: trace(tables, rays, any_hit, **setting), SLOT_CHAIN,
+                                1 + SLOT_REPEATS, device)[1:]
+            ms = min(times) * 1e3
+            err = float((got.t[hit] - want.t[hit]).abs().max()) if bool(hit.any()) else 0.0
+            runs[name] = {"tree": tree, "label": label, "setting": setting, "any_hit": any_hit,
+                          "rays": rays.num, "ms": ms, "ms_all": [x * 1e3 for x in times],
+                          "default_ms": ms_default, "default_shape": shape_default,
+                          "shape": shape, "max_abs_err": err, "node_tests": int(
+                              got_c["node_tests"].double().sum()),
+                          "tri_tests": int(got_c["tri_tests"].double().sum())}
+            print(f"slots {name} on {label} ({rays.num} rays): {ms:.6f} ms (default form "
+                  f"{ms_default:.6f} ms, {ms_default / ms:.4f}x), blocks per SM "
+                  f"{shape['blocks_per_sm']} (default {shape_default['blocks_per_sm']}), grid "
+                  f"{shape['grid']}, tri / t / counters bit-equal", flush=True)
+    launches = {k.name: {f: n for f, n in k.launches_by_form.items() if n} for k in kernels}
+    default_launches = {k.name: {f: n for f, n in k.launches_by_form.items() if n}
+                        for k in (quad_kernel.KERNEL, flat_kernel.KERNEL)}
+    print(f"slots: launches {json.dumps(launches)}; default forms {json.dumps(default_launches)}")
+    for name, r in runs.items():
+        tree, setting = r["tree"], r["setting"]
+        lib = libs[tree].KERNEL_K[setting.get("k", 1)]
+        r["launches"] = lib.launches_by_form.get(
+            form_name(r["any_hit"], False, False, k=lib.slots, u=setting.get("u"),
+                      tile=setting.get("tile")), 0)
+        r["stats_launches"] = lib.launches_by_form.get(
+            form_name(r["any_hit"], False, True, k=lib.slots, u=setting.get("u"),
+                      tile=setting.get("tile")), 0)
+        # One checked trace, then a warm chain and the timed ones.
+        check(r["launches"] == 1 + SLOT_CHAIN * (1 + SLOT_REPEATS) and r["stats_launches"] == 1,
+              f"phase 41 {name}: launches {r['launches']}, stats {r['stats_launches']}")
+    phase(f"slot forms == default forms, timed ({time.perf_counter() - t_phase:.2f} s of "
+          "phase 41)", t0)
+    return runs, launches
+
+
+def slot_entries(runs, registers, plain_ms, bounds):
+    """The kernels-line entries of the slot forms, one per library and hit
+    kind (``quad_trace_k2``, ``flat_trace_k8_anyhit``): phase 41's
+    launches of the frame forms at every setting (and of the stats forms),
+    ``ms`` the K-only setting's time and each setting's under
+    ``settings``, the default form's time beside it, the library's ptxas
+    (phase 1) and blocks per SM; ``plain_ms`` and the bound those of the
+    default form on the same rays (``plain_ms`` / ``bounds`` by (tree,
+    any_hit)): the slot forms do the same node and triangle tests."""
+    out = []
+    for tree in ("quad", "flat"):
+        for k in (1, 2, 4, 8):
+            lib = f"{tree}_trace_k{k}"
+            for any_hit in (False, True):
+                mine = {n: r for n, r in runs.items() if r["tree"] == tree
+                        and r["setting"].get("k", 1) == k and r["any_hit"] == any_hit}
+                base = mine[slot_name(tree, {"k": k}, any_hit)]
+                regs = registers[lib]
+                out.append({
+                    "name": lib + ("_anyhit" if any_hit else ""), "route": "cuda",
+                    "source": f"tpu_rt_torch/csrc/{lib}.cu", "replaces": SLOT_REPLACES,
+                    "path": "phase 41: trace_quad / trace_flat(tables, rays, any_hit, tile=, k=, "
+                            f"u=) on {base['label']}, counts set to 0 before the phase",
+                    "launches": sum(r["launches"] for r in mine.values()),
+                    "stats_launches": sum(r["stats_launches"] for r in mine.values()),
+                    "timed_on": f"{base['label']}, {base['rays']} rays, best of {SLOT_REPEATS} "
+                                f"chains of {SLOT_CHAIN} (bench.chain_times)",
+                    "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
+                    "ms": base["ms"], "default_ms": base["default_ms"],
+                    "plain_ms": plain_ms[(tree, any_hit)], **bounds[(tree, any_hit)],
+                    "library_ms": None,
+                    "settings": {n: {"setting": r["setting"], "ms": r["ms"],
+                                     "launches": r["launches"],
+                                     "blocks_per_sm": r["shape"]["blocks_per_sm"],
+                                     "grid": r["shape"]["grid"]} for n, r in mine.items()},
+                    "blocks_per_sm": base["shape"]["blocks_per_sm"],
+                    "default_blocks_per_sm": base["default_shape"]["blocks_per_sm"],
+                    "registers": regs["frame_registers"], "spill_bytes": regs["frame_spill_bytes"],
+                    "all_forms_registers": regs["registers"],
+                    "all_forms_spill_bytes": regs["spill_bytes"],
+                })
+    return out
 
 
 # The probes are built with -fmad=false, so each f32 operation they count
@@ -3654,7 +3887,8 @@ def main() -> None:
             built[name] = (regs, frame + spill)
             spills[name] = spill
     check(len(built) == N_FORMS, f"{len(built)} kernel forms compiled, want {N_FORMS}: 24 + 4 + "
-          "24 quad, 48 + 4 + 48 binary, 48 + 2 tensor-core binary, 6 + 10 + 9 probe forms")
+          "24 quad, 48 + 4 + 48 binary, 48 + 2 tensor-core binary, 4 x 24 quad and 4 x 48 "
+          "binary slot forms, 6 + 10 + 9 probe forms")
     for name, want in PTXAS_VMEM_F32.items():
         check(built.get(name) == want, f"ptxas {name}: {built.get(name)} (registers, stack + "
               f"spill bytes), want {want}")
@@ -3747,11 +3981,32 @@ def main() -> None:
     harness["diff"] = diff_phase(t0, kernel, flat_k)[0]
     phase(f"measurement harness done ({time.perf_counter() - t1:.2f} s of phases 34-36)", t0)
     t1 = time.perf_counter()
-    harness["quad_probe"] = quad_probe_phase(t0, kernel, flat_k)[0]
+    harness["quad_probe"] = quad_probe_phase(t0, kernel, flat_k, QUAD_PROBE_ENV)[0]
+    harness["quad_probe_slots"] = quad_probe_phase(t0, kernel, flat_k,
+                                                   QUAD_PROBE_SLOTS_ENV)[0]
     harness["ao_probe"] = ao_probe_phase(t0, kernel, flat_k, flat_kernel.KERNEL_C)[0]
     harness["iter_probe"] = iter_probe_phase(t0, kernel, flat_k)[0]
     harness["treelet"] = simulators_phase(t0, kernel, flat_k)[0]
     phase(f"design tools done ({time.perf_counter() - t1:.2f} s of phases 37-40)", t0)
+    # 41. The slot forms, each kernel on its own frames' rays and tables,
+    # held to the default forms and the plain versions of phases 2-11.
+    b_rays = bctx["renderer"].primary.rays
+    slot_runs, _ = slots_phase(t0, [
+        ("quad", "bunny primary", bctx["renderer"].tracer_tables, b_rays, False, bctx["plain"]),
+        ("quad", "conference AO batch 1", cctx["ao"].tracer_tables, cctx["ao"]._batches[0].rays,
+         True, cctx["b1_plain"]),
+        ("flat", "bunny primary", fb["renderer"].tracer_tables, fb["renderer"].primary.rays,
+         False, fb["plain"]),
+        ("flat", "conference AO batch 1", fc["ao"].tracer_tables, fc["ao"]._batches[0].rays,
+         True, fc["plain"])], dev)
+    slot_regs = slot_registers([*quad_kernel.KERNEL_K.values(), *flat_kernel.KERNEL_K.values()])
+    for lib, r in slot_regs.items():
+        blocks = sorted({run["shape"]["blocks_per_sm"] for run in slot_runs.values()
+                         if f"{run['tree']}_trace_k{run['setting'].get('k', 1)}" == lib})
+        print(f"slot library {lib}: frame forms {r['frame_registers']} registers, spills "
+              f"{r['frame_spill_bytes']} B; all forms {r['registers'][0]}-{r['registers'][1]} "
+              f"registers, stack up to {r['stack_bytes']} B, spills up to {r['spill_bytes']} B; "
+              f"blocks per SM {blocks}")
     # The tensor-core frame forms' first versions, from the same A/B.
     for e in t_entries:
         if e["name"] in ("flat_trace_mxu", "flat_trace_mxu_anyhit"):
@@ -3762,7 +4017,7 @@ def main() -> None:
 
     # The bound of each earlier entry, on the rays it was timed on, from
     # the plain version's counters on those rays.
-    b_rays, b_quad = bctx["renderer"].primary.rays, bctx["renderer"].tracer_tables
+    b_quad = bctx["renderer"].tracer_tables
     b_flat, ao_b1 = fb["renderer"].tracer_tables, cctx["ao"]._batches[0].rays
     f_b1_rays = fc["ao"]._batches[0].rays
     bounds = {"quad": bound("quad_trace", b_quad, b_rays, bctx["plain"][1], bctx["seen"], 4),
@@ -3847,13 +4102,21 @@ def main() -> None:
         "first_ms": ab[("flat_trace", "conference AO batch 1")]["first"],
         "plain_ms": f_b1[1],
         **bounds["flat_any"], "library_ms": None,
-    }, *form_entries("flat", flat_src, "flat_trace"), *d_entries, *t_entries, *p_entries]
+    }, *form_entries("flat", flat_src, "flat_trace"), *d_entries, *t_entries, *p_entries,
+        *slot_entries(slot_runs, slot_regs,
+                      {("quad", False): closest["plain_ms"], ("quad", True): anyhit["plain_ms"],
+                       ("flat", False): f_bunny[1], ("flat", True): f_b1[1]},
+                      {("quad", False): bounds["quad"], ("quad", True): bounds["quad_any"],
+                       ("flat", False): bounds["flat"], ("flat", True): bounds["flat_any"]})]
     # Phases 34-40's paths, by entry.
     by_name = {e["name"]: e for e in entries}
+    # A slot library's stats forms count under its entry's "stats_paths".
     for path, counts in harness.items():
         for name, n in counts.items():
-            check(name in by_name, f"{path}: launches of {name}, which has no entry")
-            by_name[name].setdefault("paths", {})[path] = n
+            key, stats = name, name.endswith("_stats") and name not in by_name
+            name = name[:-len("_stats")] if stats else name
+            check(name in by_name, f"{path}: launches of {key}, which has no entry")
+            by_name[name].setdefault("stats_paths" if stats else "paths", {})[path] = n
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

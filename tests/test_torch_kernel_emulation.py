@@ -1,6 +1,7 @@
 """The traversal kernels' CUDA sources, run on the CPU: ``csrc/quad_trace.cu``,
 ``quad_trace_c.cu``, ``flat_trace.cu``, ``flat_trace_c.cu``,
-``flat_trace_mxu.cu`` and the probes ``mxu_ablate.cu``, ``ablate2.cu`` and
+``flat_trace_mxu.cu``, the slot libraries ``quad_trace_k{1,2,4,8}.cu`` and
+``flat_trace_k{1,2,4,8}.cu`` and the probes ``mxu_ablate.cu``, ``ablate2.cu`` and
 ``mosaic_probe3.cu`` built with g++ against
 ``tests/cuda_emulation/cuda_runtime.h`` (every lane of a warp a thread, the
 warp intrinsics and the FP64 mma barriers of the warp, ``__syncthreads`` a
@@ -8,11 +9,13 @@ barrier of the block, shared memory host memory the block's threads share),
 and launched through their C ABI with the wrappers' ctypes ``argtypes``.  Every
 form (closest and any hit, uv, counters, postponed leaves, the tensor-core
 leaf test at 1-4 cursors, f32 and bf16 nodes, the residencies) of the
-persistent kernels, their shared-memory stack and the first versions, give
+persistent kernels, their shared-memory stack and the first versions, and
+the slot forms at K = 1, 2, 4, 8 rays a thread, U = 1, 3, 16 Woop rows at
+once (32 on a 32-wide quad tree) and block pools of 128 and 512 rays, give
 the plain PyTorch version's hits and counters bit for bit, on rays from
 outside and inside two scenes, at ray counts that fill warps and that do
-not; the launch shape is ``persistent_grid``'s and ``shared_stack_bytes``'
-(``MXU_SMEM`` for the tensor-core form).  Every variant of the probe gives
+not; the launch shape is ``persistent_grid``'s (at K rays a thread) and
+``shared_stack_bytes``' (``MXU_SMEM`` for the tensor-core form).  Every variant of the probe gives
 its plain version's accumulators bit for bit, and so does every level of
 ``ablate2`` (on node tables of 1-129 records and Woop tables whose last
 group of 128 rows holds 1 or 2) and every mode of ``mosaic_probe3``.  The
@@ -35,7 +38,7 @@ from tpu_rt_torch.bvh.collapse import collapse4
 from tpu_rt_torch.core.types import make_rays
 from tpu_rt_torch.scene import Scene, procedural
 from tpu_rt_torch.trace import common
-from tpu_rt_torch.trace.common import DESIGNS, persistent_grid, shared_stack_bytes
+from tpu_rt_torch.trace.common import BLOCK, DESIGNS, persistent_grid, shared_stack_bytes
 from tpu_rt_torch.probes import ablate2, mosaic_probe3, mxu_ablate
 from tpu_rt_torch.trace.flat_kernel import (
     MXU_SMEM,
@@ -49,6 +52,7 @@ from tpu_rt_torch.trace.tables import _residency_flags
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LIBS = ("quad_trace", "quad_trace_c", "flat_trace", "flat_trace_c", "flat_trace_mxu",
+        *(f"{t}_trace_k{k}" for t in ("quad", "flat") for k in common.SLOTS),
         "mxu_ablate", "ablate2", "mosaic_probe3")
 SMS, PER_SM = 2, 2      # what the emulated launches see
 SCENES = {"blob": lambda: procedural.make_blob(700, seed=80),
@@ -109,34 +113,51 @@ def _scene(name):
     if name not in _SCENES:
         scene = Scene(SCENES[name]())
         flat, _ = load_or_build_bvh(scene, cache_dir=None)
-        _SCENES[name] = (scene, flat, collapse4(flat))
+        _SCENES[name] = (scene, flat, collapse4(flat), collapse4(flat, leaf_max=32))
     return _SCENES[name]
 
 
+def _spec(kernel):
+    """(tree, K, U, tile) of a kernel spec: "quad", "flat", "mxu" (the
+    binary tables, the tensor-core library), or a slot library's, such as
+    "flat_k4_u16_t128" (K = 4, U = 16, a block pool of 128 rays) or
+    "quad32_k1_u32" (the 32-wide quad tree)."""
+    tree, *rest = kernel.split("_")
+    opts = {part[0]: int(part[1:]) for part in rest}
+    return tree, opts.get("k"), opts.get("u"), opts.get("t")
+
+
 def _tables(name, kernel, residency="vmem", bf16=False):
-    """(tables, table arguments of the C ABI, stack need, wrapper); kernel
-    "quad", "flat" or "mxu" (the binary tables, the tensor-core library)."""
-    _, flat, quad = _scene(name)
-    if kernel == "quad":
-        t = upload_quad(quad, "cpu", residency)
+    """(tables, table arguments of the C ABI, stack need, wrapper) of a
+    kernel spec (``_spec``)."""
+    _, flat, quad, quad32 = _scene(name)
+    tree, k, _, _ = _spec(kernel)
+    if tree.startswith("quad"):
+        t = upload_quad(quad32 if tree == "quad32" else quad, "cpu", residency)
         return (t, [t.nodes.data_ptr(), t.nodes.shape[0], t.woop.data_ptr()], 3 * t.depth,
-                QuadTraceKernel())
+                QuadTraceKernel(f"quad_trace_k{k}", slots=k) if k else QuadTraceKernel())
     t = upload_flat(flat, "cpu", residency, bf16)
+    wrapper = (FlatMxuKernel() if kernel == "mxu" else
+               FlatTraceKernel(f"flat_trace_k{k}", slots=k) if k else FlatTraceKernel())
     return (t, [t.nodes.data_ptr(), t.nodes.shape[0], int(bf16), t.woop.data_ptr(),
-                t.leaf_counts.data_ptr(), t.leaf_counts.shape[0]], t.depth,
-            FlatMxuKernel() if kernel == "mxu" else FlatTraceKernel())
+                t.leaf_counts.data_ptr(), t.leaf_counts.shape[0]], t.depth, wrapper)
 
 
 def _lib(kernel, cursors):
-    """The library of a kernel kind and cursor count."""
+    """The library of a kernel spec and cursor count."""
     if kernel == "mxu":
         return "flat_trace_mxu"
+    tree, k, _, _ = _spec(kernel)
+    if k:
+        return f"{tree[:4]}_trace_k{k}"
     return f"{kernel}_trace" + ("_c" if cursors > 1 else "")
 
 
 def _launch(lib, wrapper, name, table_args, need, rays, any_hit, uv, stats, cursors, design,
-            residency):
-    """One launch through the C ABI; returns (error, outputs, shape, counter)."""
+            residency, units=None, tile=None):
+    """One launch through the C ABI (a slot library's with U = ``units``
+    and S = ``tile``, None as the wrapper passes it); returns (error,
+    outputs, shape, counter)."""
     fn = getattr(lib, f"{name}_launch")
     fn.argtypes = wrapper.argtypes
     fn.restype = ctypes.c_int
@@ -148,8 +169,9 @@ def _launch(lib, wrapper, name, table_args, need, rays, any_hit, uv, stats, curs
     counter = torch.full((1,), 77, dtype=torch.int32)
     shape = (ctypes.c_int * 4)(-1, -1, -1, -1)
     sn, st = _residency_flags(residency)
-    err = fn(*table_args, rays.origin.data_ptr(), rays.dirn.data_ptr(), rays.tmin.data_ptr(),
-             rays.tmax.data_ptr(), tri.data_ptr(), t.data_ptr(),
+    schedule = [1 if units is None else units, tile or 0] if wrapper.slots else []
+    err = fn(*schedule, *table_args, rays.origin.data_ptr(), rays.dirn.data_ptr(),
+             rays.tmin.data_ptr(), rays.tmax.data_ptr(), tri.data_ptr(), t.data_ptr(),
              u.data_ptr() if uv else None, v.data_ptr() if uv else None,
              nt.data_ptr() if stats else None, tt.data_ptr() if stats else None, n, cursors,
              int(any_hit), int(uv), int(stats), int(sn), int(st), 0, 0, DESIGNS[design], need,
@@ -162,7 +184,7 @@ _PLAIN = {}
 
 def _plain(name, kernel, tables, rays, any_hit, cursors, key):
     if key not in _PLAIN:
-        if kernel == "quad":
+        if kernel.startswith("quad"):
             _PLAIN[key] = trace_quad_plain(tables, rays, any_hit, True, True, cursors=cursors)
         else:
             _PLAIN[key] = trace_flat_plain(tables, rays, any_hit, True, True, cursors=cursors,
@@ -204,6 +226,30 @@ for _any in (False, True):
     CASES.append(("mxu", 3, _any, False, True, "persistent", "hbm", False))
     CASES.append(("mxu", 4, _any, True, True, "persistent", "hbm", True))
     CASES.append(("mxu", 1, _any, True, False, "persistent", "mixed", True))
+# The slot forms (one library per K; the spec names K, U and the block's
+# pool, _spec): every K on the frame forms and with uv and counters, U 1, 3
+# and 16 at K = 1 (32 on the 32-wide quad tree), pools of 128 and 512 rays,
+# both of them with K > 1, the other residencies and bf16 nodes.
+for _kernel in ("quad", "flat"):
+    for _k in common.SLOTS:
+        for _any in (False, True):
+            CASES.append((f"{_kernel}_k{_k}", 1, _any, False, False, "persistent", "vmem", False))
+            CASES.append((f"{_kernel}_k{_k}", 1, _any, True, True, "persistent", "vmem", False))
+    for _any in (False, True):
+        for _u in (1, 3, 16):
+            CASES.append((f"{_kernel}_k1_u{_u}", 1, _any, False, True, "persistent", "vmem",
+                          False))
+        for _t in (128, 512):
+            CASES.append((f"{_kernel}_k1_t{_t}", 1, _any, False, True, "persistent", "vmem",
+                          False))
+        CASES.append((f"{_kernel}_k2_u3_t512", 1, _any, True, True, "persistent", "mixed", False))
+        CASES.append((f"{_kernel}_k8_u16_t128", 1, _any, False, True, "persistent", "hbm", False))
+for _any in (False, True):
+    CASES.append(("quad32_k1_u32", 1, _any, True, True, "persistent", "vmem", False))
+    CASES.append(("quad32_k4_u16_t512", 1, _any, False, True, "persistent", "mixed", False))
+    CASES.append(("flat_k2", 1, _any, False, False, "persistent", "vmem", True))
+    CASES.append(("flat_k4_u3_t512", 1, _any, True, True, "persistent", "hbm", True))
+    CASES.append(("flat_k8_t128", 1, _any, False, True, "persistent", "mixed", True))
 
 
 @pytest.mark.parametrize("scene", sorted(SCENES))
@@ -213,11 +259,13 @@ def test_kernel_equals_plain(libs, scene, kernel, cursors, any_hit, uv, stats, d
     tables, targs, need, wrapper = _tables(scene, kernel, residency, bf16)
     rays = _rays(_scene(scene)[0], 700, 3)
     lib = _lib(kernel, cursors)
+    tree, k, units, tile = _spec(kernel)
     err, got, shape, counter = _launch(libs[lib], wrapper, lib, targs, need, rays, any_hit, uv,
-                                       stats, cursors, design, residency)
+                                       stats, cursors, design, residency, units, tile)
     assert err == 0
-    want, want_cnt = _plain(scene, kernel, tables, rays, any_hit, cursors,
-                            (scene, kernel, residency, bf16, any_hit, cursors))
+    # The slot forms' plain version is the default forms' (cursors = 1).
+    want, want_cnt = _plain(scene, tree, tables, rays, any_hit, cursors,
+                            (scene, tree, residency, bf16, any_hit, cursors))
     tri, t, u, v, nt, tt = got
     assert torch.equal(tri, want.tri)
     assert torch.equal(_bits(t), _bits(want.t))
@@ -232,15 +280,18 @@ def test_kernel_equals_plain(libs, scene, kernel, cursors, any_hit, uv, stats, d
     if design == "first":
         assert shape == [-(-n // 128), 0, smem, SMS]
     else:
-        assert shape == [persistent_grid(n, SMS, PER_SM), PER_SM, smem, SMS]
-        # The pool was zeroed by the launch and handed out past n.
-        assert counter >= n
+        assert shape == [persistent_grid(n, SMS, PER_SM, BLOCK * (k or 1)), PER_SM, smem, SMS]
+        # The pool was zeroed by the launch and handed out past n (a block
+        # pool claims whole tiles).
+        assert counter >= n and counter % (tile or 1) == 0
 
 
-@pytest.mark.parametrize("kernel", ["flat", "mxu"])
+@pytest.mark.parametrize("kernel", ["flat", "mxu", "flat_k4_t128", "quad_k8_u3_t512",
+                                    "quad_k2_t128"])
 @pytest.mark.parametrize("n", [0, 1, 31, 33, 300])
 def test_partial_warps_and_pool(libs, n, kernel):
-    # Fewer rays than a warp, or than the grid's lanes: every ray is traced
+    # Fewer rays than a warp, or than the grid's lanes (or than a block
+    # pool's tile, or a last tile only in part filled): every ray is traced
     # once, by whichever warp takes it.
     tables, targs, need, wrapper = _tables("interior", kernel)
     rays = _rays(_scene("interior")[0], max(n, 1), 11)
@@ -248,16 +299,20 @@ def test_partial_warps_and_pool(libs, n, kernel):
         rays = make_rays(np.zeros((0, 3)), np.zeros((0, 3)), np.zeros(0), np.zeros(0),
                          device="cpu")
     lib = _lib(kernel, 1)
+    tree, k, units, tile = _spec(kernel)
     for any_hit in (False, True):
         err, got, shape, _ = _launch(libs[lib], wrapper, lib, targs, need, rays, any_hit, False,
-                                     False, 1, "persistent", "vmem")
+                                     False, 1, "persistent", "vmem", units, tile)
         assert err == 0
         if n == 0:
             assert shape == [-1, -1, -1, -1]   # nothing launched
             continue
-        want = trace_flat_plain(tables, rays, any_hit, mxu=kernel == "mxu")
+        if tree == "quad":
+            want = trace_quad_plain(tables, rays, any_hit)
+        else:
+            want = trace_flat_plain(tables, rays, any_hit, mxu=kernel == "mxu")
         assert torch.equal(got[0], want.tri) and torch.equal(_bits(got[1]), _bits(want.t))
-        assert shape[0] == persistent_grid(n, SMS, PER_SM)
+        assert shape[0] == persistent_grid(n, SMS, PER_SM, BLOCK * (k or 1))
 
 
 def _tie_leaf(ids):
@@ -308,12 +363,25 @@ def test_mxu_tie_rule(libs, ids, design):
         assert torch.equal(want.u, rays.origin[:, first % 2])
 
 
-@pytest.mark.parametrize("kernel", ["quad", "mxu"])
+@pytest.mark.parametrize("kernel", ["quad", "mxu", "quad_k2", "flat_k4"])
 def test_refusals(libs, kernel):
     tables, targs, need, wrapper = _tables("blob", kernel)
     rays = _rays(_scene("blob")[0], 64, 5)
     name = _lib(kernel, 1)
     lib = libs[name]
+    if wrapper.slots:
+        # The slot forms: persistent only, at cursors = 1, U in
+        # 1..kMaxUnits, a tile a multiple of the block (or 0).
+        def slot_launch(design="persistent", cursors=1, units=1, tile=0, stack=need):
+            return _launch(lib, wrapper, name, targs, stack, rays, False, False, False,
+                           cursors, design, "vmem", units, tile)[0]
+
+        assert slot_launch() == 0 and slot_launch(units=32, tile=256) == 0
+        for bad in ({"design": "first"}, {"design": "shared_stack"}, {"cursors": 2},
+                    {"cursors": 0}, {"units": 0}, {"units": common.MAX_UNITS + 1},
+                    {"tile": 100}, {"tile": -128}, {"stack": common.STACK_SIZE + 1}):
+            assert slot_launch(**bad) != 0, bad
+        return
     # A first version (and, in quad_trace, a shared-memory stack) exists for
     # the vmem f32 frame forms at cursors = 1 only.
     for design in ("first", "shared_stack"):
@@ -352,7 +420,7 @@ def test_probe_variants_equal_plain(libs, variant):
     # mxu_ablate.cu through its C ABI at a small trip count: each variant's
     # accumulators equal ablate_plain's bit for bit (two blocks, on the
     # first scene's Woop rows).
-    scene, flat, _ = _scene("blob")
+    scene, flat, *_ = _scene("blob")
     woop = torch.tensor(common.woop_rows(flat.tri_woop, flat.tri_index))
     rays = mxu_ablate.probe_rays(scene, 256, 4, "cpu")
     niter = 3
@@ -405,7 +473,7 @@ def _ablate2(libs, level, nodes, rows, rays, niter):
 def _ablate2_tables(n_nodes=None, n_rows=None):
     """The first scene's node records and Woop rows, cut to the first
     ``n_nodes`` / ``n_rows``, and 2 blocks of probe rays aimed at them."""
-    scene, flat, _ = _scene("blob")
+    scene, flat, *_ = _scene("blob")
     nodes = np.ascontiguousarray(flat.nodes, np.float32)[:n_nodes]
     rows = common.woop_rows(flat.tri_woop, flat.tri_index)[:n_rows]
     rays = ablate2.probe_rays(rows, scene, 2 * ablate2.GROUP, 4, device="cpu")

@@ -1,7 +1,8 @@
 """The persistent traversal kernels' launch shape and C ABI, on the CPU:
 the grid and shared-stack helpers of ``tpu_rt_torch.trace.common``, the
 ctypes ``argtypes`` of every traversal wrapper against the
-``QUAD_LAUNCH_ARGS`` / ``FLAT_LAUNCH_ARGS`` macros of ``csrc/``, argument
+``QUAD_LAUNCH_ARGS`` / ``FLAT_LAUNCH_ARGS`` macros of ``csrc/`` (after a
+slot library's ``int units, int tile``), argument
 for argument (a pointer that ctypes passes as a 32-bit int would be cut,
 and nothing on the CPU would notice), and the constants the Python side
 shares with the kernels."""
@@ -28,7 +29,11 @@ C_TYPES = {"const void *": ctypes.c_void_p, "void *": ctypes.c_void_p, "int": ct
            "size_t": ctypes.c_size_t}
 WRAPPERS = {"quad_trace": quad_kernel.KERNEL, "quad_trace_c": quad_kernel.KERNEL_C,
             "flat_trace": flat_kernel.KERNEL, "flat_trace_c": flat_kernel.KERNEL_C,
-            "flat_trace_mxu": flat_kernel.KERNEL_MXU}
+            "flat_trace_mxu": flat_kernel.KERNEL_MXU,
+            **{f"quad_trace_k{k}": w for k, w in quad_kernel.KERNEL_K.items()},
+            **{f"flat_trace_k{k}": w for k, w in flat_kernel.KERNEL_K.items()}}
+# The arguments a slot library's entry point takes before the macro's.
+SLOT_ARGS = [("int", "units"), ("int", "tile")]
 
 
 def _read(name: str) -> str:
@@ -52,7 +57,7 @@ def _macro(header: str, name: str) -> list[tuple[str, str]]:
 def _abi(lib: str) -> list[tuple[str, str]]:
     header, macro = (("quad_trace.cuh", "QUAD_LAUNCH_ARGS") if lib.startswith("quad")
                      else ("flat_trace.cuh", "FLAT_LAUNCH_ARGS"))
-    return _macro(header, macro)
+    return (SLOT_ARGS if WRAPPERS[lib].slots else []) + _macro(header, macro)
 
 
 @pytest.mark.parametrize("n_rays, sms, per_sm, want", [
@@ -111,14 +116,19 @@ def test_argtypes_match_the_c_abi(lib):
 def test_entry_point_takes_the_macro(lib):
     src = _read(f"{lib}.cu")
     macro = "QUAD_LAUNCH_ARGS" if lib.startswith("quad") else "FLAT_LAUNCH_ARGS"
-    assert re.search(rf'extern "C" int {lib}_launch\({macro}\)', src)
+    slots = "int units, int tile, " if WRAPPERS[lib].slots else ""
+    assert re.search(rf'extern "C" int {lib}_launch\({slots}{macro}\)', src)
     call = "QUAD_LAUNCH_CALL" if lib.startswith("quad") else "FLAT_LAUNCH_CALL"
     assert call in src
     # The call macro passes the parameters in the order they are declared.
     header = "quad_trace.cuh" if lib.startswith("quad") else "flat_trace.cuh"
     m = re.search(rf"#define {call}\s+((?:.*\\\n)*.*)", _read(header))
     passed = [x.strip() for x in m.group(1).replace("\\\n", " ").split(",")]
-    assert passed == [n for _, n in _abi(lib)]
+    assert passed == [n for _, n in _abi(lib)][len(SLOT_ARGS) if slots else 0:]
+    if slots:
+        # The slot library's K is the one its wrapper names.
+        assert re.search(rf"<{WRAPPERS[lib].slots}>", src) and lib.endswith(
+            f"_k{WRAPPERS[lib].slots}")
 
 
 # The designs each library keeps: the first versions of the vmem f32 frame
@@ -127,7 +137,8 @@ def test_entry_point_takes_the_macro(lib):
 KEPT = {"quad_trace": {"persistent", "first", "shared_stack"},
         "flat_trace": {"persistent", "first", "shared_stack"},
         "quad_trace_c": {"persistent"}, "flat_trace_c": {"persistent"},
-        "flat_trace_mxu": {"persistent", "first"}}
+        "flat_trace_mxu": {"persistent", "first"},
+        **{lib: {"persistent"} for lib in WRAPPERS if "_trace_k" in lib}}
 
 
 @pytest.mark.parametrize("design", sorted(DESIGNS))
@@ -202,6 +213,35 @@ def test_ptxas_names_of_the_new_forms():
                 break
     got = [(n, r, b, s) for n, r, b, s, _ in chip_smoke.ptxas_forms("\n".join(log))]
     assert got == want
+
+
+def test_ptxas_names_of_the_slot_forms():
+    # The slot kernels' template starts with K (Li<K>E), then their flags;
+    # one library per K of common.SLOTS, U bounded by the kernels' kMaxUnits.
+    import chip_smoke
+
+    assert re.search(rf"^constexpr int kMaxUnits = {common.MAX_UNITS};$",
+                     _read("trace_common.cuh"), re.M)
+    for k in common.SLOTS:
+        for tree in ("quad", "flat"):
+            assert f"{tree}_slots_kernel" in _read(f"{tree}_trace.cuh")
+            assert f"<{k}>" in _read(f"{tree}_trace_k{k}.cu")
+
+    mangled = {
+        "_ZN12_GLOBAL__N_117flat_slots_kernelILi2ELb0ELb0ELb0ELb0ELb0ELb0EEEvN12tpu_rt_torch9"
+        "TraceArgsEij": "flat_trace_k2<any=0,uv=0,stats=0>",
+        "_ZN12_GLOBAL__N_117flat_slots_kernelILi8ELb1ELb1ELb0ELb1ELb0ELb1EEEvN12tpu_rt_torch9"
+        "TraceArgsEij": "flat_trace_k8<any=1,uv=1,stats=0>@mixed-bf16",
+        "_ZN12_GLOBAL__N_117quad_slots_kernelILi4ELb0ELb0ELb1ELb1ELb1EEEvN12tpu_rt_torch9"
+        "TraceArgsEij": "quad_trace_k4<any=0,uv=0,stats=1>@hbm",
+    }
+    log = []
+    for i, m in enumerate(mangled):
+        log += [f"ptxas info    : Compiling entry function '{m}' for 'sm_90a'",
+                f"    {8 * i} bytes stack frame, {4 * i} bytes spill stores, 0 bytes spill loads",
+                f"ptxas info    : Used {40 + i} registers"]
+    got = [(n, r, b, s) for n, r, b, s, _ in chip_smoke.ptxas_forms("\n".join(log))]
+    assert got == [(name, 40 + i, 8 * i, 4 * i) for i, name in enumerate(mangled.values())]
 
 
 def test_min_blocks_rewrites_every_entry():

@@ -2,9 +2,12 @@
 ``treelet_sim``, ``iter_probe``, ``ao_probe``, ``quad_probe``) against the
 JAX package's ``tools/``: the host simulators bit for bit on identical
 inputs, the ray generation, orders, prefixes and paddings, the oracle
-verification's count, the refused Pallas knobs, and each ``main`` on knob
-at a small frame with the kernels' plain versions."""
+verification's count, ``quad_probe``'s U / K / tile settings and what they
+refuse, each ``main`` on knob at a small frame with the kernels' plain
+versions, and ``quad_probe``'s and ``ao_probe``'s hit counts against the
+JAX tools' (their Pallas kernels in interpret mode) on the same rays."""
 
+import functools
 import importlib
 import sys
 from collections import namedtuple
@@ -23,7 +26,7 @@ from tpu_rt.scene import procedural as t_proc
 
 from tpu_rt_torch.bench import ao_probe, iter_probe, packet_stats, quad_probe, treelet_sim
 from tpu_rt_torch.bench.bench_suite import census
-from tpu_rt_torch.bench.workload import suite_camera
+from tpu_rt_torch.bench.workload import suite_ao_radius, suite_camera
 from tpu_rt_torch.bvh import load_or_build_bvh
 from tpu_rt_torch.core.types import Hits, Rays
 from tpu_rt_torch.raygen import RayGen
@@ -36,6 +39,9 @@ from tpu_rt_torch.bvh.collapse import collapse4
 
 SCENE = "knob"
 EPS32 = np.finfo(np.float32).eps
+# tools/ao_probe.py's schedules, in its order.
+AO_SCHEDULES = ["unsorted", "natural", "compact", "spread", "uns-t512k4", "uns-t512k8",
+                "uns-t1024k4", "uns-t1024k8", "uns-c2", "cmp-t512k8", "cmp-c2"]
 
 
 def _tool(name, monkeypatch):
@@ -289,13 +295,19 @@ def test_ao_probe_schedules_equal_tpu_rt(ao_rays, monkeypatch):
                                                            kind="stable"), jnp.int32)),
             "unsorted": t_r}
     got = ao_probe.schedules(p_r, live, tile)
-    assert list(got) == ["unsorted", "natural", "compact", "spread", "uns-c2", "cmp-c2"]
+    assert list(got) == AO_SCHEDULES
     assert got["compact"][0].num == m < n and m % tile == 0
-    assert got["cmp-c2"][0] is got["compact"][0]
-    assert got["uns-c2"] == (p_r, 2)
+    assert got["cmp-c2"][0] is got["compact"][0] is got["cmp-t512k8"][0]
+    assert got["uns-c2"] == (p_r, {"cursors": 2})
+    # The tool's tile / interleave schedules (ao_probe.py:251-256), as
+    # trace_flat's tile and k.
+    for t_ in (512, 1024):
+        for k_ in (4, 8):
+            assert got[f"uns-t{t_}k{k_}"] == (p_r, {"tile": t_, "k": k_})
+    assert got["cmp-t512k8"][1] == {"tile": 512, "k": 8}
     for name, w in want.items():
-        rays, cursors = got[name]
-        assert cursors == 1
+        rays, kw = got[name]
+        assert kw == {}
         for a, b in zip(rays, w):
             assert np.array_equal(a.numpy().view(np.int32), np.asarray(b).view(np.int32)), name
 
@@ -352,15 +364,28 @@ def test_verify_subset_equals_bench_kernel(any_hit, flats, ao_rays, monkeypatch)
     assert quad_probe.verify_subset(flat, rays, hits, any_hit, n) == 0
 
 
+# Values of each knob that the slot forms refuse (common.check_schedule).
+QP_BAD = {"QP_U4": ("0", "33", "3,x", "4,40"), "QP_K": ("3", "16", "-2"),
+          "QP_TILE": ("100", "-128", "64")}
+
+
 @pytest.mark.parametrize("var,value", [("QP_U4", "3,4,6,8"), ("QP_U4", "8"), ("QP_K", "4"),
                                        ("QP_TILE", "1024")])
 def test_quad_probe_refuses_pallas_knobs(var, value):
+    # The tool's knobs are the 4-wide kernel's slot settings: the value
+    # given is taken (tools/quad_probe.py:41-43), and one that the slot
+    # forms refuse raises ValueError naming its variable.
+    s = quad_probe.settings({var: value})
+    key = {"QP_U4": "u4", "QP_K": "k", "QP_TILE": "tile"}[var]
+    assert s[key] == ([int(x) for x in value.split(",")] if var == "QP_U4" else int(value))
+    for bad in QP_BAD[var]:
+        with pytest.raises(ValueError, match=var):
+            quad_probe.settings({var: bad})
     with pytest.raises(ValueError, match=var):
-        quad_probe.settings({var: value})
-    with pytest.raises(ValueError, match=var):
-        quad_probe.main([SCENE], {var: value}, device="cpu", cache_dir=None)
-    s = quad_probe.settings({"QP_U4": "4", "QP_K": "0", "QP_TILE": "0"})
-    assert s == {"chain": 32, "repeats": 3, "verify": 4096, "leaf_max": 16}
+        quad_probe.main([SCENE], {var: QP_BAD[var][0]}, device="cpu", cache_dir=None)
+    s = quad_probe.settings({"QP_K": "0", "QP_TILE": "0"})
+    assert s == {"chain": 32, "repeats": 3, "verify": 4096, "leaf_max": 16, "u4": [None],
+                 "k": None, "tile": None}
 
 
 # ---------------------------------------------------------------------------
@@ -412,8 +437,7 @@ def test_quad_probe_main_rows(flats):
 def test_ao_probe_main_rows():
     rows = ao_probe.main([SCENE], {"TPU_RT_TILE2": "256"}, device="cpu", cache_dir=None,
                          width=64, height=32)
-    assert [r["name"] for r in rows] == ["unsorted", "natural", "compact", "spread", "uns-c2",
-                                         "cmp-c2"]
+    assert [r["name"] for r in rows] == AO_SCHEDULES
     # Every schedule finds the same occluded rays; compact traces only the
     # live prefix, padded to the tile.
     assert len({r["hits"] for r in rows}) == 1 and rows[0]["hits"] > 0
@@ -433,3 +457,101 @@ def test_host_tools_main_rows():
                           device="cpu", cache_dir=None)
     assert [r["T"] for r in ts] == [None, 32] and ts[1]["portals"] >= 1
     assert ts[0]["steps_per_ray"] > 0 and ts[1]["steps_per_ray"] > 0
+
+
+# ---------------------------------------------------------------------------
+# quad_probe's and ao_probe's hit counts against the JAX tools'
+# ---------------------------------------------------------------------------
+
+def _port_ao_rays(flat, camera, width, height, max_dist):
+    """The port's unsorted 1-sample AO rays of a frame, as its tools make
+    them (a closest-hit trace of the primary rays on the binary tables)."""
+    scene = Scene(procedural.scene_by_name(SCENE))
+    rays = RayGen().primary(camera, width, height, device="cpu")[0]
+    ph = trace_flat(upload_flat(flat, "cpu"), rays)
+    return gen_ao_rays(rays.origin, rays.dirn, ph.t, ph.tri, torch.as_tensor(scene.tri_normal),
+                       1, max_dist, 0)[0]
+
+
+def _jax_rays_of(port_rays):
+    """A stand-in for the JAX tools' ``gen_ao_rays`` that returns the port's
+    rays, so that both tools trace the same rays."""
+    rays = _t_rays([x.numpy() for x in port_rays])
+    return lambda *args, **kw: (rays, None, None)
+
+
+def test_ao_probe_hits_equal_tpu_rt_tool(flats, tmp_path, monkeypatch, capsys):
+    # Both tools on knob's AO rays of a 128x64 frame (4 tiles of 2,048 rays):
+    # every schedule, the tile / interleave ones included, finds the JAX
+    # tool's hit count (its Pallas kernel in interpret mode; any hit holds
+    # hit vs miss, tests/test_torch_flat_trace.py).
+    t_ao = _tool("ao_probe", monkeypatch)
+    _, flat = flats
+    scene = Scene(procedural.scene_by_name(SCENE))
+    lo, hi = scene.bbox()
+    arays = _port_ao_rays(flat, Camera.for_bbox(lo, hi), 128, 64,
+                          0.1 * float(np.linalg.norm(hi - lo)))
+    monkeypatch.setattr(_SizedRayGen, "size", (128, 64))
+    monkeypatch.setattr(t_ao, "RayGen", _SizedRayGen)
+    monkeypatch.setattr(t_ao, "gen_ao_rays", _jax_rays_of(arays))
+    monkeypatch.setattr(t_ao, "trace_packet2", functools.partial(t_ao.trace_packet2,
+                                                                 interpret=True))
+    monkeypatch.chdir(tmp_path)
+    capsys.readouterr()
+    t_ao.main()
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if " hits " in ln]
+    want = {ln.split(":")[0].strip(): int(ln.split(" hits ")[1].split()[0]) for ln in lines}
+    assert list(want) == AO_SCHEDULES
+    monkeypatch.setattr(ao_probe, "gen_ao_rays", lambda *a, **k: (arays, None, None))
+    rows = ao_probe.main([SCENE], {}, device="cpu", cache_dir=None, width=128, height=64)
+    assert {r["name"]: r["hits"] for r in rows} == want
+    assert len(set(want.values())) == 1 and rows[0]["hits"] > 0
+    by = {r["name"]: r for r in rows}
+    assert (by["uns-t1024k8"]["tile"], by["uns-t1024k8"]["k"]) == (1024, 8)
+
+
+def test_quad_probe_slot_settings_hits_equal_tpu_rt_tool(flats, tmp_path, monkeypatch):
+    # QP_U4="3,4", QP_K="2", QP_TILE="512" on knob, primary and AO rays at
+    # 64x32: one 4-wide row per U after the binary row, as the JAX tool
+    # prints them, each with the JAX tool's hit count on the same rays
+    # (its Pallas kernels in interpret mode with the same settings); every
+    # row verified against the oracle.
+    t_qp = _tool("quad_probe", monkeypatch)
+    _, flat = flats
+    scene = Scene(procedural.scene_by_name(SCENE))
+    camera = suite_camera(SCENE, scene)
+    arays = _port_ao_rays(flat, camera, 64, 32, suite_ao_radius(SCENE, scene))
+    for name, value in (("U4_SWEEP", [3, 4]), ("K4", 2), ("TILE4", 512), ("CHAIN", 1),
+                        ("REPEATS", 1), ("VERIFY", 256)):
+        monkeypatch.setattr(t_qp, name, value)
+    monkeypatch.setattr(t_qp, "RayGen", _SizedRayGen)
+    monkeypatch.setattr(t_qp, "gen_ao_rays", _jax_rays_of(arays))
+    want = []
+    for fn in ("trace_packet2", "trace_packet4"):
+        orig = functools.partial(getattr(t_qp, fn), interpret=True)
+
+        def record(*args, orig=orig, **kw):
+            out = orig(*args, **kw)
+            if kw.get("count_iters"):
+                want.append((kw.get("u"), int(np.sum(np.asarray(out[0].tri) >= 0))))
+            return out
+
+        monkeypatch.setattr(t_qp, fn, record)
+    import tpu_rt.bench.workload as t_workload
+
+    monkeypatch.setattr(t_workload, "FRAME_W", 64)
+    monkeypatch.setattr(t_workload, "FRAME_H", 32)
+    monkeypatch.setattr(sys, "argv", ["quad_probe.py", SCENE, "--types=primary,ao"])
+    monkeypatch.chdir(tmp_path)
+    t_qp.main()
+    monkeypatch.setattr(quad_probe, "gen_ao_rays", lambda *a, **k: (arays, None, None))
+    rows = quad_probe.main([SCENE, "--types=primary,ao"],
+                           {"QP_U4": "3,4", "QP_K": "2", "QP_TILE": "512", "QP_CHAIN": "1",
+                            "QP_REPEATS": "1", "QP_VERIFY": "256"},
+                           device="cpu", cache_dir=None, width=64, height=32)
+    assert [(r["ray_type"], r["kernel"], r.get("u")) for r in rows] == [
+        (rt, kernel, u) for rt in ("primary", "ao")
+        for kernel, u in (("flat_trace", None), ("quad_trace", 3), ("quad_trace", 4))]
+    assert [(r.get("u"), r["hits"]) for r in rows] == want
+    assert all(r["bad"] == 0 for r in rows) and rows[0]["hits"] > 0 and rows[3]["hits"] > 0
+    assert all((r["k"], r["tile"]) == (2, 512) for r in rows if r["kernel"] == "quad_trace")

@@ -15,20 +15,18 @@ tables at the port's residency) under each schedule:
               live prefix, padded to a multiple of ``tile``, is traced
   spread    - the dead-last order strided round-robin over the
               n // tile packets, so each holds the same live fraction
+  uns-t<T>k<K> - unsorted, the slot forms (flat_trace_k<K>.cu): K rays a
+              thread, blocks claiming T rays at once (T 512, 1024; K 4, 8)
   uns-c2    - unsorted, 2 leaf cursors (``cursors=2``, flat_trace_c.cu)
+  cmp-t512k8 - compact, the slot forms at T 512, K 8
   cmp-c2    - compact, 2 leaf cursors
 
 Per schedule: the hit count of one trace, one warm trace, then the best of
 3 chains of 3 traces (CUDA events around each chain, ``bench.chain_times``),
 printed as ms per trace, hits and live Mray/s.  ``tile`` is
 ``TPU_RT_TILE2`` from ``env`` (2,048, the port's ``LIVE_PAD``), so the
-permutations and prefix lengths equal ``tpu_rt``'s.
-
-Left out: the JAX tool's ``uns-t512k4``, ``uns-t512k8``, ``uns-t1024k4``,
-``uns-t1024k8`` and ``cmp-t512k8`` set the Pallas kernel's tile and
-interleave.  The CUDA kernels have no such argument (the persistent
-schedule fixes the launch shape), so those schedules do not exist here.
-``main``'s ``device="cpu"`` and ``width`` / ``height`` serve the tests.
+permutations and prefix lengths equal ``tpu_rt``'s.  ``main``'s
+``device="cpu"`` and ``width`` / ``height`` serve the tests.
 """
 
 from __future__ import annotations
@@ -50,7 +48,8 @@ from tpu_rt_torch.trace import trace_flat, upload_flat
 
 
 def schedules(arays: Rays, live: int, tile: int) -> dict:
-    """{name: (rays, cursors)} of the tool's schedules, in its order."""
+    """{name: (rays, trace_flat's keywords)} of the tool's schedules, in its
+    order."""
     n = arays.num
     dl = permute_rays(arays, sort_dead_last_device(arays))
     m = min(n, -(-live // tile) * tile)
@@ -58,14 +57,19 @@ def schedules(arays: Rays, live: int, tile: int) -> dict:
     # Uniform live spread: stride live rays round-robin over all packets
     # so every packet carries the same live fraction (max ~ mean).
     order = np.argsort(np.arange(n) % (n // tile), kind="stable")
-    return {
-        "unsorted": (arays, 1),
-        "natural": (permute_rays(arays, morton_sort_device(arays.origin, arays.dirn)), 1),
-        "compact": (compact, 1),
-        "spread": (permute_rays(dl, torch.as_tensor(order, device=arays.origin.device)), 1),
-        "uns-c2": (arays, 2),
-        "cmp-c2": (compact, 2),
+    out = {
+        "unsorted": (arays, {}),
+        "natural": (permute_rays(arays, morton_sort_device(arays.origin, arays.dirn)), {}),
+        "compact": (compact, {}),
+        "spread": (permute_rays(dl, torch.as_tensor(order, device=arays.origin.device)), {}),
     }
+    for t in (512, 1024):
+        for k in (4, 8):
+            out[f"uns-t{t}k{k}"] = (arays, {"tile": t, "k": k})
+    out["uns-c2"] = (arays, {"cursors": 2})
+    out["cmp-t512k8"] = (compact, {"tile": 512, "k": 8})
+    out["cmp-c2"] = (compact, {"cursors": 2})
+    return out
 
 
 def main(argv=None, env=None, device="cuda", cache_dir: str | None = "bvhcache", *,
@@ -100,9 +104,9 @@ def main(argv=None, env=None, device="cuda", cache_dir: str | None = "bvhcache",
           f"({live/n*100:.1f}%)", flush=True)
 
     out = []
-    for name, (rr, cursors) in schedules(arays, live, tile).items():
-        def trace(rr=rr, cursors=cursors):
-            return trace_flat(tables, rr, any_hit, cursors=cursors)
+    for name, (rr, kw) in schedules(arays, live, tile).items():
+        def trace(rr=rr, kw=kw):
+            return trace_flat(tables, rr, any_hit, **kw)
 
         hits = int((trace().tri >= 0).sum())
         trace()
@@ -110,8 +114,8 @@ def main(argv=None, env=None, device="cuda", cache_dir: str | None = "bvhcache",
         print(f"{name:11s}: {best*1e3:7.2f} ms  hits {hits}  "
               f"metric {live/best/1e6:6.2f} Mray/s", flush=True)
         out.append({"name": name, "rays": n, "live": live, "rays_traced": rr.num,
-                    "cursors": cursors, "best_s": best, "hits": hits,
-                    "mrays": live / best / 1e6})
+                    "cursors": kw.get("cursors", 1), "tile": kw.get("tile"), "k": kw.get("k"),
+                    "best_s": best, "hits": hits, "mrays": live / best / 1e6})
     return out
 
 

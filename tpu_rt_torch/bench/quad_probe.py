@@ -21,12 +21,15 @@ tests, where ``tpu_rt`` counts Pallas grid-step iterations), and
 the ``packet4/packet2`` (4-wide / binary) Mray/s and iteration ratios.
 
 Environment (``env``): QP_CHAIN (32), QP_REPEATS (3), QP_VERIFY (4096),
-QP_LEAF (0: ``MAX_LEAF4``).  ``QP_U4``, ``QP_K`` and ``QP_TILE`` are the
-Pallas kernel's unroll sweep, interleave and tile; the CUDA kernels have
-none of them, so any value but their defaults ("4", unset or 0, unset or
-0) raises ValueError: the port refuses where ``tpu_rt`` runs, it never
-silently differs.  ``main``'s ``device="cpu"`` and ``width`` / ``height``
-serve the tests.
+QP_LEAF (0: ``MAX_LEAF4``), and the 4-wide kernel's slot settings
+(``trace_quad``'s ``u``, ``k`` and ``tile``, ``tpu_rt``'s ``trace_packet4``
+arguments): QP_U4, a comma list of triangle units U to sweep, one 4-wide
+row each (unset: one row of the default form, which tests one row at a
+time); QP_K, the interleave K, and QP_TILE, the rays a block claims (unset
+or 0: none).  The binary rows take none of them, as in the tool.  A value
+the slot forms refuse (``common.check_schedule``) raises ValueError naming
+its variable.  ``main``'s ``device="cpu"`` and ``width`` / ``height`` serve
+the tests.
 """
 
 from __future__ import annotations
@@ -50,24 +53,33 @@ from tpu_rt_torch.rays.buffer import morton_sort_device, permute_rays
 from tpu_rt_torch.scene import Scene, procedural
 from tpu_rt_torch.trace import (TABLE_BUDGET, choose_node_format, trace_flat, trace_flat_scalar,
                                 trace_quad, upload_flat, upload_quad)
+from tpu_rt_torch.trace.common import check_schedule
 from tpu_rt_torch.trace.tables import QUAD_NODE_BYTES, WOOP_ROW_BYTES, quad_residency
 
-# The Pallas kernel's settings, which the CUDA kernels lack: (what it
-# sets, the values that mean the kernel's default).
-TPU_ONLY = {"QP_U4": ("unroll", ("4",)), "QP_K": ("interleave", ("0",)),
-            "QP_TILE": ("tile", ("0",))}
+
+def _ints(var: str, text: str) -> list[int]:
+    try:
+        return [int(x) for x in text.split(",")]
+    except ValueError:
+        raise ValueError(f"{var}={text!r}: need a comma list of ints") from None
 
 
 def settings(env) -> dict:
-    """The tool's settings from ``env``; a Pallas-only knob set to anything
-    but its default raises ValueError naming it."""
-    for var, (knob, defaults) in TPU_ONLY.items():
-        if var in env and env[var] not in defaults:
-            raise ValueError(f"{var}={env[var]!r}: the CUDA kernels have no counterpart of the "
-                             f"Pallas kernel's {knob}")
+    """The tool's settings from ``env``: ``u4`` the U sweep ([None] when
+    QP_U4 is unset), ``k`` and ``tile`` (None when unset or 0).  A value the
+    slot forms refuse raises ValueError naming its variable."""
+    u4 = _ints("QP_U4", env["QP_U4"]) if "QP_U4" in env else [None]
+    k = _ints("QP_K", env.get("QP_K", "0"))[0] or None
+    tile = _ints("QP_TILE", env.get("QP_TILE", "0"))[0] or None
+    for var, kw in (("QP_K", {"k": k}), ("QP_TILE", {"tile": tile}),
+                    *(("QP_U4", {"u": u}) for u in u4)):
+        try:
+            check_schedule(**kw)
+        except ValueError as e:
+            raise ValueError(f"{var}={env.get(var)!r}: {e}") from None
     return {"chain": int(env.get("QP_CHAIN", 32)), "repeats": int(env.get("QP_REPEATS", 3)),
             "verify": int(env.get("QP_VERIFY", 4096)),
-            "leaf_max": int(env.get("QP_LEAF", 0)) or MAX_LEAF4}
+            "leaf_max": int(env.get("QP_LEAF", 0)) or MAX_LEAF4, "u4": u4, "k": k, "tile": tile}
 
 
 def verify_subset(flat, rays, hits, any_hit: bool, n: int) -> int:
@@ -95,7 +107,8 @@ def verify_subset(flat, rays, hits, any_hit: bool, n: int) -> int:
 
 def bench_kernel(label, trace_fn, rays, num_metric, flat, any_hit, s, device) -> dict:
     """One kernel on ``rays``: ``trace_fn(rays, with_stats=False)``
-    timed, its census and its verification; prints the tool's line."""
+    timed, its census, its hit count and its verification; prints the
+    tool's line."""
     trace = functools.partial(trace_fn, rays)
     chain_times(trace, s["chain"], 2, device)   # warm
     best = min(chain_times(trace, s["chain"], s["repeats"], device))
@@ -106,13 +119,15 @@ def bench_kernel(label, trace_fn, rays, num_metric, flat, any_hit, s, device) ->
           f"iters {iters:8d} groups {groups:4d}", flush=True)
     bad = verify_subset(flat, rays, h, any_hit, s["verify"])
     return {"label": label, "mrays": mrays, "best_s": best, "iters": iters, "groups": groups,
-            "bad": bad, "rays": rays.origin.shape[0], "rays_metric": num_metric}
+            "bad": bad, "rays": rays.origin.shape[0], "rays_metric": num_metric,
+            "hits": int((h.tri >= 0).sum())}
 
 
 def main(argv=None, env=None, device="cuda", cache_dir: str | None = "bvhcache", *,
          width: int = FRAME_W, height: int = FRAME_H) -> list[dict]:
     """The tool's run: prints its lines and returns one row per scene x ray
-    type x kernel (the 4-wide rows carry the ratios)."""
+    type x kernel, one 4-wide row per U of the sweep (the 4-wide rows carry
+    the ratios and their ``u``, ``k`` and ``tile``)."""
     env = os.environ if env is None else env
     s = settings(env)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -170,19 +185,24 @@ def main(argv=None, env=None, device="cuda", cache_dir: str | None = "bvhcache",
             def t2(r, with_stats=False):
                 return trace_flat(tab2, r, any_hit, with_stats=with_stats)
 
-            def t4(r, with_stats=False):
-                return trace_quad(tab4, r, any_hit, with_stats=with_stats)
-
             r2 = bench_kernel(f"flat_trace [{res2}" + ("-bf16" if bf16 else "") + "]",
                               t2, rays, num, flat, any_hit, s, device)
-            r4 = bench_kernel(f"quad_trace [{res4}]", t4, rays, num, flat, any_hit, s,
-                              device)
-            m2, i2, m4, i4 = r2["mrays"], r2["iters"], r4["mrays"], r4["iters"]
-            print(f"    -> packet4/packet2 = {m4/m2:.3f}x "
-                  f"(iters {i4}/{i2} = {i4/max(i2,1):.3f}x)", flush=True)
-            r4.update({"vs_flat": m4 / m2, "iters_vs_flat": i4 / max(i2, 1)})
-            for kernel, r in (("flat_trace", r2), ("quad_trace", r4)):
-                out.append({"scene": name, "ray_type": rt, "kernel": kernel, **r})
+            out.append({"scene": name, "ray_type": rt, "kernel": "flat_trace", **r2})
+            for u4 in s["u4"]:
+                def t4(r, with_stats=False, u4=u4):
+                    return trace_quad(tab4, r, any_hit, with_stats=with_stats, u=u4, k=s["k"],
+                                      tile=s["tile"])
+
+                r4 = bench_kernel(f"quad_trace [{res4}]" + (f" U={u4}" if u4 else "")
+                                  + (f" K={s['k']}" if s["k"] else "")
+                                  + (f" t={s['tile']}" if s["tile"] else ""),
+                                  t4, rays, num, flat, any_hit, s, device)
+                m2, i2, m4, i4 = r2["mrays"], r2["iters"], r4["mrays"], r4["iters"]
+                print(f"    -> packet4/packet2 = {m4/m2:.3f}x "
+                      f"(iters {i4}/{i2} = {i4/max(i2,1):.3f}x)", flush=True)
+                r4.update({"vs_flat": m4 / m2, "iters_vs_flat": i4 / max(i2, 1), "u": u4,
+                           "k": s["k"], "tile": s["tile"]})
+                out.append({"scene": name, "ray_type": rt, "kernel": "quad_trace", **r4})
     return out
 
 

@@ -51,9 +51,10 @@
 //
 // Files: this header holds the kernel and its dispatch; flat_trace.cu
 // instantiates the forms without kPostpone (and the first versions),
-// flat_trace_c.cu those with it, and flat_trace_mxu.cu the tensor-core
-// triangle phase on FlatLane with held leaves, each a library of its own
-// built by its own nvcc.
+// flat_trace_c.cu those with it, flat_trace_mxu.cu the tensor-core
+// triangle phase on FlatLane with held leaves, and flat_trace_k<K>.cu the
+// slot forms (flat_slots_kernel: tpu_rt's K, U and tile, trace_common.cuh
+// persistent_slots), each a library of its own built by its own nvcc.
 //
 // Design (trace_common.cuh, the schedule): persistent warps that fetch rays
 // from a global pool and refill below kRefill active lanes, and a
@@ -117,15 +118,19 @@ __device__ __forceinline__ float bf16_hi(int w) {
     return __int_as_float(w & static_cast<int>(0xFFFF0000u));
 }
 
-// The two children of inner node `node`: each slab-tested against the hit
-// distance so far (hit0, near0, hit1, near1) and their links (c0, c1).
-// Plain loads (kReadOnly false: the first versions) or ldg; the streaming
-// hint with kStreamNodes either way.
-template <bool kBf16Nodes, bool kStreamNodes, bool kReadOnly, typename R>
-__device__ __forceinline__ void test_children(const float4* __restrict__ nodes, int node,
-                                              const R& r, float hit_t, bool& hit0,
-                                              float& near0, int& c0, bool& hit1, float& near1,
-                                              int& c1) {
+// A node's record as a slot form loads it: four float4 (f32 nodes) or two
+// int4 (bf16 nodes).
+struct F32Rec {
+    float4 q0, q1, q2, q3;
+};
+struct Bf16Rec {
+    int4 a, b;
+};
+
+// The record of inner node `node`: plain loads (kReadOnly false: the first
+// versions) or ldg; the streaming hint with kStreamNodes either way.
+template <bool kBf16Nodes, bool kStreamNodes, bool kReadOnly>
+__device__ __forceinline__ auto load_record(const float4* __restrict__ nodes, int node) {
     const auto get = [](const auto* p) {
         if constexpr (kReadOnly) {
             return ldg<kStreamNodes>(p);
@@ -136,22 +141,49 @@ __device__ __forceinline__ void test_children(const float4* __restrict__ nodes, 
     if constexpr (kBf16Nodes) {
         const int4* rec = reinterpret_cast<const int4*>(nodes) + static_cast<size_t>(node) * 2;
         const int4 a = get(rec), b = get(rec + 1);
-        hit0 = slab_near(r, hit_t, bf16_lo(a.x), bf16_hi(a.x), bf16_lo(a.y), bf16_hi(a.y),
-                         bf16_lo(b.x), bf16_hi(b.x), near0);
-        hit1 = slab_near(r, hit_t, bf16_lo(a.z), bf16_hi(a.z), bf16_lo(a.w), bf16_hi(a.w),
-                         bf16_lo(b.y), bf16_hi(b.y), near1);
-        c0 = b.z;
-        c1 = b.w;
+        return Bf16Rec{a, b};
     } else {
         const float4* rec = nodes + static_cast<size_t>(node) * 4;
         const float4 q0 = get(rec), q1 = get(rec + 1);
         const float4 q2 = get(rec + 2);
         const float4 q3 = get(rec + 3);
-        hit0 = slab_near(r, hit_t, q0.x, q0.y, q0.z, q0.w, q2.x, q2.y, near0);
-        hit1 = slab_near(r, hit_t, q1.x, q1.y, q1.z, q1.w, q2.z, q2.w, near1);
-        c0 = __float_as_int(q3.x);
-        c1 = __float_as_int(q3.y);
+        return F32Rec{q0, q1, q2, q3};
     }
+}
+
+// The two children of a node record: each slab-tested against the hit
+// distance so far (hit0, near0, hit1, near1) and their links (c0, c1).
+template <typename R>
+__device__ __forceinline__ void record_children(const Bf16Rec& rec, const R& r, float hit_t,
+                                                bool& hit0, float& near0, int& c0, bool& hit1,
+                                                float& near1, int& c1) {
+    const int4 a = rec.a, b = rec.b;
+    hit0 = slab_near(r, hit_t, bf16_lo(a.x), bf16_hi(a.x), bf16_lo(a.y), bf16_hi(a.y),
+                     bf16_lo(b.x), bf16_hi(b.x), near0);
+    hit1 = slab_near(r, hit_t, bf16_lo(a.z), bf16_hi(a.z), bf16_lo(a.w), bf16_hi(a.w),
+                     bf16_lo(b.y), bf16_hi(b.y), near1);
+    c0 = b.z;
+    c1 = b.w;
+}
+template <typename R>
+__device__ __forceinline__ void record_children(const F32Rec& rec, const R& r, float hit_t,
+                                                bool& hit0, float& near0, int& c0, bool& hit1,
+                                                float& near1, int& c1) {
+    hit0 = slab_near(r, hit_t, rec.q0.x, rec.q0.y, rec.q0.z, rec.q0.w, rec.q2.x, rec.q2.y, near0);
+    hit1 = slab_near(r, hit_t, rec.q1.x, rec.q1.y, rec.q1.z, rec.q1.w, rec.q2.z, rec.q2.w, near1);
+    c0 = __float_as_int(rec.q3.x);
+    c1 = __float_as_int(rec.q3.y);
+}
+
+// The two children of inner node `node`: its record (load_record) and
+// their slab tests (record_children).
+template <bool kBf16Nodes, bool kStreamNodes, bool kReadOnly, typename R>
+__device__ __forceinline__ void test_children(const float4* __restrict__ nodes, int node,
+                                              const R& r, float hit_t, bool& hit0,
+                                              float& near0, int& c0, bool& hit1, float& near1,
+                                              int& c1) {
+    record_children(load_record<kBf16Nodes, kStreamNodes, kReadOnly>(nodes, node), r, hit_t,
+                    hit0, near0, c0, hit1, near1, c1);
 }
 
 // One visit of the inner node `node` (>= 0), as the oracle: both children
@@ -312,6 +344,30 @@ struct FlatLane {
         int c0, c1;
         test_children<kBf16Nodes, kStreamNodes, true>(a.nodes, node, r, h.t, hit0, near0, c0,
                                                       hit1, near1, c1);
+        take(a, hit0, near0, c0, hit1, near1, c1);
+    }
+
+    // The slot forms' node step in two parts: the record of the node the
+    // lane stands on (of row 0 when it does not walk), then node_step's
+    // visit of it.
+    using Rec = std::conditional_t<kBf16Nodes, Bf16Rec, F32Rec>;
+    __device__ __forceinline__ Rec fetch(const TraceArgs& a, bool walk) const {
+        return load_record<kBf16Nodes, kStreamNodes, true>(a.nodes, walk ? node : 0);
+    }
+    __device__ __forceinline__ void step(const TraceArgs& a, const Rec& rec) {
+        if constexpr (kStats) ++h.node_tests;
+        float near0, near1;
+        bool hit0, hit1;
+        int c0, c1;
+        record_children(rec, r, h.t, hit0, near0, c0, hit1, near1, c1);
+        take(a, hit0, near0, c0, hit1, near1, c1);
+    }
+
+    // A node visit's move, from its children's slab tests: with both hit,
+    // the nearer entry next and the other pushed; with one, that one; with
+    // none, the lane pops.
+    __device__ __forceinline__ void take(const TraceArgs& a, bool hit0, float near0, int c0,
+                                         bool hit1, float near1, int c1) {
         if (hit0 && hit1) {
             if (near1 < near0) {
                 const int c = c0;
@@ -328,18 +384,21 @@ struct FlatLane {
         if (node < 0 || node == kEmpty) settle(a);
     }
 
-    // The leaf phase of this lane: every queued (leaf, triangle) pair.
-    __device__ __forceinline__ void drain(const TraceArgs& a) {
+    // The leaf phase of this lane: every queued (leaf, triangle) pair, one
+    // Woop row at a time.
+    __device__ __forceinline__ void drain(const TraceArgs& a) { drain_units(a, 1); }
+
+    // The leaf phase of a slot: every queued (leaf, triangle) pair, `units`
+    // Woop rows at a time (test_rows).
+    __device__ __forceinline__ void drain_units(const TraceArgs& a, int units) {
         while (pending < 0) {
             const int first = ~pending;
             const int end =
                 first + ldg<kStreamTris>(a.leaf_counts + min(first, a.n_counts - 1));
-            for (int i = first; i < end; ++i) {
-                if constexpr (kStats) ++h.tri_tests;
-                if (woop_test<kWantUv, kStreamTris>(a.woop, i, r, h) && kAnyHit) {
-                    finish(a);
-                    return;
-                }
+            if (test_rows<kAnyHit, kWantUv, kStats, kStreamTris>(a.woop, first, end, units, r,
+                                                                  h)) {
+                finish(a);
+                return;
             }
             settle(a);
         }
@@ -359,13 +418,28 @@ flat_trace_kernel(const __grid_constant__ TraceArgs a) {
     persistent_warps(lane, a);
 }
 
+// The slot forms (flat_trace_k*.cu; trace_common.cuh persistent_slots):
+// kSlots lane states per thread, each with its own local-memory stack, U
+// Woop rows at a time (`units`) and the block's pool of `tile` rays.
+template <int kSlots, bool kAnyHit, bool kWantUv, bool kStats, bool kBf16Nodes,
+          bool kStreamNodes, bool kStreamTris>
+__global__ void __launch_bounds__(kBlock, 1)
+flat_slots_kernel(const __grid_constant__ TraceArgs a, int units, unsigned tile) {
+    FlatLane<kAnyHit, kWantUv, kStats, kBf16Nodes, kStreamNodes, kStreamTris, false, false>
+        slot[kSlots];
+    int stack[kSlots][STACK_SIZE];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) slot[s].stack.bind(stack[s]);
+    persistent_slots(slot, a, units, tile);
+}
+
 // Checks the host arguments, picks the instantiation of `launch_form`'s
 // template from the form flags, the node format and the residency, and
 // calls it: the launch behind the C ABI of flat_trace.cu, flat_trace_c.cu
 // and flat_trace_mxu.cu.  `launch_form(a, u, c, bf, sn, st, args, ctx,
 // design)` launches the form for those std::integral_constant flags and
 // returns its CUDA error; `cursors_ok` is the library's rule for `cursors`.
-// The other arguments are quad_launch's (quad_trace.cuh), with the node
+// The other arguments are quad_dispatch's (quad_trace.cuh), with the node
 // format (`bf16_nodes`) and the leaf-count table added; `stack_need` is the
 // tree's depth.
 template <typename LaunchForm>
@@ -444,6 +518,25 @@ struct FlatLaunch {
             }
         }
         return cudaErrorInvalidValue;
+    }
+};
+
+// The launch of one slot form (flat_trace_k<kSlots>.cu), persistent and
+// at cursors = 1 only, with U (`units`) and S (`tile`) from the C ABI.
+template <int kSlots>
+struct FlatSlotLaunch {
+    int units;
+    int tile;
+
+    template <typename A, typename U, typename C, typename B, typename SN, typename ST>
+    cudaError_t operator()(A, U, C, B, SN, ST, const TraceArgs& args, const LaunchCtx& ctx) const {
+        if (args.counter == nullptr || ctx.design != kPersistent) return cudaErrorInvalidValue;
+        LaunchCtx slots_ctx = ctx;
+        slots_ctx.slots = kSlots;
+        return launch_persistent(flat_slots_kernel<kSlots, A::value, U::value, C::value, B::value,
+                                                   SN::value, ST::value>,
+                                 args.n_rays, 0, args.counter, slots_ctx, args, units,
+                                 static_cast<unsigned>(tile));
     }
 };
 

@@ -5,5 +5,5 @@
 #include "quad_trace.cuh"
 
 extern "C" int quad_trace_launch(QUAD_LAUNCH_ARGS) {
-    return quad_launch<false>(QUAD_LAUNCH_CALL);
+    return quad_dispatch(QuadLaunch<false>{}, cursors == 1, QUAD_LAUNCH_CALL);
 }

@@ -93,7 +93,9 @@
 // The first versions (quad_first_kernel: one ray per thread, a stack of
 // STACK_SIZE entries in local memory, each hit leaf drained in its own
 // statement) stay compiled for the vmem frame forms, for chip_smoke.py's
-// A/B only.
+// A/B only.  quad_trace_k<K>.cu instantiates the slot forms
+// (quad_slots_kernel: tpu_rt's K, U and tile on QuadLane,
+// trace_common.cuh persistent_slots).
 //
 // Layouts (row-major, contiguous):
 //   nodes [Q,32] f32: cols 6j..6j+5 child j box (lo.x,hi.x,lo.y,hi.y,lo.z,
@@ -318,15 +320,60 @@ struct QuadLane {
         const int l0 = __float_as_int(q6.x), l1 = __float_as_int(q6.y);
         const int l2 = __float_as_int(q6.z), l3 = __float_as_int(q6.w);
         const int hint = __float_as_int(ldg<kStreamNodes>(&rec[7].x));
-        const float4 q0 = ldg<kStreamNodes>(rec), q1 = ldg<kStreamNodes>(rec + 1);
-        const bool h0 = l0 != kSent && slab(r, h.t, q0.x, q0.y, q0.z, q0.w, q1.x, q1.y);
-        const float4 q2 = ldg<kStreamNodes>(rec + 2);
-        const bool h1 = l1 != kSent && slab(r, h.t, q1.z, q1.w, q2.x, q2.y, q2.z, q2.w);
-        const float4 q3 = ldg<kStreamNodes>(rec + 3), q4 = ldg<kStreamNodes>(rec + 4);
-        const bool h2 = l2 != kSent && slab(r, h.t, q3.x, q3.y, q3.z, q3.w, q4.x, q4.y);
-        const float4 q5 = ldg<kStreamNodes>(rec + 5);
-        const bool h3 = l3 != kSent && slab(r, h.t, q4.z, q4.w, q5.x, q5.y, q5.z, q5.w);
+        bool h0, h1, h2, h3;
+        slabs([&](int i) { return ldg<kStreamNodes>(rec + i); }, l0, l1, l2, l3, h0, h1, h2, h3);
+        visit(a, h0, h1, h2, h3, l0, l1, l2, l3, hint);
+    }
 
+    // The slot forms' node test in two parts, so that a thread's K record
+    // loads issue before any of their slab tests: the record of the node
+    // the lane stands on (of row 0 when it does not walk: its six box
+    // float4, the links and the hint), then node_step's slab tests and
+    // visit.
+    struct Rec {
+        float4 box[6], links;
+        int hint;
+    };
+    __device__ __forceinline__ Rec fetch(const TraceArgs& a, bool walk) const {
+        const float4* rec = a.nodes + static_cast<size_t>(walk ? node : 0) * 8;
+        Rec q;
+        q.links = ldg<kStreamNodes>(rec + 6);
+        q.hint = __float_as_int(ldg<kStreamNodes>(&rec[7].x));
+#pragma unroll
+        for (int i = 0; i < 6; ++i) q.box[i] = ldg<kStreamNodes>(rec + i);
+        return q;
+    }
+    __device__ __forceinline__ void step(const TraceArgs& a, const Rec& q) {
+        if constexpr (kStats) ++h.node_tests;
+        const int l0 = __float_as_int(q.links.x), l1 = __float_as_int(q.links.y);
+        const int l2 = __float_as_int(q.links.z), l3 = __float_as_int(q.links.w);
+        bool h0, h1, h2, h3;
+        slabs([&](int i) { return q.box[i]; }, l0, l1, l2, l3, h0, h1, h2, h3);
+        visit(a, h0, h1, h2, h3, l0, l1, l2, l3, q.hint);
+    }
+
+    // The four slab tests of a node record, children in stored order (a
+    // sentinel link is no child): `box(i)` gives the record's float4 i
+    // (0..5), taken in the order the tests use them, so that node_step's
+    // loads interleave with its tests.
+    template <typename Box>
+    __device__ __forceinline__ void slabs(Box box, int l0, int l1, int l2, int l3, bool& h0,
+                                          bool& h1, bool& h2, bool& h3) const {
+        const float4 q0 = box(0), q1 = box(1);
+        h0 = l0 != kSent && slab(r, h.t, q0.x, q0.y, q0.z, q0.w, q1.x, q1.y);
+        const float4 q2 = box(2);
+        h1 = l1 != kSent && slab(r, h.t, q1.z, q1.w, q2.x, q2.y, q2.z, q2.w);
+        const float4 q3 = box(3), q4 = box(4);
+        h2 = l2 != kSent && slab(r, h.t, q3.x, q3.y, q3.z, q3.w, q4.x, q4.y);
+        const float4 q5 = box(5);
+        h3 = l3 != kSent && slab(r, h.t, q4.z, q4.w, q5.x, q5.y, q5.z, q5.w);
+    }
+
+    // A node test's outcome, from its four slab tests (h0..h3) and links
+    // (l0..l3) in stored order: the visit order, the inner children, the
+    // leaf queue.
+    __device__ __forceinline__ void visit(const TraceArgs& a, bool h0, bool h1, bool h2, bool h3,
+                                          int l0, int l1, int l2, int l3, int hint) {
         // Visit order: stored if d[hint] >= 0 for this ray, else reversed.
         const float dh = hint == 0 ? r.dx : (hint == 1 ? r.dy : r.dz);
         const bool fwd = dh >= 0.0f;
@@ -344,18 +391,21 @@ struct QuadLane {
         settle(a);
     }
 
-    // The leaf phase of this lane: every queued (leaf, triangle) pair.
-    __device__ __forceinline__ void drain(const TraceArgs& a) {
+    // The leaf phase of this lane: every queued (leaf, triangle) pair, one
+    // Woop row at a time.
+    __device__ __forceinline__ void drain(const TraceArgs& a) { drain_units(a, 1); }
+
+    // The leaf phase of a slot: every queued (leaf, triangle) pair, `units`
+    // Woop rows at a time (test_rows).
+    __device__ __forceinline__ void drain_units(const TraceArgs& a, int units) {
         while (pending < 0) {
             const int c = ~pending;
             const int first = c & kFirstMask;
             const int end = first + ((c >> kCountShift) & 0xFF);
-            for (int i = first; i < end; ++i) {
-                if constexpr (kStats) ++h.tri_tests;
-                if (woop_test<kWantUv, kStreamTris>(a.woop, i, r, h) && kAnyHit) {
-                    finish(a);
-                    return;
-                }
+            if (test_rows<kAnyHit, kWantUv, kStats, kStreamTris>(a.woop, first, end, units, r,
+                                                                  h)) {
+                finish(a);
+                return;
             }
             settle(a);
         }
@@ -374,52 +424,53 @@ quad_trace_kernel(const __grid_constant__ TraceArgs a) {
     persistent_warps(lane, a);
 }
 
-// The launch behind the C ABI of quad_trace.cu (kPostpone false, cursors
-// 1) and quad_trace_c.cu (kPostpone true, 2 <= cursors <= kMaxCursors).
-// `any_hit`, `want_uv` and `stats` pick the form and `stream_nodes`,
-// `stream_tris` the residency (trace_common.cuh); u, v and the counters may
-// be null in the forms that do not write them.  `window_bytes` > 0 attaches
-// the mixed residency's L2 window over the node table, with the persisting
-// set-aside `set_aside` (launch_window).  `design` picks the persistent
-// kernel (kPersistent) or, for the vmem frame forms at cursors = 1 only,
-// the first version (kFirst) or the shared-memory stack (kSharedStack);
-// `stack_need` is the tree's stack need (3 x depth),
-// `counter` the 4-byte ray pool, `shape` (may be null) receives the launch
-// shape (trace_common.cuh LaunchCtx).  Launches on `stream` and returns the
-// first CUDA error.
-template <bool kPostpone>
-int quad_launch(const void* nodes, int n_nodes, const void* woop,
-                const void* origin, const void* dirn, const void* tmin, const void* tmax,
-                void* out_tri, void* out_t, void* out_u, void* out_v,
-                void* out_node_tests, void* out_tri_tests, int n_rays, int cursors,
-                int any_hit, int want_uv, int stats, int stream_nodes,
-                int stream_tris, size_t window_bytes, size_t set_aside, int design,
-                int stack_need, void* counter, void* shape, void* stream) {
-    const bool frame_vmem = !kPostpone && !want_uv && !stats && !stream_nodes && !stream_tris;
-    if ((kPostpone ? (cursors < 2 || cursors > kMaxCursors) : cursors != 1) ||
-        design < kPersistent || design > kSharedStack ||
-        (design != kPersistent && !frame_vmem) || stack_need < 0 || stack_need > STACK_SIZE ||
-        counter == nullptr) {
+// The slot forms (quad_trace_k*.cu; trace_common.cuh persistent_slots):
+// kSlots lane states per thread, each with its own local-memory stack, U
+// Woop rows at a time (`units`) and the block's pool of `tile` rays.
+template <int kSlots, bool kAnyHit, bool kWantUv, bool kStats, bool kStreamNodes,
+          bool kStreamTris>
+__global__ void __launch_bounds__(kBlock, 1)
+quad_slots_kernel(const __grid_constant__ TraceArgs a, int units, unsigned tile) {
+    QuadLane<kAnyHit, kWantUv, kStats, kStreamNodes, kStreamTris, false, false> slot[kSlots];
+    int stack[kSlots][STACK_SIZE];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) slot[s].stack.bind(stack[s]);
+    persistent_slots(slot, a, units, tile);
+}
+
+// Checks the host arguments, picks the instantiation of `launch_form`'s
+// template from the form flags and the residency, and calls it: the launch
+// behind the C ABI of quad_trace.cu (QuadLaunch<false>, cursors 1),
+// quad_trace_c.cu (QuadLaunch<true>, 2 <= cursors <= kMaxCursors) and
+// quad_trace_k<K>.cu (QuadSlotLaunch<K>, cursors 1).  `cursors_ok` is the
+// library's check of `cursors`.  `any_hit`, `want_uv` and `stats` pick the
+// form and `stream_nodes`, `stream_tris` the residency (trace_common.cuh);
+// u, v and the counters may be null in the forms that do not write them.
+// `window_bytes` > 0 attaches the mixed residency's L2 window over the node
+// table, with the persisting set-aside `set_aside` (launch_window).
+// `design` picks the persistent kernel (kPersistent) or, for the vmem frame
+// forms at cursors = 1 only, the first version (kFirst) or the
+// shared-memory stack (kSharedStack); `stack_need` is the tree's stack need
+// (3 x depth), `counter` the 4-byte ray pool, `shape` (may be null)
+// receives the launch shape (trace_common.cuh LaunchCtx).  Launches on
+// `stream` and returns the first CUDA error.
+template <typename LaunchForm>
+int quad_dispatch(LaunchForm launch_form, bool cursors_ok, const void* nodes, int n_nodes,
+                  const void* woop, const void* origin, const void* dirn, const void* tmin,
+                  const void* tmax, void* out_tri, void* out_t, void* out_u, void* out_v,
+                  void* out_node_tests, void* out_tri_tests, int n_rays, int cursors,
+                  int any_hit, int want_uv, int stats, int stream_nodes, int stream_tris,
+                  size_t window_bytes, size_t set_aside, int design, int stack_need,
+                  void* counter, void* shape, void* stream) {
+    if (!cursors_ok || design < kPersistent || design > kSharedStack ||
+        (design != kPersistent && (want_uv || stats || stream_nodes || stream_tris)) ||
+        stack_need < 0 || stack_need > STACK_SIZE) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSuccess;
     if (n_rays > 0) {
         const LaunchCtx ctx{static_cast<cudaStream_t>(stream), nodes, window_bytes, set_aside,
                             design, stack_need, static_cast<int*>(shape)};
-        if constexpr (!kPostpone) {
-            if (design == kFirst) {
-                const auto go = [&](auto kernel) {
-                    return launch_per_ray(
-                        kernel, n_rays, 0, ctx, static_cast<const float4*>(nodes), n_nodes,
-                        static_cast<const float4*>(woop), static_cast<const float*>(origin),
-                        static_cast<const float*>(dirn), static_cast<const float*>(tmin),
-                        static_cast<const float*>(tmax), static_cast<int*>(out_tri),
-                        static_cast<float*>(out_t), n_rays);
-                };
-                err = any_hit ? go(quad_first_kernel<true>) : go(quad_first_kernel<false>);
-                return static_cast<int>(err);
-            }
-        }
         const TraceArgs args{static_cast<const float4*>(nodes), n_nodes,
                              static_cast<const float4*>(woop), nullptr, 0,
                              static_cast<const float*>(origin), static_cast<const float*>(dirn),
@@ -428,24 +479,10 @@ int quad_launch(const void* nodes, int n_nodes, const void* woop,
                              static_cast<float*>(out_u), static_cast<float*>(out_v),
                              static_cast<int*>(out_node_tests), static_cast<int*>(out_tri_tests),
                              n_rays, cursors, static_cast<unsigned*>(counter)};
-        const size_t smem = design == kSharedStack ? stack_smem(stack_need) : 0;
         dispatch_form(any_hit != 0, want_uv != 0, stats != 0, [&](auto a, auto u, auto c) {
             const bool ok = dispatch_residency(stream_nodes != 0, stream_tris != 0,
                                                [&](auto sn, auto st) {
-                constexpr bool kA = decltype(a)::value, kU = decltype(u)::value;
-                constexpr bool kC = decltype(c)::value, kSn = decltype(sn)::value;
-                constexpr bool kSt = decltype(st)::value;
-                if (design == kPersistent) {
-                    err = launch_persistent(
-                        quad_trace_kernel<kA, kU, kC, kSn, kSt, kPostpone, false>, n_rays, smem,
-                        counter, ctx, args);
-                } else if constexpr (!kU && !kC && !kSn && !kSt && !kPostpone) {
-                    err = launch_persistent(
-                        quad_trace_kernel<kA, kU, kC, kSn, kSt, kPostpone, true>, n_rays, smem,
-                        counter, ctx, args);
-                } else {
-                    err = cudaErrorInvalidValue;
-                }
+                err = launch_form(a, u, c, sn, st, args, ctx);
             });
             if (!ok) err = cudaErrorInvalidValue;
         });
@@ -453,10 +490,65 @@ int quad_launch(const void* nodes, int n_nodes, const void* woop,
     return static_cast<int>(err);
 }
 
+// The launch of one form of the persistent kernel (quad_trace.cu with
+// kPostpone false, quad_trace_c.cu with it); for the vmem frame forms at
+// cursors = 1, the first version and the shared-memory stack too.
+template <bool kPostpone>
+struct QuadLaunch {
+    template <typename A, typename U, typename C, typename SN, typename ST>
+    cudaError_t operator()(A, U, C, SN, ST, const TraceArgs& args, const LaunchCtx& ctx) const {
+        constexpr bool kFrameVmem = !U::value && !C::value && !SN::value && !ST::value &&
+                                    !kPostpone;
+        if (args.counter == nullptr || (ctx.design != kPersistent && !kFrameVmem)) {
+            return cudaErrorInvalidValue;
+        }
+        if constexpr (kFrameVmem) {
+            if (ctx.design == kFirst) {
+                return launch_per_ray(quad_first_kernel<A::value>, args.n_rays, 0, ctx, args.nodes,
+                                      args.n_nodes, args.woop, args.origin, args.dirn, args.tmin,
+                                      args.tmax, args.out_tri, args.out_t, args.n_rays);
+            }
+        }
+        if (ctx.design == kPersistent) {
+            return launch_persistent(quad_trace_kernel<A::value, U::value, C::value, SN::value,
+                                                       ST::value, kPostpone, false>,
+                                     args.n_rays, 0, args.counter, ctx, args);
+        }
+        if constexpr (kFrameVmem) {
+            if (ctx.design == kSharedStack) {
+                return launch_persistent(quad_trace_kernel<A::value, U::value, C::value, SN::value,
+                                                           ST::value, kPostpone, true>,
+                                         args.n_rays, stack_smem(ctx.stack_need), args.counter,
+                                         ctx, args);
+            }
+        }
+        return cudaErrorInvalidValue;
+    }
+};
+
+// The launch of one slot form (quad_trace_k<kSlots>.cu), persistent and
+// at cursors = 1 only, with U (`units`) and S (`tile`) from the C ABI.
+template <int kSlots>
+struct QuadSlotLaunch {
+    int units;
+    int tile;
+
+    template <typename A, typename U, typename C, typename SN, typename ST>
+    cudaError_t operator()(A, U, C, SN, ST, const TraceArgs& args, const LaunchCtx& ctx) const {
+        if (args.counter == nullptr || ctx.design != kPersistent) return cudaErrorInvalidValue;
+        LaunchCtx slots_ctx = ctx;
+        slots_ctx.slots = kSlots;
+        return launch_persistent(quad_slots_kernel<kSlots, A::value, U::value, C::value,
+                                                   SN::value, ST::value>,
+                                 args.n_rays, 0, args.counter, slots_ctx, args, units,
+                                 static_cast<unsigned>(tile));
+    }
+};
+
 }  // namespace
 
 // The C ABI of both quad libraries (ctypes; tpu_rt_torch/trace/common.py
-// CudaTraceKernel.launch): the arguments of quad_launch.
+// CudaTraceKernel.launch): the arguments of quad_dispatch.
 #define QUAD_LAUNCH_ARGS                                                                   \
     const void *nodes, int n_nodes, const void *woop, const void *origin, const void *dirn, \
         const void *tmin, const void *tmax, void *out_tri, void *out_t, void *out_u,        \

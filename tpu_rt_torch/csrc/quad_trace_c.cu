@@ -5,5 +5,6 @@
 #include "quad_trace.cuh"
 
 extern "C" int quad_trace_c_launch(QUAD_LAUNCH_ARGS) {
-    return quad_launch<true>(QUAD_LAUNCH_CALL);
+    return quad_dispatch(QuadLaunch<true>{}, cursors >= 2 && cursors <= tpu_rt_torch::kMaxCursors,
+                         QUAD_LAUNCH_CALL);
 }

@@ -266,17 +266,23 @@ __device__ __forceinline__ bool drain(const float4* __restrict__ woop, int first
     return false;
 }
 
-// One Woop row, i, as `drain` tests it (the same f32 ops in the same
-// order), read through ldg: true when the triangle is accepted (h updated).
-template <bool kWantUv, bool kStreamTris, typename R>
-__device__ __forceinline__ bool woop_test(const float4* __restrict__ woop, int i, const R& r,
-                                          Hit& h) {
-    const float4* w = woop + static_cast<size_t>(i) * 4;
-    const float4 wz = ldg<kStreamTris>(w);
+// The distance t along ray r to the plane of Woop row i, as `drain` takes
+// it, from the row's z part read through ldg.
+template <bool kStreamTris, typename R>
+__device__ __forceinline__ float woop_t(const float4* __restrict__ woop, int i, const R& r) {
+    const float4 wz = ldg<kStreamTris>(woop + static_cast<size_t>(i) * 4);
     const float Oz = wz.w - r.ox * wz.x - r.oy * wz.y - r.oz * wz.z;
     const float Dz = r.dx * wz.x + r.dy * wz.y + r.dz * wz.z;
     const float inv_dz = 1.0f / Dz;
-    const float t = Oz * inv_dz;
+    return Oz * inv_dz;
+}
+
+// The rest of `drain`'s test of Woop row i at the distance t = woop_t(..):
+// true when the triangle is accepted (h updated).
+template <bool kWantUv, bool kStreamTris, typename R>
+__device__ __forceinline__ bool woop_accept(const float4* __restrict__ woop, int i, float t,
+                                            const R& r, Hit& h) {
+    const float4* w = woop + static_cast<size_t>(i) * 4;
     if (!(t > r.t_min && t < h.t)) return false;
     const float4 wu = ldg<kStreamTris>(w + 1);
     const float Ox = wu.w + r.ox * wu.x + r.oy * wu.y + r.oz * wu.z;
@@ -295,6 +301,54 @@ __device__ __forceinline__ bool woop_test(const float4* __restrict__ woop, int i
         h.v = v;
     }
     return true;
+}
+
+// One Woop row, i, as `drain` tests it (the same f32 ops in the same
+// order), read through ldg: true when the triangle is accepted (h updated).
+template <bool kWantUv, bool kStreamTris, typename R>
+__device__ __forceinline__ bool woop_test(const float4* __restrict__ woop, int i, const R& r,
+                                          Hit& h) {
+    return woop_accept<kWantUv, kStreamTris>(woop, i, woop_t<kStreamTris>(woop, i, r), r, h);
+}
+
+// The most Woop rows a slot of the slot forms loads at once (`units`,
+// tpu_rt's U): the widest quad leaf.
+constexpr int kMaxUnits = 32;
+
+// Test the Woop rows first .. end - 1 of one leaf, in order, as woop_test
+// does, `units` rows at a time: the z parts of up to `units` rows are read
+// and their t taken, and then each row is tested in the leaf's order
+// against the hit distance so far.  t does not depend on the hit, so every
+// result (t, tri, u, v, the any-hit occluder, the counter) is woop_test's
+// in a loop; only the loads are issued ahead.  No row past `end` is read.
+// U = 1 is the default forms' loop, which keeps no t in local memory (the
+// staged loop was slower at U = 1 on the card).
+// True at the first accepted triangle of the any-hit form.
+template <bool kAnyHit, bool kWantUv, bool kStats, bool kStreamTris, typename R>
+__device__ __forceinline__ bool test_rows(const float4* __restrict__ woop, int first, int end,
+                                          int units, const R& r, Hit& h) {
+    if (units == 1) {
+        for (int i = first; i < end; ++i) {
+            if constexpr (kStats) ++h.tri_tests;
+            if (woop_test<kWantUv, kStreamTris>(woop, i, r, h) && kAnyHit) return true;
+        }
+        return false;
+    }
+    for (int i = first; i < end; i += units) {
+        const int n = end - i < units ? end - i : units;
+        // Unrolled by 4, not by kMaxUnits: fully unrolled, the K = 8
+        // libraries did not build within the build's time limit.
+        float t[kMaxUnits];
+#pragma unroll 4
+        for (int j = 0; j < n; ++j) t[j] = woop_t<kStreamTris>(woop, i + j, r);
+        for (int j = 0; j < n; ++j) {
+            if constexpr (kStats) ++h.tri_tests;
+            if (woop_accept<kWantUv, kStreamTris>(woop, i + j, t[j], r, h) && kAnyHit) {
+                return true;
+            }
+        }
+    }
+    return false;
 }
 
 constexpr int kMaxCursors = 4;
@@ -479,6 +533,189 @@ __device__ __forceinline__ void persistent_warps(Lane& lane, const TraceArgs& a)
     }
 }
 
+// ---------------------------------------------------------------------------
+// The slot forms (flat_trace_k*.cu, quad_trace_k*.cu): the counterparts of
+// `_kernel2`'s last three settings (packet2.py:404-405), each what the
+// setting does there, not a copy of the TPU's machinery.
+//   K (kSlots, 1, 2, 4 or 8; packet2.py:521-535 interleaves K packets so
+//     that their dependent fetch chains overlap): each lane holds kSlots
+//     rays, each in a lane state of its own with its own stack.  One node
+//     phase iteration gives every walking slot one node step, and issues
+//     the slots' node-record loads before any of their slab tests.
+//   U (`units`, 1..kMaxUnits, read at run time; U triangle tests per
+//     packet per iteration): a slot reads the z parts of up to `units` Woop
+//     rows of its leaf at once, then tests them in the leaf's order
+//     (test_rows).
+//   S (`tile`, a multiple of kBlock, or 0; the S x 128 rays of one grid
+//     step, _trace2_jit :950-957): a block claims `tile` rays of the global
+//     pool at once, into a pool of its own in shared memory (TilePool), from
+//     which its warps draw as fetch_rays draws from the global one.  0: the
+//     warps draw from the global pool themselves.
+// Each ray is traced by the same ops as in the default forms, whatever slot,
+// warp or block takes it, so every result and counter is theirs bit for bit.
+
+// The rays a block has claimed and not yet handed out: [next, end), and the
+// lock that one warp's leader holds while it draws (and refills).
+struct TilePool {
+    unsigned next, end;
+    int lock;
+};
+__shared__ TilePool tile_pool;
+
+// A warp's draw of `want` ray indices (claim_rays): rank q < n0 takes
+// base0 + q, rank n0 <= q < got takes base1 + q - n0; ranks from `got` on
+// take nothing this time.
+struct Claim {
+    unsigned base0, n0, base1, got;
+};
+
+// One draw of `want` (>= 1) ray indices, by one lane of the warp: from the
+// global counter at once (tile 0), or from the block's pool, which, when it
+// holds fewer than `want`, hands out what it holds and is refilled with the
+// next `tile` rays of the global counter.  A draw takes at most one new
+// tile, so `got` < `want` only when `want` > `tile`.
+__device__ __forceinline__ Claim claim_rays(unsigned* counter, unsigned want, unsigned tile) {
+    Claim c{0, want, 0, want};
+    if (tile == 0) {
+        c.base0 = atomicAdd(counter, want);
+        return c;
+    }
+    while (atomicCAS(&tile_pool.lock, 0, 1) != 0) {
+    }
+    __threadfence_block();
+    volatile TilePool& pool = tile_pool;
+    const unsigned next = pool.next, end = pool.end;
+    c.base0 = next;
+    if (end - next >= want) {
+        pool.next = next + want;
+    } else {
+        c.n0 = end - next;
+        c.got = want - c.n0 < tile ? want : c.n0 + tile;
+        c.base1 = atomicAdd(counter, tile);
+        pool.next = c.base1 + (c.got - c.n0);
+        pool.end = c.base1 + tile;
+    }
+    __threadfence_block();
+    atomicExch(&tile_pool.lock, 0);
+    return c;
+}
+
+// The sum of `x` over the warp.
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(kFullMask, x, d);
+    return x;
+}
+
+// The persistent warp loop of the slot forms: persistent_warps with kSlots
+// lane states per lane.  `slot[s]` offers persistent_warps' calls, with the
+// node step also in two parts, fetch(a, walk) (the record loads: of its node
+// when it walks, else of row 0) and step(a, rec), and drain_units(a, units)
+// for drain(a).
+// Each round: refill the free slots (one draw per warp, each lane's free
+// slots handed consecutive ranks by a warp prefix sum of their counts),
+// then node phases and leaf phases in turn until fewer than kRefill x
+// kSlots of the warp's 32 x kSlots slots hold a ray (or none, once the pool
+// is empty).  An any-hit ray ends in its own slot at its first accepted
+// triangle.
+template <int kSlots, typename Lane>
+__device__ __forceinline__ void persistent_slots(Lane (&slot)[kSlots], const TraceArgs& a,
+                                                 int units, unsigned tile) {
+    if (threadIdx.x == 0) {
+        tile_pool.next = 0;
+        tile_pool.end = 0;
+        tile_pool.lock = 0;
+    }
+    __syncthreads();
+    const int lane = static_cast<int>(threadIdx.x & 31u);
+    const unsigned n_rays = static_cast<unsigned>(a.n_rays);
+    bool exhausted = false;
+    for (;;) {
+        while (!exhausted) {
+            unsigned free_mask = 0;
+#pragma unroll
+            for (int s = 0; s < kSlots; ++s) {
+                if (!slot[s].active()) free_mask |= 1u << s;
+            }
+            // This lane's free slots take ranks [rank, rank + free) of the draw.
+            const int free = __popc(free_mask);
+            int incl = free;
+#pragma unroll
+            for (int d = 1; d < 32; d <<= 1) {
+                const int y = __shfl_up_sync(kFullMask, incl, d);
+                if (lane >= d) incl += y;
+            }
+            const unsigned want = static_cast<unsigned>(__shfl_sync(kFullMask, incl, 31));
+            if (want == 0) break;
+            Claim c{};
+            if (lane == 0) c = claim_rays(a.counter, want, tile);
+            c.base0 = __shfl_sync(kFullMask, c.base0, 0);
+            c.n0 = __shfl_sync(kFullMask, c.n0, 0);
+            c.base1 = __shfl_sync(kFullMask, c.base1, 0);
+            c.got = __shfl_sync(kFullMask, c.got, 0);
+            // Past the last index drawn: every later draw lies beyond n_rays.
+            const unsigned past = c.got > c.n0 ? c.base1 + (c.got - c.n0) : c.base0 + c.got;
+            exhausted = past >= n_rays;
+            unsigned rank = static_cast<unsigned>(incl - free);
+#pragma unroll
+            for (int s = 0; s < kSlots; ++s) {
+                if (free_mask & (1u << s)) {
+                    if (rank < c.got) {
+                        const unsigned i = rank < c.n0 ? c.base0 + rank : c.base1 + (rank - c.n0);
+                        if (i < n_rays) slot[s].start(a, static_cast<int>(i));
+                    }
+                    ++rank;
+                }
+            }
+        }
+        int held = 0;
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) held += slot[s].active() ? 1 : 0;
+        if (warp_sum(held) == 0) return;
+        for (;;) {
+            if constexpr (kSlots == 1) {
+                // One slot has nothing to interleave: persistent_warps' node
+                // phase (the split loop below was slower at K = 1 on the
+                // card).
+                while (slot[0].walking()) slot[0].node_step(a);
+            } else {
+                for (;;) {
+                    unsigned walk = 0;
+#pragma unroll
+                    for (int s = 0; s < kSlots; ++s) {
+                        if (slot[s].walking()) walk |= 1u << s;
+                    }
+                    if (walk == 0) break;
+                    // Every slot's record load before any slab test; a slot
+                    // that does not walk reads row 0 (a slot walks only on
+                    // a tree with nodes), so that no load waits on a branch.
+                    typename Lane::Rec rec[kSlots];
+#pragma unroll
+                    for (int s = 0; s < kSlots; ++s) rec[s] = slot[s].fetch(a, (walk >> s) & 1u);
+#pragma unroll
+                    for (int s = 0; s < kSlots; ++s) {
+                        if (walk & (1u << s)) slot[s].step(a, rec[s]);
+                    }
+                }
+            }
+            held = 0;
+#pragma unroll
+            for (int s = 0; s < kSlots; ++s) {
+                slot[s].drain_units(a, units);
+                held += slot[s].active() ? 1 : 0;
+            }
+            held = warp_sum(held);
+            if (held == 0 || (!exhausted && held < kRefill * kSlots)) break;
+        }
+    }
+}
+
+// The arguments the slot libraries' C entry points take before the
+// traversal's: U and S (`tile`; 0 for none).  True when they are in range.
+inline bool slots_ok(int units, int tile) {
+    return units >= 1 && units <= kMaxUnits && tile >= 0 && tile % kBlock == 0;
+}
+
 // Picks the instantiation from three host flags: calls f(any_hit, want_uv,
 // stats) with each flag as a std::integral_constant, so a generic lambda
 // reads them as `decltype(flag)::value` template arguments.
@@ -598,6 +835,7 @@ struct LaunchCtx {
     int stack_need;   // stack entries the tree needs (0 <= need <= STACK_SIZE)
     int* shape;       // host int[4] (grid, blocks per SM, dynamic smem bytes,
                       // SMs), or null
+    int slots = 1;    // rays a thread holds (the slot forms' kSlots)
 };
 
 // The `design` argument of the C ABI.  The designs but the persistent
@@ -612,14 +850,15 @@ constexpr size_t kSmemReserved = 1024;
 
 // The grid of a persistent launch of `kernel` with `smem` bytes of dynamic
 // shared memory: the device's SMs x the blocks that fit on one, clipped to
-// the blocks n_rays need.  The L1 / shared carveout is the shared memory of
-// the blocks the registers allow, and no more: the rest is L1, where the
-// local-memory stack lives.  The carveout is an attribute of the kernel,
+// the blocks n_rays need at `slots` rays per thread.  The L1 / shared
+// carveout is the shared memory of the blocks the registers allow, and no
+// more: the rest is L1, where the local-memory stack lives.  The carveout is an attribute of the kernel,
 // not of the launch, and one kernel is launched with a different `smem` for
 // each tree, so it is set again before every launch; the occupancy and
 // carveout of each (device, kernel, smem) are computed once.
 template <typename... Params>
-cudaError_t persistent_grid(void (*kernel)(Params...), int n_rays, size_t smem, int out[4]) {
+cudaError_t persistent_grid(void (*kernel)(Params...), int n_rays, size_t smem, int out[4],
+                            int slots = 1) {
     struct Known {
         int sms, per_sm, carveout;
     };
@@ -637,10 +876,15 @@ cudaError_t persistent_grid(void (*kernel)(Params...), int n_rays, size_t smem, 
     }
     if (got.sms == 0) {
         // The blocks the registers and threads allow (with the whole shared
-        // memory), then the carveout that holds their shared memory and the
-        // runtime's reserve of each, the rest left to L1.
+        // memory), then the carveout that holds their shared memory (static
+        // and dynamic) and the runtime's reserve of each, the rest left to
+        // L1.
         int by_regs = 0, smem_sm = 0;
-        err = cudaDeviceGetAttribute(&got.sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaFuncAttributes attr{};
+        err = cudaFuncGetAttributes(&attr, kernel);
+        if (err == cudaSuccess) {
+            err = cudaDeviceGetAttribute(&got.sms, cudaDevAttrMultiProcessorCount, dev);
+        }
         if (err == cudaSuccess) {
             err = cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
         }
@@ -652,7 +896,8 @@ cudaError_t persistent_grid(void (*kernel)(Params...), int n_rays, size_t smem, 
             err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&by_regs, kernel, kBlock, 0);
         }
         if (err == cudaSuccess) {
-            const size_t want = static_cast<size_t>(by_regs) * (smem + kSmemReserved) * 100;
+            const size_t want =
+                static_cast<size_t>(by_regs) * (smem + attr.sharedSizeBytes + kSmemReserved) * 100;
             const size_t denom = smem_sm > 0 ? static_cast<size_t>(smem_sm) : 1;
             const int carveout = static_cast<int>((want + denom - 1) / denom);
             got.carveout = carveout < 100 ? carveout : 100;
@@ -677,7 +922,8 @@ cudaError_t persistent_grid(void (*kernel)(Params...), int n_rays, size_t smem, 
             return err;
         }
     }
-    const long long need = (static_cast<long long>(n_rays) + kBlock - 1) / kBlock;
+    const long long per_block = static_cast<long long>(kBlock) * slots;
+    const long long need = (static_cast<long long>(n_rays) + per_block - 1) / per_block;
     const long long full = static_cast<long long>(got.sms) * got.per_sm;
     out[0] = static_cast<int>(need < full ? need : full);
     out[1] = got.per_sm;
@@ -692,7 +938,7 @@ template <typename... Params, typename... Args>
 cudaError_t launch_persistent(void (*kernel)(Params...), int n_rays, size_t smem, void* counter,
                               const LaunchCtx& ctx, Args... args) {
     int shape[4];
-    cudaError_t err = persistent_grid(kernel, n_rays, smem, shape);
+    cudaError_t err = persistent_grid(kernel, n_rays, smem, shape, ctx.slots);
     if (err == cudaSuccess) err = cudaMemsetAsync(counter, 0, sizeof(unsigned), ctx.stream);
     if (err != cudaSuccess) {
         cudaGetLastError();

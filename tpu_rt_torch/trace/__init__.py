@@ -16,9 +16,12 @@ import torch
 
 from tpu_rt_torch.trace.common import (
     MAX_CURSORS,
+    MAX_UNITS,
     MXU_LEAF,
+    SLOTS,
     StackDepthError,
     check_cursors,
+    check_schedule,
     release_persisting_l2,
 )
 from tpu_rt_torch.trace.cpu_reference import (
@@ -66,28 +69,36 @@ __all__ = [
     "MAX_CURSORS",
     "MXU_LEAF",
     "check_cursors",
+    "SLOTS",
+    "MAX_UNITS",
+    "check_schedule",
 ]
 
 TRACERS = ("auto", "packet4", "pallas", "packet", "xla")
 
 
-def route_kind(tables, route: str, mxu: bool = False, cursors: int = 1) -> str:
+def route_kind(tables, route: str, mxu: bool = False, cursors: int = 1,
+               tile: int | None = None, k: int | None = None, u: int | None = None) -> str:
     """``kind`` of a kernel route: "quad-" or "flat-", then "cuda" or
     "plain", then ``tpu_rt``'s suffixes for a residency other than vmem
     ("-mixed", "-hbm") and for bf16 nodes ("-bf16"), then "-mxu" for the
-    tensor-core leaf test and "-c<cursors>" for more than one leaf held per
-    ray (e.g. "flat-cuda-mxu-c2")."""
+    tensor-core leaf test, "-c<cursors>" for more than one leaf held per
+    ray (e.g. "flat-cuda-mxu-c2"), and "-k<k>", "-u<u>", "-t<tile>" for the
+    slot forms' settings given (e.g. "quad-cuda-k2-t512")."""
     kind = ("flat" if isinstance(tables, FlatTables) else "quad") + f"-{route}"
     if tables.residency != "vmem":
         kind += f"-{tables.residency}"
     kind += "-bf16" if getattr(tables, "bf16_nodes", False) else ""
-    return kind + ("-mxu" if mxu else "") + (f"-c{cursors}" if cursors > 1 else "")
+    kind += ("-mxu" if mxu else "") + (f"-c{cursors}" if cursors > 1 else "")
+    return kind + "".join(f"-{tag}{x}" for tag, x in (("k", k), ("u", u), ("t", tile))
+                          if x is not None)
 
 
 def make_routing_tracer(flat, prefer: str = "auto", device="cuda", want_uv: bool = False,
                         cache_dir: str | None = None, budget_bytes: int | None = None,
                         residency: str | None = None, bf16_nodes: bool | None = None,
-                        mxu: bool = False, cursors: int = 1):
+                        mxu: bool = False, cursors: int = 1, tile: int | None = None,
+                        k: int | None = None, u: int | None = None):
     """Returns (fn, kind, tables): fn(tables, rays, any_hit=False,
     with_stats=False) -> Hits (closest hit, or with ``any_hit`` the first
     accepted hit), or ``(Hits, {"node_tests", "tri_tests"})`` with
@@ -137,18 +148,27 @@ def make_routing_tracer(flat, prefer: str = "auto", device="cuda", want_uv: bool
     ``"packet"`` takes it (``tpu_rt``'s packet4 ignores ``TPU_RT_MXU``, and
     an argument is not ignored: ``"packet4"``, ``"auto"`` and ``"pallas"``
     raise ValueError).  The wavefront (``"xla"``) takes neither.
+    tile, k, u: ``tpu_rt``'s packet tile, interleave and triangle units,
+    passed to whichever kernel the route takes: any of them given launches
+    its slot forms (``common.check_schedule``: K rays a thread, U Woop rows
+    read at once, a block's pool of ``tile`` rays; the same hits).  Not
+    with ``mxu`` or ``cursors`` > 1, and not on the wavefront: ValueError.
     """
     if prefer not in TRACERS:
         raise ValueError(f"unknown tracer {prefer!r}; one of {TRACERS}")
     cursors = check_cursors(cursors)
     if mxu and prefer != "packet":
         raise ValueError(f"mxu=True needs the binary kernel (prefer='packet'), not {prefer!r}")
+    schedule = check_schedule(tile, k, u, mxu, cursors)
     device = torch.device(device)
     route = "cuda" if device.type == "cuda" else "plain"
     if prefer == "xla":
         if cursors != 1:
             raise ValueError("the wavefront tracer ('xla') has no leaf cursors")
+        if schedule is not None:
+            raise ValueError("the wavefront tracer ('xla') has no tile, k or u")
         return trace_wavefront, "wavefront", device_bvh(flat, device)
+    slots = {"tile": tile, "k": k, "u": u}
     if prefer != "packet":
         from tpu_rt_torch.bvh.cache import load_or_collapse_quad
 
@@ -163,11 +183,11 @@ def make_routing_tracer(flat, prefer: str = "auto", device="cuda", want_uv: bool
             warnings.warn(f"tpu_rt_torch: {e}; {prefer!r} falls to the binary kernel "
                           f"(flat-{route})", RuntimeWarning, stacklevel=2)
         else:
-            return (functools.partial(trace_quad, want_uv=want_uv, cursors=cursors),
-                    route_kind(tables, route, cursors=cursors), tables)
+            return (functools.partial(trace_quad, want_uv=want_uv, cursors=cursors, **slots),
+                    route_kind(tables, route, cursors=cursors, **slots), tables)
     tables = upload_flat(flat, device, residency=residency, bf16_nodes=bf16_nodes,
                          budget_bytes=budget_bytes)
     if mxu:
         check_mxu(tables)
-    return (functools.partial(trace_flat, want_uv=want_uv, mxu=mxu, cursors=cursors),
-            route_kind(tables, route, mxu, cursors), tables)
+    return (functools.partial(trace_flat, want_uv=want_uv, mxu=mxu, cursors=cursors, **slots),
+            route_kind(tables, route, mxu, cursors, **slots), tables)

@@ -17,9 +17,12 @@ Each kernel source is one library with its own launch counts: the forms
 that drain a leaf when it is reached (``quad_trace``, ``flat_trace``), the
 postponed-leaf forms (``quad_trace_c``, ``flat_trace_c``: ``cursors`` =
 2..``MAX_CURSORS`` leaves held per ray, tpu_rt's C > 1 leaf cursors; form
-names end in ``_c``) and the binary kernel's tensor-core leaf test
+names end in ``_c``), the binary kernel's tensor-core leaf test
 (``flat_trace_mxu``: tpu_rt's ``mxu=True``, with 1..``MAX_CURSORS``
-cursors; ``_mxu``).  All run as persistent warps that fetch their rays
+cursors; ``_mxu``) and the slot forms, one library per K
+(``quad_trace_k<K>``, ``flat_trace_k<K>``: tpu_rt's ``k``, ``u`` and
+``tile``, see ``check_schedule``; ``_k<K>``, then ``_u<U>`` and
+``_t<tile>`` where given).  All run as persistent warps that fetch their rays
 from a pool (``trace_common.cuh``); ``quad_trace``, ``flat_trace`` and
 ``flat_trace_mxu`` also keep the first versions of their vmem f32 frame
 forms (one ray per thread), and the first two a placement of the stack in
@@ -60,6 +63,13 @@ MAX_CURSORS = 4
 # Triangles of one leaf the tensor-core leaf test takes (mxu_leaf.cuh
 # kMxuLeaf; tpu_rt's U = MAX_LEAF for mxu=True).
 MXU_LEAF = 8
+
+# The slot forms' settings, tpu_rt's k, u and tile (trace_common.cuh): the
+# rays a thread holds (one library per K), the most Woop rows a slot reads at
+# once (kMaxUnits: the widest quad leaf), and a block's claim of rays, a
+# multiple of BLOCK.
+SLOTS = (1, 2, 4, 8)
+MAX_UNITS = 32
 
 # Threads per block of every traversal kernel (trace_common.cuh kBlock) and
 # the shared memory one block may use on sm_90 (227 KB).
@@ -137,6 +147,35 @@ def check_cursors(cursors) -> int:
     if not 1 <= cursors <= MAX_CURSORS:
         raise ValueError(f"cursors must be in 1..{MAX_CURSORS}, got {cursors}")
     return int(cursors)
+
+
+def check_schedule(tile=None, k=None, u=None, mxu: bool = False, cursors: int = 1):
+    """tpu_rt's ``tile``, ``k`` and ``u`` of ``trace_packet2`` /
+    ``trace_packet4``: None when all three are None (the default forms),
+    else ``(k, u, tile)`` for a slot form, a given None taken as K = 1, U =
+    1 and no block pool (the default forms' schedule).  ``k`` is one of
+    SLOTS, ``u`` an int in 1..MAX_UNITS, ``tile`` a positive multiple of
+    BLOCK (tpu_rt asserts ``tile % 128 == 0``).  Anything else, and any of
+    them with ``mxu=True`` or ``cursors`` > 1 (which tpu_rt takes and the
+    slot forms do not), raises ValueError naming the setting."""
+    given = {name: x for name, x in (("k", k), ("u", u), ("tile", tile)) if x is not None}
+    if not given:
+        return None
+    named = ", ".join(f"{name}={x!r}" for name, x in given.items())
+    for name, x in given.items():
+        if isinstance(x, bool) or not isinstance(x, (int, np.integer)):
+            raise ValueError(f"{name} must be an int, got {x!r}")
+    if k is not None and k not in SLOTS:
+        raise ValueError(f"k must be one of {SLOTS}, got {k}")
+    if u is not None and not 1 <= u <= MAX_UNITS:
+        raise ValueError(f"u must be in 1..{MAX_UNITS}, got {u}")
+    if tile is not None and (tile < BLOCK or tile % BLOCK):
+        raise ValueError(f"tile must be a positive multiple of {BLOCK}, got {tile}")
+    if mxu:
+        raise ValueError(f"{named}: the slot forms have no tensor-core leaf test (mxu=True)")
+    if cursors != 1:
+        raise ValueError(f"{named}: the slot forms hold no leaves (cursors={cursors})")
+    return (int(k or 1), int(u or 1), int(tile or 0))
 
 
 def woop_rows(tri_woop: np.ndarray, tri_index: np.ndarray) -> np.ndarray:
@@ -372,10 +411,14 @@ def nvcc() -> str:
     return path
 
 
-def form_name(any_hit: bool, want_uv: bool, with_stats: bool) -> str:
-    """"closest" or "any", then "_uv" and "_stats" for the forms that keep them."""
+def form_name(any_hit: bool, want_uv: bool, with_stats: bool, k: int | None = None,
+              u: int | None = None, tile: int | None = None) -> str:
+    """"closest" or "any", then "_uv" and "_stats" for the forms that keep
+    them, then a slot form's "_k<k>", "_u<u>" and "_t<tile>" for the
+    settings given."""
     return ("any" if any_hit else "closest") + ("_uv" if want_uv else "") + (
-        "_stats" if with_stats else "")
+        "_stats" if with_stats else "") + "".join(
+        f"_{tag}{x}" for tag, x in (("k", k), ("u", u), ("t", tile)) if x is not None)
 
 
 FORMS = tuple(form_name(a, u, s) for a in (False, True) for u in (False, True)
@@ -427,17 +470,24 @@ class CudaTraceKernel:
     (``argtypes``; the QUAD_LAUNCH_ARGS / FLAT_LAUNCH_ARGS macros of
     ``csrc/``).  ``last_shape`` holds the last launch's grid, blocks per SM,
     dynamic shared memory and SM count.  ``designs`` are the ``DESIGNS``
-    the library keeps (``check_design``)."""
+    the library keeps (``check_design``).
+
+    A slot library (``slots`` = K, one of SLOTS) takes U (``units``) and S
+    (``tile``, 0 for none) before the table arguments, and counts its
+    launches under ``form_name(..., k=K, u=, tile=)`` + layout."""
 
     def __init__(self, name: str, table_argtypes: list, suffix: str = "",
-                 cursors: tuple[int, int] = (1, 1), designs: tuple = ("persistent",)):
+                 cursors: tuple[int, int] = (1, 1), designs: tuple = ("persistent",),
+                 slots: int | None = None):
         self.name = name
         self.source = os.path.join(CSRC, f"{name}.cu")
         self.table_argtypes = table_argtypes
         self.suffix = suffix
         self.cursors = cursors
         self.designs = designs
-        self.forms = tuple(f + suffix for f in FORMS)
+        self.slots = slots
+        self.forms = tuple(form_name(a, u, s, k=slots) + suffix for a in (False, True)
+                           for u in (False, True) for s in (False, True))
         self.launches = 0
         self.launches_by_form = dict.fromkeys(self.forms, 0)
         self.last_shape = None
@@ -453,7 +503,9 @@ class CudaTraceKernel:
     def argtypes(self) -> list:
         """The ctypes types of the C entry point's arguments, in order."""
         vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-        return self.table_argtypes + [vp] * 10 + [ci] * 7 + [sz, sz, ci, ci, vp, vp, vp]
+        schedule = [ci, ci] if self.slots else []
+        return (schedule + self.table_argtypes + [vp] * 10 + [ci] * 7
+                + [sz, sz, ci, ci, vp, vp, vp])
 
     def load(self):
         if self._fn is None:
@@ -527,7 +579,7 @@ class CudaTraceKernel:
     def launch(self, tables: list, table_args: list, rays: Rays, any_hit: bool,
                want_uv: bool, with_stats: bool, residency: str = "vmem",
                bf16_nodes: bool = False, cursors: int = 1, stack_need: int = STACK_SIZE,
-               design: str = "persistent"):
+               design: str = "persistent", units: int | None = None, tile: int | None = None):
         """Check ``tables`` ([(name, tensor, dtype, shape)]; the first is
         the node table, and float32 and int32 tables are read as 16-byte
         rows), ``rays`` and ``cursors``, launch the form on tables of
@@ -537,13 +589,18 @@ class CudaTraceKernel:
         stack of a vmem f32 frame form at cursors = 1, for an A/B, where
         the library keeps it (``check_design``); its launches count under
         the form's key + "/" + design.  No wrapper's ``__call__`` passes it:
-        ``launch_args`` gives the rest."""
+        ``launch_args`` gives the rest.  ``units`` and ``tile`` (U and S,
+        ``check_schedule``) go to a slot library only."""
         dev = rays.origin.device
         if dev.type != "cuda":
             raise ValueError(f"{self.name} needs CUDA tensors, got {dev}")
         lo, hi = self.cursors
         if not lo <= cursors <= hi:
             raise ValueError(f"{self.name} takes cursors {lo}..{hi}, got {cursors}")
+        if self.slots is None and (units is not None or tile is not None):
+            raise ValueError(f"{self.name} takes no u or tile (a slot library does)")
+        if self.slots is not None:
+            check_schedule(tile, self.slots, units)
         self.check_design(design, want_uv, with_stats, residency, bf16_nodes, cursors)
         if not 0 <= stack_need <= STACK_SIZE:
             raise StackDepthError(f"stack need {stack_need} outside 0..STACK_SIZE={STACK_SIZE}")
@@ -580,9 +637,10 @@ class CudaTraceKernel:
         # The ray pool of the persistent kernels: 4 bytes, zeroed by the launch.
         counter = torch.empty((1,), dtype=i32, device=dev)
         shape = (ctypes.c_int * 4)()
+        schedule = [int(units or 1), int(tile or 0)] if self.slots else []
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(*table_args, rays.origin.data_ptr(), rays.dirn.data_ptr(),
+            err = fn(*schedule, *table_args, rays.origin.data_ptr(), rays.dirn.data_ptr(),
                      rays.tmin.data_ptr(), rays.tmax.data_ptr(), *outs, n, int(cursors),
                      int(bool(any_hit)), int(bool(want_uv)), int(bool(with_stats)),
                      int(nodes_stream), int(tris_stream), window, set_aside, DESIGNS[design],
@@ -594,7 +652,8 @@ class CudaTraceKernel:
         if n:
             self.last_shape = dict(zip(("grid", "blocks_per_sm", "smem_bytes", "sms"), shape))
         self.launches += 1
-        key = (form_name(any_hit, want_uv, with_stats) + self.suffix
+        key = (form_name(any_hit, want_uv, with_stats, k=self.slots, u=units, tile=tile)
+               + self.suffix
                + layout_name(residency, bf16_nodes)
                + ("" if design == "persistent" else f"/{design}"))
         self.launches_by_form[key] = self.launches_by_form.get(key, 0) + 1

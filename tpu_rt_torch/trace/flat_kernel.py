@@ -36,6 +36,13 @@ ties, more node tests), and ``mxu=True`` tests each leaf whole with the
 tensor cores (``flat_trace_mxu.cu``; f32-class t, ties to the largest
 triangle id).  Each is held to its plain version here, which takes the
 same ``mxu`` and ``cursors``.
+
+``trace_packet2``'s ``tile``, ``k`` and ``u`` launch the slot forms
+(``flat_trace_k<K>.cu``, ``KERNEL_K[K]``): K rays a thread, U Woop rows
+read at once, a block's pool of ``tile`` rays.  Each ray is traced by the
+same ops, so their results and counters are the default forms' bit for
+bit; the plain version takes and checks the same arguments and computes
+what it computes without them.
 """
 
 from __future__ import annotations
@@ -53,8 +60,10 @@ from tpu_rt_torch.trace.common import (
     STACK_SIZE,
     CudaTraceKernel,
     HeldLeaves,
+    SLOTS,
     TraceState,
     check_cursors,
+    check_schedule,
     check_stack,
     drain_mxu_plain,
     drain_plain,
@@ -156,7 +165,8 @@ def check_mxu(tables: FlatTables) -> None:
 
 def trace_flat_plain(tables: FlatTables, rays: Rays, any_hit: bool = False,
                      want_uv: bool = False, with_stats: bool = False,
-                     visited: dict | None = None, mxu: bool = False, cursors: int = 1):
+                     visited: dict | None = None, mxu: bool = False, cursors: int = 1,
+                     tile: int | None = None, k: int | None = None, u: int | None = None):
     """Closest hit per ray, or with ``any_hit`` the first accepted hit in
     visit order, as ``trace_flat_scalar``, in PyTorch ops on the device of
     ``rays``.  Every float op is the oracle's, in its order, on the f32
@@ -173,8 +183,11 @@ def trace_flat_plain(tables: FlatTables, rays: Rays, any_hit: bool = False,
     (``common.HeldLeaves``); it drains the leaves it holds, oldest first,
     when it holds ``cursors`` of them or its stack is empty.  ``mxu``: each
     leaf is tested whole by ``common.drain_mxu_plain``, the tensor-core
-    leaf test's function."""
+    leaf test's function.  ``tile``, ``k``, ``u``: the slot forms' settings,
+    checked (``common.check_schedule``); the function does not depend on
+    them."""
     cursors = check_cursors(cursors)
+    check_schedule(tile, k, u, mxu, cursors)
     if mxu:
         check_mxu(tables)
     dev = rays.origin.device
@@ -288,9 +301,10 @@ class FlatTraceKernel(CudaTraceKernel):
 
     def __init__(self, name: str = "flat_trace", suffix: str = "",
                  cursors: tuple[int, int] = (1, 1),
-                 designs: tuple = ("persistent", "first", "shared_stack")):
+                 designs: tuple = ("persistent", "first", "shared_stack"),
+                 slots: int | None = None):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        super().__init__(name, [vp, ci, ci, vp, vp, ci], suffix, cursors, designs)
+        super().__init__(name, [vp, ci, ci, vp, vp, ci], suffix, cursors, designs, slots)
 
     def launch_args(self, tables: FlatTables) -> tuple[list, list, dict]:
         """``launch``'s table checks, table arguments and table options."""
@@ -306,10 +320,11 @@ class FlatTraceKernel(CudaTraceKernel):
                               "stack_need": tables.depth}
 
     def __call__(self, tables: FlatTables, rays: Rays, any_hit: bool = False,
-                 want_uv: bool = False, with_stats: bool = False, cursors: int = 1):
+                 want_uv: bool = False, with_stats: bool = False, cursors: int = 1,
+                 units: int | None = None, tile: int | None = None):
         checks, args, opts = self.launch_args(tables)
         return self.launch(checks, args, rays, any_hit, want_uv, with_stats, cursors=cursors,
-                           **opts)
+                           units=units, tile=tile, **opts)
 
 
 class FlatMxuKernel(FlatTraceKernel):
@@ -336,7 +351,10 @@ MXU_SMEM = {"persistent": 4 * 1408, "first": 4 * 7104}
 KERNEL = FlatTraceKernel()
 KERNEL_C = FlatTraceKernel("flat_trace_c", "_c", (2, MAX_CURSORS), ("persistent",))
 KERNEL_MXU = FlatMxuKernel()
-KERNELS = (KERNEL, KERNEL_C, KERNEL_MXU)
+# The slot forms, one library per K.
+KERNEL_K = {k: FlatTraceKernel(f"flat_trace_k{k}", "", (1, 1), ("persistent",), k)
+            for k in SLOTS}
+KERNELS = (KERNEL, KERNEL_C, KERNEL_MXU, *KERNEL_K.values())
 
 
 def kernel_for(mxu: bool, cursors: int) -> FlatTraceKernel:
@@ -347,7 +365,8 @@ def kernel_for(mxu: bool, cursors: int) -> FlatTraceKernel:
 
 def trace_flat(tables: FlatTables, rays: Rays, any_hit: bool = False,
                want_uv: bool = False, with_stats: bool = False, mxu: bool = False,
-               cursors: int = 1):
+               cursors: int = 1, tile: int | None = None, k: int | None = None,
+               u: int | None = None):
     """Closest hit per ray over the FlatBVH tables, or with ``any_hit`` the
     first accepted hit in visit order; u, v with ``want_uv`` (else 0) and
     ``(hits, {"node_tests", "tri_tests"})`` with ``with_stats``.  CPU rays
@@ -355,14 +374,20 @@ def trace_flat(tables: FlatTables, rays: Rays, any_hit: bool = False,
     fallback).  Counterpart of ``tpu_rt`` ``trace_packet2``, whose ``c=``
     and ``mxu=`` are ``cursors`` (leaves a ray holds before it drains them,
     1..MAX_CURSORS) and ``mxu`` (the tensor-core leaf test; leaves of at
-    most MXU_LEAF triangles, else ValueError)."""
+    most MXU_LEAF triangles, else ValueError), and whose ``tile``, ``k``
+    and ``u`` launch the slot forms (``common.check_schedule``: any of them
+    given, ``flat_trace_k<k>.cu``; not with ``mxu`` or ``cursors`` > 1)."""
     cursors = check_cursors(cursors)
+    schedule = check_schedule(tile, k, u, mxu, cursors)
     if mxu:
         check_mxu(tables)
     dev = rays.origin.device
     if dev.type == "cpu":
         return trace_flat_plain(tables, rays, any_hit, want_uv, with_stats, mxu=mxu,
-                                cursors=cursors)
+                                cursors=cursors, tile=tile, k=k, u=u)
     if dev.type == "cuda":
+        if schedule is not None:
+            return KERNEL_K[schedule[0]](tables, rays, any_hit, want_uv, with_stats, cursors,
+                                         units=u, tile=tile)
         return kernel_for(mxu, cursors)(tables, rays, any_hit, want_uv, with_stats, cursors)
     raise ValueError(f"trace_flat: unsupported device {dev}")

@@ -30,7 +30,9 @@ counts its launches, ``KERNEL.launches_by_form`` those of each form
 (``common.FORMS``).  ``cursors`` > 1 (``trace_packet4``'s ``c=``) holds
 leaves and drains them later, in ``quad_trace_c.cu`` (``KERNEL_C``, forms
 ``closest_c`` ...): t stays the oracle's bit for bit, tri but at exact-t
-ties.
+ties.  ``trace_packet4``'s ``tile``, ``k`` and ``u`` launch the slot forms
+(``quad_trace_k<K>.cu``, ``KERNEL_K[K]``; ``common.check_schedule``): the
+same results and counters as the default forms, bit for bit.
 """
 
 from __future__ import annotations
@@ -48,8 +50,10 @@ from tpu_rt_torch.trace.common import (
     STACK_SIZE,
     CudaTraceKernel,
     HeldLeaves,
+    SLOTS,
     TraceState,
     check_cursors,
+    check_schedule,
     check_stack,
     drain_plain,
     safe_inv,
@@ -109,7 +113,8 @@ def upload_quad(quad, device, residency=None, budget_bytes: int | None = None) -
 
 def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
                      want_uv: bool = False, with_stats: bool = False,
-                     visited: dict | None = None, cursors: int = 1):
+                     visited: dict | None = None, cursors: int = 1,
+                     tile: int | None = None, k: int | None = None, u: int | None = None):
     """Closest hit per ray, or with ``any_hit`` the first accepted hit in
     visit order, as ``trace_quad_scalar``, in PyTorch ops on the device of
     ``rays``.  Every float op is the oracle's, in its order: explicit
@@ -122,8 +127,11 @@ def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
 
     ``cursors`` > 1: each hit leaf child, in visit order, is held
     (``common.HeldLeaves``), and a ray drains the leaves it holds, oldest
-    first, when it holds ``cursors`` of them or its stack is empty."""
+    first, when it holds ``cursors`` of them or its stack is empty.
+    ``tile``, ``k``, ``u``: the slot forms' settings, checked
+    (``common.check_schedule``); the function does not depend on them."""
     cursors = check_cursors(cursors)
+    check_schedule(tile, k, u, cursors=cursors)
     dev = rays.origin.device
     n = rays.origin.shape[0]
     nodes = tables.nodes.to(dev)
@@ -233,9 +241,10 @@ class QuadTraceKernel(CudaTraceKernel):
 
     def __init__(self, name: str = "quad_trace", suffix: str = "",
                  cursors: tuple[int, int] = (1, 1),
-                 designs: tuple = ("persistent", "first", "shared_stack")):
+                 designs: tuple = ("persistent", "first", "shared_stack"),
+                 slots: int | None = None):
         super().__init__(name, [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], suffix, cursors,
-                         designs)
+                         designs, slots)
 
     def launch_args(self, tables: QuadTables) -> tuple[list, list, dict]:
         """``launch``'s table checks, table arguments and table options."""
@@ -246,31 +255,44 @@ class QuadTraceKernel(CudaTraceKernel):
         return checks, args, {"residency": tables.residency, "stack_need": 3 * tables.depth}
 
     def __call__(self, tables: QuadTables, rays: Rays, any_hit: bool = False,
-                 want_uv: bool = False, with_stats: bool = False, cursors: int = 1):
+                 want_uv: bool = False, with_stats: bool = False, cursors: int = 1,
+                 units: int | None = None, tile: int | None = None):
         checks, args, opts = self.launch_args(tables)
         return self.launch(checks, args, rays, any_hit, want_uv, with_stats, cursors=cursors,
-                           **opts)
+                           units=units, tile=tile, **opts)
 
 
 KERNEL = QuadTraceKernel()
 KERNEL_C = QuadTraceKernel("quad_trace_c", "_c", (2, MAX_CURSORS), ("persistent",))
-KERNELS = (KERNEL, KERNEL_C)
+# The slot forms, one library per K.
+KERNEL_K = {k: QuadTraceKernel(f"quad_trace_k{k}", "", (1, 1), ("persistent",), k)
+            for k in SLOTS}
+KERNELS = (KERNEL, KERNEL_C, *KERNEL_K.values())
 
 
 def trace_quad(tables: QuadTables, rays: Rays, any_hit: bool = False,
-               want_uv: bool = False, with_stats: bool = False, cursors: int = 1):
+               want_uv: bool = False, with_stats: bool = False, cursors: int = 1,
+               tile: int | None = None, k: int | None = None, u: int | None = None):
     """Closest hit per ray over the QuadBVH tables, or with ``any_hit`` the
     first accepted hit in visit order; u, v with ``want_uv`` (else 0) and
     ``(hits, {"node_tests", "tri_tests"})`` with ``with_stats``.  CPU rays
     take the plain version; CUDA rays launch the kernel (there is no
     fallback).  Counterpart of ``tpu_rt`` ``trace_packet4``, whose ``c=``
     is ``cursors``: leaves a ray holds before it drains them,
-    1..MAX_CURSORS (``quad_trace_c.cu`` for more than 1)."""
+    1..MAX_CURSORS (``quad_trace_c.cu`` for more than 1), and whose
+    ``tile``, ``k`` and ``u`` launch the slot forms
+    (``common.check_schedule``: any of them given, ``quad_trace_k<k>.cu``;
+    not with ``cursors`` > 1)."""
     cursors = check_cursors(cursors)
+    schedule = check_schedule(tile, k, u, cursors=cursors)
     dev = rays.origin.device
     if dev.type == "cpu":
-        return trace_quad_plain(tables, rays, any_hit, want_uv, with_stats, cursors=cursors)
+        return trace_quad_plain(tables, rays, any_hit, want_uv, with_stats, cursors=cursors,
+                                tile=tile, k=k, u=u)
     if dev.type == "cuda":
+        if schedule is not None:
+            return KERNEL_K[schedule[0]](tables, rays, any_hit, want_uv, with_stats, cursors,
+                                         units=u, tile=tile)
         kernel = KERNEL_C if cursors > 1 else KERNEL
         return kernel(tables, rays, any_hit, want_uv, with_stats, cursors)
     raise ValueError(f"trace_quad: unsupported device {dev}")
