@@ -15,6 +15,14 @@ can be Morton-sorted (``sort_secondary``, the 30-bit coarse key) or sorted
 dead-last with only the live prefix traced (``compact_degenerate``), on the
 device (``tpu_rt_torch.rays.buffer``); the sort's time goes to
 ``phase_s["sort"]``, never to the trace time.
+
+Each phase of the frame is a span of ``tpu_rt_torch.spans`` (``frame``,
+``raygen.primary``, ``raygen.ao``, ``sort``, ``trace.primary``,
+``trace.batch``; ``image`` for ``update_result``), and each place where the
+host blocks on the device a ``*.wait`` span under its phase: they are
+recorded while ``torch.profiler`` runs (``RendererParams.profile_dir``) or
+after ``spans.enable()``.  ``phase_s`` adds up each phase's time (host
+clock; the trace's from CUDA events) whether or not they are recorded.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tpu_rt_torch import spans
 from tpu_rt_torch.bvh import BuildParams, Platform, load_or_build_bvh
 from tpu_rt_torch.core.math import to_abgr
 from tpu_rt_torch.core.types import Hits, Rays
@@ -157,24 +166,43 @@ class Renderer:
         if self.flat is None:
             if self.scene is None:
                 raise RuntimeError("set_mesh/set_scene first")
-            t0 = time.perf_counter()
-            self.flat, self.bvh_stats = load_or_build_bvh(
-                self.scene, self.platform, self.build_params, cache_dir=self.params.cache_dir)
-            # Scene tables go to the device once per scene, not per batch.
-            self._tri_normal_dev = torch.as_tensor(self.scene.tri_normal, device=self.device)
-            self._tri_shaded_dev = torch.as_tensor(self.scene.tri_shaded, device=self.device)
-            self._tri_material_dev = torch.as_tensor(self.scene.tri_material, device=self.device)
-            self.routing, self.active_tracer, self.tracer_tables = make_routing_tracer(
-                self.flat, prefer=self.params.tracer, device=self.device,
-                cache_dir=self.params.cache_dir, mxu=self.params.mxu,
-                cursors=self.params.cursors)
-            self._sync()
-            # Host seconds of BVH build (or cache load), collapse and upload.
-            self.setup_s = time.perf_counter() - t0
+            with spans.span("setup.bvh", timed=True) as bvh:
+                self.flat, self.bvh_stats = load_or_build_bvh(
+                    self.scene, self.platform, self.build_params,
+                    cache_dir=self.params.cache_dir)
+                # Scene tables go to the device once per scene, not per batch.
+                dev = self.device
+                self._tri_normal_dev = torch.as_tensor(self.scene.tri_normal, device=dev)
+                self._tri_shaded_dev = torch.as_tensor(self.scene.tri_shaded, device=dev)
+                self._tri_material_dev = torch.as_tensor(self.scene.tri_material, device=dev)
+            with spans.span("setup.tracer", timed=True) as tracer:
+                self.routing, self.active_tracer, self.tracer_tables = make_routing_tracer(
+                    self.flat, prefer=self.params.tracer, device=self.device,
+                    cache_dir=self.params.cache_dir, mxu=self.params.mxu,
+                    cursors=self.params.cursors)
+                self._sync("setup.wait")
+            # Host seconds of BVH build (or cache load), collapse and the
+            # tables' upload.  The kernel library is built or loaded at the
+            # first launch, inside the first frame (span setup.kernel_load).
+            self.setup_s = bvh.seconds + tracer.seconds
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _sync(self, name: str, event: torch.cuda.Event | None = None) -> None:
+        """Wait for the device (or for ``event``) under the span ``name``;
+        on the CPU there is nothing to wait for, and the span is empty."""
+        with spans.span(name):
+            if self.device.type == "cuda":
+                if event is None:
+                    torch.cuda.synchronize(self.device)
+                else:
+                    event.synchronize()
+
+    @contextlib.contextmanager
+    def _phase(self, phase: str, name: str):
+        """Add the block's host seconds to ``phase_s[phase]``: those of the
+        span ``name`` around it."""
+        with spans.span(name, timed=True) as s:
+            yield
+        self.phase_s[phase] += s.seconds
 
     # -- frame cycle ---------------------------------------------------------
 
@@ -184,10 +212,10 @@ class Renderer:
         self._ensure_bvh()
         self.camera = camera
         self.phase_s = {"raygen": 0.0, "sort": 0.0, "trace": 0.0, "reconstruct": 0.0}
-        t0 = time.perf_counter()
-        rays, s2i, i2s = self.raygen.primary(camera, self.width, self.height, device=self.device)
-        self._sync()
-        self.phase_s["raygen"] += time.perf_counter() - t0
+        with self._phase("raygen", "raygen.primary"):
+            rays, s2i, i2s = self.raygen.primary(camera, self.width, self.height,
+                                                 device=self.device)
+            self._sync("raygen.wait")
         self.primary = BatchRecord(rays=rays, hits=None, slot_to_id=s2i, id_to_slot=i2s,
                                    input_range=(0, rays.num))
         self.trace_time_s = 0.0
@@ -197,28 +225,30 @@ class Renderer:
         if self.params.ray_type != "primary":
             # Not part of the metric (Renderer.cc: the primary pre-trace of
             # secondary types is not timed).
-            self.primary.hits = self._timed_trace(rays, any_hit=False, count=False)
+            self.primary.hits = self._timed_trace(rays, any_hit=False, count=False,
+                                                  span="trace.primary")
         self._new_batch = True
         self._batch: BatchRecord | None = None
         self._batch_live: int | None = None
         self._batches: list[BatchRecord] = []
 
-    def _timed_trace(self, rays: Rays, any_hit: bool, count: bool = True) -> Hits:
+    def _timed_trace(self, rays: Rays, any_hit: bool, count: bool = True,
+                     span: str = "trace.batch") -> Hits:
         """Trace with kernel-only timing, the Mray/s metric discipline
         (App.cc:188-204: trace time only, and only for the measured
-        batches)."""
-        if self.device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+        batches), under the span ``span``."""
+        cuda = self.device.type == "cuda"
+        with spans.span(span, timed=True) as s:
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
             hits = self.routing(self.tracer_tables, rays, any_hit=any_hit)
-            end.record()
-            end.synchronize()
-            dt = start.elapsed_time(end) / 1e3
-        else:
-            t0 = time.perf_counter()
-            hits = self.routing(self.tracer_tables, rays, any_hit=any_hit)
-            dt = time.perf_counter() - t0
+            if cuda:
+                end.record()
+            self._sync("trace.wait", end if cuda else None)
+        # The kernels' time from CUDA events; on the CPU the span's host time.
+        dt = start.elapsed_time(end) / 1e3 if cuda else s.seconds
         self.phase_s["trace"] += dt
         if count:
             self.trace_time_s += dt
@@ -231,7 +261,9 @@ class Renderer:
         or primary hits x num_samples for secondary types."""
         if self.params.ray_type == "primary":
             return self.width * self.height
-        return int(count_hits(self.primary.hits.tri)) * self.params.num_samples
+        with spans.span("frame.wait"):
+            hits = int(count_hits(self.primary.hits.tri))
+        return hits * self.params.num_samples
 
     def next_batch(self) -> bool:
         """Generate the next trace batch (Renderer::nextBatch,
@@ -246,11 +278,10 @@ class Renderer:
             return True
 
         max_dist = p.ao_radius if p.ray_type == "ao" else float(self.camera.far)
-        t0 = time.perf_counter()
-        out = self.raygen.ao(self.primary.rays, self.primary.hits, self._tri_normal_dev,
-                             p.num_samples, max_dist, self._new_batch, seed=p.seed)
-        self._sync()
-        self.phase_s["raygen"] += time.perf_counter() - t0
+        with self._phase("raygen", "raygen.ao"):
+            out = self.raygen.ao(self.primary.rays, self.primary.hits, self._tri_normal_dev,
+                                 p.num_samples, max_dist, self._new_batch, seed=p.seed)
+            self._sync("raygen.wait")
         self._new_batch = False
         if out is None:
             self._batch = None
@@ -261,17 +292,17 @@ class Renderer:
             # Keys, sort and permutation on the device; the ID<->slot maps
             # are permuted there too.  compact_degenerate takes the
             # dead-last 192-bit sort; sort_secondary alone the coarse key.
-            t0 = time.perf_counter()
-            if p.compact_degenerate:
-                order = sort_dead_last_device(rays)
-                self._batch_live = int((rays.tmax >= 0).sum())
-            else:
-                order = morton_sort_device_coarse(rays.origin, rays.dirn)
-            rays = permute_rays(rays, order)
-            s2i = s2i[order]
-            i2s = inverse_permutation(order)[i2s.long()]
-            self._sync()
-            self.phase_s["sort"] += time.perf_counter() - t0
+            with self._phase("sort", "sort"):
+                if p.compact_degenerate:
+                    order = sort_dead_last_device(rays)
+                    with spans.span("sort.wait"):
+                        self._batch_live = int((rays.tmax >= 0).sum())
+                else:
+                    order = morton_sort_device_coarse(rays.origin, rays.dirn)
+                rays = permute_rays(rays, order)
+                s2i = s2i[order]
+                i2s = inverse_permutation(order)[i2s.long()]
+                self._sync("sort.wait")
         self._batch = BatchRecord(rays=rays, hits=None, slot_to_id=s2i, id_to_slot=i2s,
                                   input_range=rng)
         self._batches.append(self._batch)
@@ -318,12 +349,12 @@ class Renderer:
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=activities)
-        with prof:
+        with prof, spans.span("frame"):
             self.begin_frame(camera)
             total_rays = self.get_total_num_rays()
             while self.next_batch():
                 self.trace_batch()
-            self._sync()
+            self._sync("frame.wait")
         trace_path = None
         if profile_dir:
             os.makedirs(profile_dir, exist_ok=True)
@@ -366,23 +397,25 @@ class Renderer:
     def update_result(self) -> np.ndarray:
         """Reconstruct the frame RGBA image [h, w, 4] f32 on the host
         (Renderer::updateResult, Renderer.cc:421-445)."""
-        t0 = time.perf_counter()
         p = self.params
         num_pixels = self.width * self.height
-        if p.ray_type == "primary":
-            hits = self.primary.hits
-            image = reconstruct_image(
-                self.primary.slot_to_id, hits.tri, self.primary.id_to_slot, hits.tri,
-                self._tri_shaded_dev, self._tri_material_dev, "primary", 1, num_pixels)
-        else:
-            s = p.num_samples
-            image = reconstruct_image(
-                self.primary.slot_to_id, self.primary.hits.tri,
-                torch.arange(num_pixels * s, dtype=torch.int32, device=self.device),
-                self.frame_sample_tri(), self._tri_shaded_dev, self._tri_material_dev,
-                p.ray_type, s, num_pixels)
-        out = image.cpu().numpy().reshape(self.height, self.width, 4)
-        self.phase_s["reconstruct"] += time.perf_counter() - t0
+        with self._phase("reconstruct", "image"):
+            if p.ray_type == "primary":
+                hits = self.primary.hits
+                image = reconstruct_image(
+                    self.primary.slot_to_id, hits.tri, self.primary.id_to_slot, hits.tri,
+                    self._tri_shaded_dev, self._tri_material_dev, "primary", 1, num_pixels)
+            else:
+                s = p.num_samples
+                image = reconstruct_image(
+                    self.primary.slot_to_id, self.primary.hits.tri,
+                    torch.arange(num_pixels * s, dtype=torch.int32, device=self.device),
+                    self.frame_sample_tri(), self._tri_shaded_dev, self._tri_material_dev,
+                    p.ray_type, s, num_pixels)
+            # The host blocks here on the reconstruction and the copy.
+            with spans.span("image.wait"):
+                host = image.cpu()
+            out = host.numpy().reshape(self.height, self.width, 4)
         return out
 
     def update_result_u32(self) -> np.ndarray:

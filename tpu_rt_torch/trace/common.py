@@ -42,13 +42,13 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
-import time
 import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from tpu_rt_torch import spans
 from tpu_rt_torch._build import build_shared
 from tpu_rt_torch.bvh.collapse import OOEPS, SENT
 from tpu_rt_torch.core.types import Hits, Rays
@@ -509,12 +509,12 @@ class CudaTraceKernel:
 
     def load(self):
         if self._fn is None:
-            t0 = time.perf_counter()
-            self.path, self.build_log = build_shared(self.name, [self.source],
-                                                     [nvcc()] + NVCC_FLAGS, deps=headers())
-            lib = ctypes.CDLL(self.path)
-            fn = getattr(lib, f"{self.name}_launch")
-            self.build_s = time.perf_counter() - t0
+            with spans.span("setup.kernel_load", timed=True) as load:
+                self.path, self.build_log = build_shared(self.name, [self.source],
+                                                         [nvcc()] + NVCC_FLAGS, deps=headers())
+                lib = ctypes.CDLL(self.path)
+                fn = getattr(lib, f"{self.name}_launch")
+            self.build_s = load.seconds
             ci = ctypes.c_int
             fn.restype = ci
             fn.argtypes = self.argtypes

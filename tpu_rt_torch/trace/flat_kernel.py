@@ -53,6 +53,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpu_rt_torch import spans
 from tpu_rt_torch.core.types import Rays
 from tpu_rt_torch.trace.common import (
     MAX_CURSORS,
@@ -376,18 +377,21 @@ def trace_flat(tables: FlatTables, rays: Rays, any_hit: bool = False,
     1..MAX_CURSORS) and ``mxu`` (the tensor-core leaf test; leaves of at
     most MXU_LEAF triangles, else ValueError), and whose ``tile``, ``k``
     and ``u`` launch the slot forms (``common.check_schedule``: any of them
-    given, ``flat_trace_k<k>.cu``; not with ``mxu`` or ``cursors`` > 1)."""
-    cursors = check_cursors(cursors)
-    schedule = check_schedule(tile, k, u, mxu, cursors)
-    if mxu:
-        check_mxu(tables)
-    dev = rays.origin.device
-    if dev.type == "cpu":
-        return trace_flat_plain(tables, rays, any_hit, want_uv, with_stats, mxu=mxu,
-                                cursors=cursors, tile=tile, k=k, u=u)
-    if dev.type == "cuda":
-        if schedule is not None:
-            return KERNEL_K[schedule[0]](tables, rays, any_hit, want_uv, with_stats, cursors,
-                                         units=u, tile=tile)
-        return kernel_for(mxu, cursors)(tables, rays, any_hit, want_uv, with_stats, cursors)
-    raise ValueError(f"trace_flat: unsupported device {dev}")
+    given, ``flat_trace_k<k>.cu``; not with ``mxu`` or ``cursors`` > 1).
+    The call, checks to launch, is the span ``trace.launch``
+    (``tpu_rt_torch.spans``)."""
+    with spans.span("trace.launch"):
+        cursors = check_cursors(cursors)
+        schedule = check_schedule(tile, k, u, mxu, cursors)
+        if mxu:
+            check_mxu(tables)
+        dev = rays.origin.device
+        if dev.type == "cpu":
+            return trace_flat_plain(tables, rays, any_hit, want_uv, with_stats, mxu=mxu,
+                                    cursors=cursors, tile=tile, k=k, u=u)
+        if dev.type == "cuda":
+            if schedule is not None:
+                return KERNEL_K[schedule[0]](tables, rays, any_hit, want_uv, with_stats, cursors,
+                                             units=u, tile=tile)
+            return kernel_for(mxu, cursors)(tables, rays, any_hit, want_uv, with_stats, cursors)
+        raise ValueError(f"trace_flat: unsupported device {dev}")

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpu_rt_torch import spans
 from tpu_rt_torch.bvh.collapse import COUNT_SHIFT, FIRST_MASK, SENT
 from tpu_rt_torch.core.types import Rays
 from tpu_rt_torch.trace.common import (
@@ -282,17 +283,19 @@ def trace_quad(tables: QuadTables, rays: Rays, any_hit: bool = False,
     1..MAX_CURSORS (``quad_trace_c.cu`` for more than 1), and whose
     ``tile``, ``k`` and ``u`` launch the slot forms
     (``common.check_schedule``: any of them given, ``quad_trace_k<k>.cu``;
-    not with ``cursors`` > 1)."""
-    cursors = check_cursors(cursors)
-    schedule = check_schedule(tile, k, u, cursors=cursors)
-    dev = rays.origin.device
-    if dev.type == "cpu":
-        return trace_quad_plain(tables, rays, any_hit, want_uv, with_stats, cursors=cursors,
-                                tile=tile, k=k, u=u)
-    if dev.type == "cuda":
-        if schedule is not None:
-            return KERNEL_K[schedule[0]](tables, rays, any_hit, want_uv, with_stats, cursors,
-                                         units=u, tile=tile)
-        kernel = KERNEL_C if cursors > 1 else KERNEL
-        return kernel(tables, rays, any_hit, want_uv, with_stats, cursors)
-    raise ValueError(f"trace_quad: unsupported device {dev}")
+    not with ``cursors`` > 1).  The call, checks to launch, is the span
+    ``trace.launch`` (``tpu_rt_torch.spans``)."""
+    with spans.span("trace.launch"):
+        cursors = check_cursors(cursors)
+        schedule = check_schedule(tile, k, u, cursors=cursors)
+        dev = rays.origin.device
+        if dev.type == "cpu":
+            return trace_quad_plain(tables, rays, any_hit, want_uv, with_stats,
+                                    cursors=cursors, tile=tile, k=k, u=u)
+        if dev.type == "cuda":
+            if schedule is not None:
+                return KERNEL_K[schedule[0]](tables, rays, any_hit, want_uv, with_stats, cursors,
+                                             units=u, tile=tile)
+            kernel = KERNEL_C if cursors > 1 else KERNEL
+            return kernel(tables, rays, any_hit, want_uv, with_stats, cursors)
+        raise ValueError(f"trace_quad: unsupported device {dev}")
