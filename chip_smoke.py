@@ -8,8 +8,9 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 1.   builds every kernel library (quad_trace.cu, quad_trace_c.cu,
      flat_trace.cu, flat_trace_c.cu, flat_trace_mxu.cu, the slot libraries
      quad_trace_k{1,2,4,8}.cu and flat_trace_k{1,2,4,8}.cu, mxu_ablate.cu,
-     ablate2.cu, mosaic_probe3.cu; one nvcc each, all run together;
-     28 + 24 + 52 + 48 + 50 + 4 x 24 + 4 x 48 + 6 + 10 + 9 forms) and prints ptxas' registers,
+     ablate2.cu, mosaic_probe3.cu, and the AO ray generator raygen_ao.cu; one
+     nvcc each, all run together; 28 + 24 + 52 + 48 + 50 + 4 x 24 + 4 x 48 +
+     6 + 10 + 9 forms and raygen_ao's one kernel, which may not spill) and prints ptxas' registers,
      stack and spills per form; the vmem f32 frame forms of the persistent
      kernels and their first versions must keep their registers and stack
      (``PTXAS_VMEM_F32``), no persistent frame form (the tensor-core ones
@@ -227,6 +228,16 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      setting and the default form timed with ``bench.chain_times`` (best
      of 3 chains of 32); registers, spills and blocks per SM of each
      library.  A path of its own: counts set to 0 before it, read after.
+42.  the AO ray generator's kernel (``csrc/raygen_ao.cu``, what
+     ``gen_ao_rays`` launches for CUDA tensors) against its plain version
+     ``gen_ao_rays_plain`` on conference's primary hits at the AO frame's
+     two batches (262,144 and 45,056 inputs x 8 samples, a seed whose sum
+     with the task offset wraps past 2^32): ids, tmin and tmax bit-equal,
+     origins within EPS32 of their summed magnitudes, directions within 4
+     EPS32; no input launches nothing; kernel and plain timed on batch 1
+     beside the bytes' bound; then the conference AO and diffuse frames
+     again, every batch one launch (2 and 1), the plain version never
+     called.
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
@@ -262,7 +273,10 @@ carry each setting's time under ``settings``, the default form's time,
 their registers, spills and blocks per SM; their plain time and bound are
 the default form's on the same rays (the same node and triangle tests),
 and phases 37-38's launches of them are in their ``paths`` (of their
-stats forms, in ``stats_paths``).
+stats forms, in ``stats_paths``).  The last entry, ``raygen_ao``, is the AO
+ray generator's (phase 42): its launches in one conference AO frame, its
+largest direction deviation from the plain version, both versions' times
+on AO batch 1 and its bound, the bytes it must read and write.
 """
 
 from __future__ import annotations
@@ -3851,6 +3865,106 @@ def probe_entries(ab_runs, mp_runs):
     }]
 
 
+RAYGEN_SEED = 2**32 - 7        # seed + task offset wraps past 2^32 in batch 1
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def raygen_phase(t0, cctx, dev):
+    """Phase 42: the AO ray generator's kernel (``csrc/raygen_ao.cu``)
+    against ``gen_ao_rays_plain`` on conference's primary hits at the AO
+    frame's two batches (262,144 and 45,056 inputs, 8 samples) and with no
+    input, kernel and plain timed on batch 1; then the conference AO and
+    diffuse frames, whose every batch must be one launch of the kernel, with
+    the plain version never called.  Returns the kernel's entry."""
+    from tpu_rt_torch.raygen import ao_kernel, generators
+
+    kern = ao_kernel.KERNEL
+    ao, radius = cctx["ao"], cctx["radius"]
+    prim, hits, normals = ao.primary.rays, ao.primary.hits, ao._tri_normal_dev
+    per_batch = AO_MAX_BATCH // AO_SAMPLES
+    errs, timed = [], None
+    for lo, hi in ((0, per_batch), (per_batch, prim.num)):
+        args = (prim.origin[lo:hi], prim.dirn[lo:hi], hits.t[lo:hi], hits.tri[lo:hi], normals,
+                AO_SAMPLES, radius, RAYGEN_SEED, lo)
+        before = kern.launches
+        got, ids, i2s = generators.gen_ao_rays(*args)
+        want, w_ids, _ = generators.gen_ao_rays_plain(*args)
+        n = (hi - lo) * AO_SAMPLES
+        check(kern.launches == before + 1, f"raygen batch [{lo}, {hi}): {kern.launches - before} "
+              "kernel launches, want 1")
+        check(got.num == n and ids is i2s and torch.equal(ids, w_ids),
+              f"raygen batch [{lo}, {hi}): {got.num} rays or ids differ from the identity")
+        check(bits_differ(got.tmin, want.tmin) == 0 and bits_differ(got.tmax, want.tmax) == 0,
+              f"raygen batch [{lo}, {hi}): tmin or tmax differ from the plain version's")
+        # Origins within EPS32 of the summed magnitudes, directions 4 EPS32.
+        back = torch.clamp_min(hits.t[lo:hi] - np.float32(1e-4), 0.0)
+        scale = (prim.origin[lo:hi].abs() + (prim.dirn[lo:hi] * back[:, None]).abs())
+        o_bad = int(((got.origin - want.origin).abs()
+                     > scale.repeat_interleave(AO_SAMPLES, 0) * EPS32).sum())
+        d_err = float((got.dirn - want.dirn).abs().max())
+        print(f"raygen batch [{lo}, {hi}) ({n} rays): origins past tolerance {o_bad}, bits "
+              f"differing {bits_differ(got.origin, want.origin)}; directions max |diff| "
+              f"{d_err:.3g} ({d_err / EPS32:.2f} EPS32), bits differing "
+              f"{bits_differ(got.dirn, want.dirn)}; live {int((got.tmax >= 0).sum())}")
+        check(o_bad == 0 and d_err <= 4 * EPS32,
+              f"raygen batch [{lo}, {hi}): origins or directions past the plain version's")
+        errs.append(d_err)
+        if timed is None:
+            timed = args, n
+    # No input: no launch, outputs of the right shapes.
+    before = kern.launches
+    empty, ids, _ = generators.gen_ao_rays(prim.origin[:0], prim.dirn[:0], hits.t[:0],
+                                           hits.tri[:0], normals, AO_SAMPLES, radius, 0)
+    check(kern.launches == before and tuple(empty.origin.shape) == (0, 3)
+          and tuple(empty.dirn.shape) == (0, 3) and empty.tmax.shape == (0,)
+          and ids.shape == (0,), "raygen with no input launched or gave other shapes")
+    # Kernel against plain on batch 1.  Bytes: each input read once (origin,
+    # dirn, t, tri, its normal), each output ray written once (origin, dirn,
+    # tmin, tmax, id).
+    args, n = timed
+    k_ms = time_ms(lambda: generators.gen_ao_rays(*args), WARMUP, REPEATS)
+    p_ms = time_ms(lambda: generators.gen_ao_rays_plain(*args), PLAIN_WARMUP, PLAIN_REPEATS)
+    nbytes = per_batch * (32 + 12) + n * 36
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    print(f"timing raygen_ao kernel, AO batch 1 ({n} rays): ms {[round(x, 4) for x in k_ms]} "
+          f"median {median(k_ms):.4f}; plain ms {[round(x, 4) for x in p_ms]} median "
+          f"{median(p_ms):.4f}; bound {nbytes} B -> {bound_ms:.6f} ms "
+          f"({bound_ms / median(k_ms) * 100:.1f}% of it)")
+    phase("raygen kernel == plain", t0)
+
+    # 42b. The frames: every AO batch one launch, the plain version idle.
+    plain, calls = generators.gen_ao_rays_plain, []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return plain(*a, **k)
+
+    launches = {}
+    generators.gen_ao_rays_plain = counted
+    try:
+        for name in ("ao", "dif"):
+            r = cctx[name]
+            kern.reset_counts()
+            stats = r.render_frame(cctx["camera"])
+            r.update_result()
+            torch.cuda.synchronize()
+            launches[name] = kern.launches
+            check(kern.launches == stats["batches"] and not calls,
+                  f"{name} frame: {kern.launches} raygen kernel launches for "
+                  f"{stats['batches']} batches, plain version called {len(calls)} times")
+    finally:
+        generators.gen_ao_rays_plain = plain
+    print(f"raygen kernel launches per frame: AO {launches['ao']}, diffuse {launches['dif']}; "
+          "plain version not called")
+    check(launches["ao"] == 2, f"AO frame: {launches['ao']} raygen launches, want 2")
+    phase("raygen kernel serves every AO and diffuse batch", t0)
+    return {"name": "raygen_ao", "route": "cuda", "source": "tpu_rt_torch/csrc/raygen_ao.cu",
+            "replaces": None, "path": f"{SECONDARY_SCENE} AO frame, Renderer(tracer='auto')",
+            "launches": launches["ao"], "max_abs_err": max(errs), "ms": median(k_ms),
+            "plain_ms": median(p_ms), "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -3858,6 +3972,7 @@ def main() -> None:
         dist_worker(*sys.argv[2:6])
         return
     from tpu_rt_torch.probes import ablate2, mosaic_probe3, mxu_ablate
+    from tpu_rt_torch.raygen import ao_kernel
     from tpu_rt_torch.trace import common, flat_kernel, quad_kernel
 
     t0 = time.perf_counter()
@@ -3873,12 +3988,22 @@ def main() -> None:
     kernel, flat_k = quad_kernel.KERNEL, flat_kernel.KERNEL
     libs = (*quad_kernel.KERNELS, *flat_kernel.KERNELS, mxu_ablate.KERNEL, ablate2.KERNEL,
             mosaic_probe3.KERNEL)
+    raygen = ao_kernel.KERNEL
     t1 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs) + 1) as pool:
+    with ThreadPoolExecutor(len(libs) + 2) as pool:
         capped = pool.submit(register_cap_ptxas, common)
+        raygen_built = pool.submit(raygen.load)
         list(pool.map(lambda k: k.load(), libs))
         capped = capped.result()
-    print(f"build: {len(libs)} libraries in {time.perf_counter() - t1:.2f} s of wall time")
+        raygen_built.result()
+    print(f"build: {len(libs) + 1} libraries in {time.perf_counter() - t1:.2f} s of wall time")
+    # The AO ray generator: one kernel, no spills.
+    raygen_forms = ptxas_forms(raygen.build_log)
+    print(f"build: {raygen.name}.cu in {raygen.build_s:.2f} s")
+    for *_, ln in raygen_forms:
+        print(f"  ptxas {ln}")
+    check(len(raygen_forms) == 1 and raygen_forms[0][3] == 0,
+          f"{raygen.name}: {raygen_forms}, want one kernel without spills")
     built, spills = {}, {}
     for k in libs:
         print(f"build: {k.name}.cu in {k.build_s:.2f} s")
@@ -4026,6 +4151,8 @@ def main() -> None:
               "flat": bound("flat_trace", b_flat, b_rays, fb["plain"][1], fb["seen"], 2),
               "flat_any": bound("flat_trace_anyhit", fc["ao"].tracer_tables, f_b1_rays,
                                 fc["plain"][1], fc["seen"], 2)}
+    # 42. The AO ray generator (it renders the conference frames again).
+    raygen_entry = raygen_phase(t0, cctx, dev)
 
     def form_entries(name, src, base):
         f = forms[name]
@@ -4107,7 +4234,8 @@ def main() -> None:
                       {("quad", False): closest["plain_ms"], ("quad", True): anyhit["plain_ms"],
                        ("flat", False): f_bunny[1], ("flat", True): f_b1[1]},
                       {("quad", False): bounds["quad"], ("quad", True): bounds["quad_any"],
-                       ("flat", False): bounds["flat"], ("flat", True): bounds["flat_any"]})]
+                       ("flat", False): bounds["flat"], ("flat", True): bounds["flat_any"]}),
+        raygen_entry]
     # Phases 34-40's paths, by entry.
     by_name = {e["name"]: e for e in entries}
     # A slot library's stats forms count under its entry's "stats_paths".

@@ -20,8 +20,13 @@ its plain version's accumulators bit for bit, and so does every level of
 ``ablate2`` (on node tables of 1-129 records and Woop tables whose last
 group of 128 rows holds 1 or 2) and every mode of ``mosaic_probe3``.  The
 invariant-integer remainder of ``csrc/int_div.cuh`` equals ``%`` on
-divisors 1 to 2^24 (``cuda_emulation/int_div_check.cpp``).  The card runs
-the same checks at full size in ``chip_smoke.py``."""
+divisors 1 to 2^24 (``cuda_emulation/int_div_check.cpp``).  The AO ray
+generator ``csrc/raygen_ao.cu`` gives ``gen_ao_rays_plain``'s ids, tmin and
+tmax bit for bit, its origins and directions within the tolerances of
+``tests/test_torch_raygen.py``, and its rotation words and Halton points bit
+for bit, at 1 and 8 samples, seeds whose sum with the task wraps past 2^32,
+batches that fill a block and that do not, no input and an empty scene.
+The card runs the same checks at full size in ``chip_smoke.py``."""
 
 import ctypes
 import os
@@ -40,6 +45,8 @@ from tpu_rt_torch.scene import Scene, procedural
 from tpu_rt_torch.trace import common
 from tpu_rt_torch.trace.common import BLOCK, DESIGNS, persistent_grid, shared_stack_bytes
 from tpu_rt_torch.probes import ablate2, mosaic_probe3, mxu_ablate
+from tpu_rt_torch.raygen import ao_kernel
+from tpu_rt_torch.raygen.generators import _halton2, _halton3, _hash_words, gen_ao_rays_plain
 from tpu_rt_torch.trace.flat_kernel import (
     MXU_SMEM,
     FlatMxuKernel,
@@ -579,3 +586,135 @@ def test_invariant_divisor_equals_remainder(tmp_path):
     run = subprocess.run([exe], capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stdout + run.stderr
     assert int(run.stdout.split()[0]) > 300_000_000
+
+
+# --- The AO ray generator (csrc/raygen_ao.cu) ----------------------------------
+#
+# Built with cuda_emulation/raygen_terms.cpp, which exports the kernel's
+# rotation words and Halton points beside its C ABI.  Tolerances as in
+# tests/test_torch_raygen.py: the host's cosf / sinf and the kernel's norm
+# round otherwise than torch's in the last bits.
+EPS32 = float(np.finfo(np.float32).eps)
+SEED_NEAR_2_32 = 2**32 - 7
+
+
+@pytest.fixture(scope="module")
+def raygen_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is needed to build the kernel for the host")
+    so = str(tmp_path_factory.mktemp("raygen_emulation") / "libraygen_ao.so")
+    emu = os.path.join(HERE, "cuda_emulation")
+    defines = [f for f in common.NVCC_FLAGS if f.startswith("-D")]
+    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+                           "-pthread", "-I", emu, "-I", common.CSRC, *defines,
+                           os.path.join(emu, "raygen_terms.cpp"), os.path.join(emu, "sim.cpp"),
+                           "-o", so], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lib = ctypes.CDLL(so)
+    lib.sim_config(SMS, PER_SM)
+    lib.raygen_ao_launch.argtypes = ao_kernel.ARGTYPES
+    lib.raygen_ao_launch.restype = ctypes.c_int
+    lib.raygen_ao_terms.argtypes = [ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.raygen_ao_terms.restype = None
+    return lib
+
+
+def _ao_hits(n, num_tris, seed):
+    """Input hits as tests/test_torch_raygen.py makes them: t around the
+    backtrack epsilon, misses, and normals that take each perpendicular
+    branch."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = rng.uniform(0.0, 5.0, n).astype(np.float32)
+    t[:5] = [0.0, 5e-5, 1e-4, 2e-4, 1.0][:n]
+    tri = rng.integers(-1, num_tris, n).astype(np.int32)   # all -1 without triangles
+    nrm = rng.normal(size=(num_tris, 3)).astype(np.float32)
+    if num_tris >= 6:
+        nrm[:6] = [[0, 0, 1], [1, 0, 0], [0, -1, 0], [0.6, 0.8, 0], [0, 0.6, -0.8], [1, 1, 1]]
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return [torch.tensor(x) for x in (o, d, t, tri, nrm)]
+
+
+def _raygen_launch(lib, hits, num_samples, max_dist, seed, offset):
+    """One launch through the C ABI into outputs filled with markers;
+    returns (error, Rays, ids)."""
+    o, d, t, tri, nrm = hits
+    n = o.shape[0] * num_samples
+    rays = make_rays(np.full((n, 3), 7.0), np.full((n, 3), 7.0), np.full(n, 7.0),
+                     np.full(n, 7.0), device="cpu")
+    ids = torch.full((n,), -5, dtype=torch.int32)
+    err = lib.raygen_ao_launch(o.data_ptr(), d.data_ptr(), t.data_ptr(), tri.data_ptr(),
+                               nrm.data_ptr(), nrm.shape[0], o.shape[0], num_samples,
+                               float(np.float32(max_dist)), seed & 0xFFFFFFFF,
+                               offset & 0xFFFFFFFF, *(x.data_ptr() for x in rays),
+                               ids.data_ptr(), None)
+    return err, rays, ids
+
+
+def _raygen_agrees(got, ids, hits, num_samples, max_dist, seed, offset):
+    o, d, t, tri, nrm = hits
+    want, w_ids, _ = gen_ao_rays_plain(o, d, t, tri, nrm, num_samples, max_dist, seed,
+                                       task_offset=offset)
+    assert torch.equal(ids, w_ids)
+    assert torch.equal(_bits(got.tmin), _bits(want.tmin))
+    assert torch.equal(_bits(got.tmax), _bits(want.tmax))
+    back = torch.clamp_min(t - np.float32(1e-4), 0.0)
+    scale = (o.abs() + (d * back[:, None]).abs()).repeat_interleave(num_samples, 0)
+    assert ((got.origin - want.origin).abs() <= scale * EPS32).all()
+    torch.testing.assert_close(got.dirn, want.dirn, rtol=0, atol=4 * EPS32)
+
+
+@pytest.mark.parametrize("num_samples", [1, 8])
+@pytest.mark.parametrize("seed,offset", [(0, 0), (SEED_NEAR_2_32, 4093)])
+def test_raygen_ao_equals_plain(raygen_lib, num_samples, seed, offset):
+    # Every output ray against gen_ao_rays_plain on 2,000 hits (seed +
+    # offset + i wraps past 2^32 in the second case); the rotation words
+    # and Halton points bit for bit.
+    hits = _ao_hits(2000, 40, 7)
+    err, got, ids = _raygen_launch(raygen_lib, hits, num_samples, 3.87, seed, offset)
+    assert err == 0
+    _raygen_agrees(got, ids, hits, num_samples, 3.87, seed, offset)
+    r = hits[0].shape[0]
+    word = torch.empty((r,), dtype=torch.int32)
+    hx, hy = torch.empty((num_samples,)), torch.empty((num_samples,))
+    raygen_ao_terms = raygen_lib.raygen_ao_terms
+    raygen_ao_terms(seed & 0xFFFFFFFF, offset, r, num_samples, word.data_ptr(), hx.data_ptr(),
+                    hy.data_ptr())
+    _, _, c = _hash_words(seed, offset, r, "cpu")
+    assert torch.equal(word.long() & 0xFFFFFFFF, c)
+    j = torch.arange(num_samples)
+    assert torch.equal(_bits(hx), _bits(_halton2(j))) and torch.equal(_bits(hy),
+                                                                       _bits(_halton3(j)))
+
+
+@pytest.mark.parametrize("r,num_samples,num_tris", [
+    (256, 1, 40),    # one full block
+    (257, 1, 40),    # a block and one ray
+    (32, 8, 40),     # one full block of 8 samples
+    (33, 8, 40),     # and 8 rays into the next
+    (5, 3, 40),      # part of one block
+    (100, 8, 0),     # an empty scene: every input missed
+    (0, 8, 40),      # no input
+])
+def test_raygen_ao_shapes(raygen_lib, r, num_samples, num_tris):
+    hits = _ao_hits(r, num_tris, 11)
+    err, got, ids = _raygen_launch(raygen_lib, hits, num_samples, 0.5, 99, 12)
+    assert err == 0
+    _raygen_agrees(got, ids, hits, num_samples, 0.5, 99, 12)
+    if num_tris == 0:
+        assert (got.tmax == -1.0).all() and r > 0
+
+
+def test_raygen_ao_refusals(raygen_lib):
+    # No sample, a negative count, or more output rays than int32 holds.
+    hits = _ao_hits(4, 40, 3)
+    for r, s in ((4, 0), (-1, 8), (2**28, 8)):
+        o, d, t, tri, nrm = hits
+        err = raygen_lib.raygen_ao_launch(o.data_ptr(), d.data_ptr(), t.data_ptr(),
+                                          tri.data_ptr(), nrm.data_ptr(), 40, r, s, 1.0, 0, 0,
+                                          None, None, None, None, None, None)
+        assert err != 0

@@ -201,3 +201,29 @@ def test_raygen_ao_batching_matches(max_rays, n, n_batches):
     assert len(ranges) == n_batches
     assert ranges[0][0] == 0 and ranges[-1][1] == n
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+def test_cpu_ao_rays_never_load_the_cuda_kernel(monkeypatch):
+    # On CPU tensors gen_ao_rays (and RayGen.ao through it) is
+    # gen_ao_rays_plain: the kernel's library is neither built nor loaded
+    # nor launched.
+    from tpu_rt_torch.raygen import ao_kernel
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CUDA kernel was reached from CPU tensors")
+
+    monkeypatch.setattr(ao_kernel, "build_shared", refuse)
+    monkeypatch.setattr(ao_kernel.KERNEL, "load", refuse)
+    launches = ao_kernel.KERNEL.launches
+    o, d, t, tri, nrm = _torch(*_hits(300, 40, seed=10))
+    got = pg.gen_ao_rays(o, d, t, tri, nrm, 4, 1.5, SEED_NEAR_2_32, task_offset=17)
+    want = pg.gen_ao_rays_plain(o, d, t, tri, nrm, 4, 1.5, SEED_NEAR_2_32, task_offset=17)
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    zeros = torch.zeros(300)
+    out = PRayGen(1 << 20).ao(make_rays(o, d, zeros, t, device="cpu"),
+                              Hits(tri, t, zeros, zeros), nrm, 4, 1.5, True, seed=5)
+    assert out[0].num == 1200 and out[0].origin.device.type == "cpu"
+    assert ao_kernel.KERNEL.launches == launches
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ao_kernel.RaygenAoKernel()(o, d, t, tri, nrm, 4, 1.5, 0)

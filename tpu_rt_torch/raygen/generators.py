@@ -5,6 +5,11 @@ the reference's raygen kernels (src/rt/ray/RayGenKernels.cu:79-293).  One
 call is a handful of elementwise torch ops over the whole batch on the
 device of its inputs; the ID<->slot arrays are returned alongside.
 
+``gen_ao_rays`` on a CUDA device is one launch of a hand-written kernel
+(``csrc/raygen_ao.cu``, ``ao_kernel.py``); on the CPU it runs its plain
+version ``gen_ao_rays_plain``, the ops below, which the tests hold to
+``tpu_rt`` and the kernel to.
+
 Seeding is explicit (the reference's RayGen.cc:106 uses rand()): the caller
 passes a uint32 seed.  Torch has no uint32 shifts, ``%`` or ``//`` on every
 device, so the Jenkins mix and the Halton digit loops run in int64 holding
@@ -22,6 +27,7 @@ import torch
 
 from tpu_rt_torch.core.math import hammersley, sobol2d
 from tpu_rt_torch.core.types import Rays
+from tpu_rt_torch.raygen import ao_kernel
 
 TWO_PI = float(np.float32(2.0 * np.pi))
 GOLDEN = 0x9E3779B9
@@ -147,6 +153,30 @@ def _expand(origin: torch.Tensor, num_samples: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def gen_ao_rays(
+    in_origin: torch.Tensor,   # [R,3] input ray origins
+    in_dirn: torch.Tensor,     # [R,3] input ray directions
+    in_t: torch.Tensor,        # [R] hit t
+    in_tri: torch.Tensor,      # [R] hit tri id (-1 miss)
+    tri_normal: torch.Tensor,  # [T,3] scene triangle normals
+    num_samples: int,
+    max_dist: float,
+    seed: int,                 # uint32
+    task_offset: int = 0,
+):
+    """AO / diffuse-bounce rays (rayGenAOKernel, RayGenKernels.cu:117-227):
+    ``gen_ao_rays_plain``'s results.  Inputs on a CUDA device take one
+    launch of ``csrc/raygen_ao.cu`` (``ao_kernel.KERNEL``, which counts it);
+    inputs on the CPU take ``gen_ao_rays_plain``."""
+    dev = in_origin.device
+    if dev.type != "cuda":
+        return gen_ao_rays_plain(in_origin, in_dirn, in_t, in_tri, tri_normal, num_samples,
+                                 max_dist, seed, task_offset)
+    return ao_kernel.KERNEL(in_origin, in_dirn, in_t, in_tri,
+                            tri_normal.to(device=dev, dtype=torch.float32), num_samples,
+                            max_dist, seed, task_offset)
+
+
+def gen_ao_rays_plain(
     in_origin: torch.Tensor,   # [R,3] input ray origins
     in_dirn: torch.Tensor,     # [R,3] input ray directions
     in_t: torch.Tensor,        # [R] hit t
