@@ -329,6 +329,7 @@ def test_benchmark_entries_name_files():
         assert entries[name]["source"] == "program_span"
         assert os.path.exists(os.path.join(paths.BENCH_DIR, "metrics", f"{name}.py"))
     assert entries["launch_us_per_call.trace"]["workloads"] == ["conference-ao8",
-                                                                "dragon-primary"]
+                                                                "dragon-primary",
+                                                                "sanmiguel-diffuse"]
     assert entries["host_wait_ms.frame"]["workloads"] == ["conference-ao8-frames"]
     assert entries["pretrace_ms.frame"]["workloads"] == ["conference-ao8-frames"]

@@ -65,6 +65,7 @@ from tpu_rt_torch.rays.buffer import morton_sort_device, permute_rays
 from tpu_rt_torch.scene import Scene, procedural
 from tpu_rt_torch.trace import (TABLE_BUDGET, device_bvh, make_routing_tracer, quad_policy,
                                 release_persisting_l2, trace_flat_scalar, trace_wavefront)
+from tpu_rt_torch.trace.common import warp_work
 
 ROWS = [
     ("sponza", "primary"), ("knob", "primary"), ("hairball", "primary"),
@@ -97,7 +98,6 @@ FULLFRAME_TARGETS = [
 ]
 
 SUITE_FILE, SUITE_MD, CALIB_FILE, DIFF_FILE = "SUITE.json", "SUITE.md", "CALIB.json", "DIFF.jsonl"
-WARP = 32
 
 
 @functools.lru_cache(maxsize=2)
@@ -109,20 +109,11 @@ def _setup_scene(scene_name: str, cache_dir: str | None = "bvhcache"):
     return scene, flat
 
 
-def warp_iters(stats: dict) -> torch.Tensor:
-    """Each 32-ray warp's largest per-ray node_tests + tri_tests (int64,
-    one per warp; the last warp padded with zeros)."""
-    work = stats["node_tests"].long() + stats["tri_tests"].long()
-    groups = -(-work.numel() // WARP)
-    work = torch.nn.functional.pad(work, (0, groups * WARP - work.numel()))
-    return work.view(groups, WARP).amax(1)
-
-
 def census(stats: dict) -> tuple[int, int]:
     """(groups, iters) of a trace's per-ray counters: the number of 32-ray
     warps, and the sum over warps of the warp's largest per-ray
     node_tests + tri_tests."""
-    it = warp_iters(stats)
+    it = warp_work(stats)
     return it.numel(), int(it.sum())
 
 

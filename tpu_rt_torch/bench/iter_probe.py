@@ -19,7 +19,7 @@ rays and Morton-sorted, to localise union pathologies.
 Known differences from the JAX tool:
 
 - ``groups`` are 32-ray warps and ``iters`` a warp's largest per-ray
-  ``node_tests + tri_tests`` (``bench_suite.warp_iters``, the kernel's
+  ``node_tests + tri_tests`` (``trace.common.warp_work``, the kernel's
   ``with_stats`` counters), where ``tpu_rt`` counts while-loop iterations
   per Pallas grid step (``count_iters``).  The two are not comparable.
 - ``wall`` is one stats trace between CUDA events (``bench.chain_times``),
@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from tpu_rt_torch.bench.bench import chain_times
-from tpu_rt_torch.bench.bench_suite import census, warp_iters
+from tpu_rt_torch.bench.bench_suite import census
 from tpu_rt_torch.bench.workload import FRAME_H, FRAME_W, suite_ao_radius, suite_camera
 from tpu_rt_torch.bvh import load_or_build_bvh
 from tpu_rt_torch.core.types import Rays
@@ -48,6 +48,7 @@ from tpu_rt_torch.rays.buffer import (_stable_lex_order, morton_sort_device, per
                                       ray_morton_keys_device)
 from tpu_rt_torch.scene import Scene, procedural
 from tpu_rt_torch.trace import TABLE_BUDGET, choose_node_format, trace_flat, upload_flat
+from tpu_rt_torch.trace.common import warp_work
 
 # tpu_rt's packet kernel tile and interleave (tpu_rt/trace/packet2.py:66,
 # :70, their defaults): a subset is padded to TILE * K rays, so the subset
@@ -96,7 +97,7 @@ def probe(name, tables, rays: Rays, any_hit: bool) -> tuple:
     dt = chain_times(lambda: trace_flat(tables, rays, any_hit, with_stats=True), 1, 1,
                      device)[0]
     groups, total = census(stats)
-    it = warp_iters(stats).cpu().numpy()
+    it = warp_work(stats).cpu().numpy()
     n = rays.num
     live = int((rays.tmax >= 0).sum())
     mean, p90, mx = float(it.mean()), float(np.percentile(it, 90)), int(it.max())

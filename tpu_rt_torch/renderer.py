@@ -17,9 +17,10 @@ device (``tpu_rt_torch.rays.buffer``); the sort's time goes to
 ``phase_s["sort"]``, never to the trace time.
 
 Each phase of the frame is a span of ``tpu_rt_torch.spans`` (``frame``,
-``raygen.primary``, ``raygen.ao``, ``sort``, ``trace.primary``,
-``trace.batch``; ``image`` for ``update_result``), and each place where the
-host blocks on the device a ``*.wait`` span under its phase: they are
+``raygen.primary``, ``raygen.ao`` or ``raygen.diffuse`` by the ray type,
+``sort``, ``trace.primary``, ``trace.batch``; ``image`` for
+``update_result``), and each place where the host blocks on the device a
+``*.wait`` span under its phase: they are
 recorded while ``torch.profiler`` runs (``RendererParams.profile_dir``) or
 after ``spans.enable()``.  ``phase_s`` adds up each phase's time (host
 clock; the trace's from CUDA events) whether or not they are recorded.
@@ -278,7 +279,7 @@ class Renderer:
             return True
 
         max_dist = p.ao_radius if p.ray_type == "ao" else float(self.camera.far)
-        with self._phase("raygen", "raygen.ao"):
+        with self._phase("raygen", f"raygen.{p.ray_type}"):
             out = self.raygen.ao(self.primary.rays, self.primary.hits, self._tri_normal_dev,
                                  p.num_samples, max_dist, self._new_batch, seed=p.seed)
             self._sync("raygen.wait")

@@ -22,8 +22,10 @@ opens, through torch's direct binding, a few microseconds where the Python
 wrapper takes tens): it shows in the profiler's trace as a
 ``user_annotation`` on the host timeline and a ``gpu_user_annotation`` over
 the device work it launched, so the profiler's Chrome trace is its exporter
-and shares its clock.  ``snapshot()`` returns the records and counters,
-``reset()`` clears them.  Nothing here waits on the device.
+and shares its clock.  ``count(name, n)`` adds to a counter, on or off: its
+callers (the trace routes called ``with_stats``) run off the timed path.
+``snapshot()`` returns the records and counters, ``reset()`` clears them.
+Nothing here waits on the device.
 """
 
 from __future__ import annotations
@@ -93,7 +95,7 @@ class _Span:
             self.idx = len(_records) // 4
             _records.extend((name, parent, -1, -1))
         else:
-            _counters["spans.dropped"] = _counters.get("spans.dropped", 0) + 1
+            count("spans.dropped", 1)
         # The clock readings enclose the annotation, next to it: most of
         # what the profiler spends opening and closing one lies between its
         # own two stamps, so inside both.
@@ -131,6 +133,11 @@ def enable() -> None:
 def disable() -> None:
     global _enabled
     _enabled = False
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name``, whether or not spans are recording."""
+    _counters[name] = _counters.get(name, 0) + int(n)
 
 
 def snapshot() -> dict:

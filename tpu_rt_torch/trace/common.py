@@ -9,9 +9,11 @@ Each kernel has eight forms for each table layout, the instantiations of
 with or without the barycentrics u, v, with or without the per-ray counters
 ``node_tests`` and ``tri_tests``.  A tracer returns ``Hits`` (u = v = 0
 unless ``want_uv``), or ``(Hits, {"node_tests", "tri_tests"})`` with
-``with_stats``, the form of ``trace_wavefront``.  The layouts are the
-tables' residency (``tables.RESIDENCIES``: the cache policy of their loads)
-and, for the binary kernel, its node format (f32 or bf16).
+``with_stats``, the form of ``trace_wavefront``; a route called
+``with_stats`` adds their sums to the recorder's counters (``count_stats``).
+The layouts are the tables' residency (``tables.RESIDENCIES``: the cache
+policy of their loads) and, for the binary kernel, its node format (f32 or
+bf16).
 
 Each kernel source is one library with its own launch counts: the forms
 that drain a leaf when it is reached (``quad_trace``, ``flat_trace``), the
@@ -54,6 +56,8 @@ from tpu_rt_torch.bvh.collapse import OOEPS, SENT
 from tpu_rt_torch.core.types import Hits, Rays
 from tpu_rt_torch.trace.tables import _residency_flags
 
+# Rays of a warp, the lanes that run one traversal loop in lock step.
+WARP = 32
 # Per-ray traversal stack depth, a compile-time constant of both kernels
 # (the reference's STACK_SIZE, kepler_dynamic_fetch.cu:47).  The tables'
 # uploads refuse a tree whose stack would not fit instead of clamping.
@@ -227,6 +231,31 @@ class TraceState(NamedTuple):
         if with_stats:
             return hits, {"node_tests": self.node_tests, "tri_tests": self.tri_tests}
         return hits
+
+
+def warp_work(stats: dict) -> torch.Tensor:
+    """Each 32-ray warp's largest per-ray node_tests + tri_tests (int64,
+    one per warp; the last warp padded with zeros): the steps a lock-step
+    warp's loop runs."""
+    work = stats["node_tests"].long() + stats["tri_tests"].long()
+    groups = -(-work.numel() // WARP)
+    work = torch.nn.functional.pad(work, (0, groups * WARP - work.numel()))
+    return work.view(groups, WARP).amax(1)
+
+
+def count_stats(out):
+    """Add a ``with_stats`` trace's per-ray counters, summed on the device
+    and read to the host once, to the recorder's counters
+    (``tpu_rt_torch.spans.count``): ``trace.stats_rays`` (the rays traced),
+    ``trace.node_tests``, ``trace.tri_tests`` and ``trace.warp_tests`` (the
+    sum of ``warp_work``).  Returns ``out``, the ``(hits, stats)`` pair."""
+    stats = out[1]
+    sums = torch.stack([stats["node_tests"].long().sum(), stats["tri_tests"].long().sum(),
+                        warp_work(stats).sum()]).tolist()
+    spans.count("trace.stats_rays", stats["node_tests"].numel())
+    for name, n in zip(("trace.node_tests", "trace.tri_tests", "trace.warp_tests"), sums):
+        spans.count(name, n)
+    return out
 
 
 def visit_masks(visited: dict | None, dev, **rows: int) -> dict | None:

@@ -66,6 +66,7 @@ from tpu_rt_torch.trace.common import (
     check_cursors,
     check_schedule,
     check_stack,
+    count_stats,
     drain_mxu_plain,
     drain_plain,
     safe_inv,
@@ -379,7 +380,8 @@ def trace_flat(tables: FlatTables, rays: Rays, any_hit: bool = False,
     and ``u`` launch the slot forms (``common.check_schedule``: any of them
     given, ``flat_trace_k<k>.cu``; not with ``mxu`` or ``cursors`` > 1).
     The call, checks to launch, is the span ``trace.launch``
-    (``tpu_rt_torch.spans``)."""
+    (``tpu_rt_torch.spans``); with ``with_stats`` the counters' sums are
+    then added to the recorder's (``count_stats``)."""
     with spans.span("trace.launch"):
         cursors = check_cursors(cursors)
         schedule = check_schedule(tile, k, u, mxu, cursors)
@@ -387,11 +389,13 @@ def trace_flat(tables: FlatTables, rays: Rays, any_hit: bool = False,
             check_mxu(tables)
         dev = rays.origin.device
         if dev.type == "cpu":
-            return trace_flat_plain(tables, rays, any_hit, want_uv, with_stats, mxu=mxu,
-                                    cursors=cursors, tile=tile, k=k, u=u)
-        if dev.type == "cuda":
-            if schedule is not None:
-                return KERNEL_K[schedule[0]](tables, rays, any_hit, want_uv, with_stats, cursors,
-                                             units=u, tile=tile)
-            return kernel_for(mxu, cursors)(tables, rays, any_hit, want_uv, with_stats, cursors)
-        raise ValueError(f"trace_flat: unsupported device {dev}")
+            out = trace_flat_plain(tables, rays, any_hit, want_uv, with_stats, mxu=mxu,
+                                   cursors=cursors, tile=tile, k=k, u=u)
+        elif dev.type != "cuda":
+            raise ValueError(f"trace_flat: unsupported device {dev}")
+        elif schedule is not None:
+            out = KERNEL_K[schedule[0]](tables, rays, any_hit, want_uv, with_stats, cursors,
+                                        units=u, tile=tile)
+        else:
+            out = kernel_for(mxu, cursors)(tables, rays, any_hit, want_uv, with_stats, cursors)
+    return count_stats(out) if with_stats else out

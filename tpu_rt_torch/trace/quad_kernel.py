@@ -56,6 +56,7 @@ from tpu_rt_torch.trace.common import (
     check_cursors,
     check_schedule,
     check_stack,
+    count_stats,
     drain_plain,
     safe_inv,
     tree_depth,
@@ -284,18 +285,21 @@ def trace_quad(tables: QuadTables, rays: Rays, any_hit: bool = False,
     ``tile``, ``k`` and ``u`` launch the slot forms
     (``common.check_schedule``: any of them given, ``quad_trace_k<k>.cu``;
     not with ``cursors`` > 1).  The call, checks to launch, is the span
-    ``trace.launch`` (``tpu_rt_torch.spans``)."""
+    ``trace.launch`` (``tpu_rt_torch.spans``); with ``with_stats`` the
+    counters' sums are then added to the recorder's (``count_stats``)."""
     with spans.span("trace.launch"):
         cursors = check_cursors(cursors)
         schedule = check_schedule(tile, k, u, cursors=cursors)
         dev = rays.origin.device
         if dev.type == "cpu":
-            return trace_quad_plain(tables, rays, any_hit, want_uv, with_stats,
-                                    cursors=cursors, tile=tile, k=k, u=u)
-        if dev.type == "cuda":
-            if schedule is not None:
-                return KERNEL_K[schedule[0]](tables, rays, any_hit, want_uv, with_stats, cursors,
-                                             units=u, tile=tile)
+            out = trace_quad_plain(tables, rays, any_hit, want_uv, with_stats,
+                                   cursors=cursors, tile=tile, k=k, u=u)
+        elif dev.type != "cuda":
+            raise ValueError(f"trace_quad: unsupported device {dev}")
+        elif schedule is not None:
+            out = KERNEL_K[schedule[0]](tables, rays, any_hit, want_uv, with_stats, cursors,
+                                        units=u, tile=tile)
+        else:
             kernel = KERNEL_C if cursors > 1 else KERNEL
-            return kernel(tables, rays, any_hit, want_uv, with_stats, cursors)
-        raise ValueError(f"trace_quad: unsupported device {dev}")
+            out = kernel(tables, rays, any_hit, want_uv, with_stats, cursors)
+    return count_stats(out) if with_stats else out

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from tpu_rt_torch.core.types import SENTINEL, FlatBVH, Hits, Rays
-from tpu_rt_torch.trace.common import STACK_SIZE, check_stack, safe_inv, tree_depth
+from tpu_rt_torch.trace.common import (STACK_SIZE, check_stack, count_stats, safe_inv,
+                                       tree_depth)
 
 STACK_DEPTH = STACK_SIZE  # tpu_rt's name; the reference's STACK_SIZE (kepler_dynamic_fetch.cu:47)
 
@@ -52,7 +53,8 @@ def trace_wavefront(flat: FlatBVH, rays: Rays, any_hit: bool = False, with_stats
     """Trace a ray batch against the device BVH from ``device_bvh``.
     Returns Hits (original scene triangle ids, -1 for a miss; u, v always
     filled) and, with ``with_stats``, a dict of per-ray ``node_tests`` and
-    ``tri_tests`` counters."""
+    ``tri_tests`` counters, whose sums it adds to the recorder's
+    (``common.count_stats``)."""
     nodes = flat.nodes
     links = nodes.view(torch.int32)[:, 12:16]
     woop = flat.tri_woop
@@ -176,5 +178,5 @@ def trace_wavefront(flat: FlatBVH, rays: Rays, any_hit: bool = False, with_stats
     tri = torch.where(hit_row >= 0, tri_index[hit_row.clamp(0, max(0, num_refs - 1))], -1)
     hits = Hits(tri=tri.to(i32), t=hit_t, u=hit_u, v=hit_v)
     if with_stats:
-        return hits, {"node_tests": node_tests, "tri_tests": tri_tests}
+        return count_stats((hits, {"node_tests": node_tests, "tri_tests": tri_tests}))
     return hits
