@@ -8,9 +8,10 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 1.   builds every kernel library (quad_trace.cu, quad_trace_c.cu,
      flat_trace.cu, flat_trace_c.cu, flat_trace_mxu.cu, the slot libraries
      quad_trace_k{1,2,4,8}.cu and flat_trace_k{1,2,4,8}.cu, mxu_ablate.cu,
-     ablate2.cu, mosaic_probe3.cu, and the AO ray generator raygen_ao.cu; one
-     nvcc each, all run together; 28 + 24 + 52 + 48 + 50 + 4 x 24 + 4 x 48 +
-     6 + 10 + 9 forms and raygen_ao's one kernel, which may not spill) and prints ptxas' registers,
+     ablate2.cu, mosaic_probe3.cu, the AO ray generator raygen_ao.cu and the
+     coarse sort morton_coarse.cu; one nvcc each, all run together; 28 + 24 +
+     52 + 48 + 50 + 4 x 24 + 4 x 48 + 6 + 10 + 9 forms, raygen_ao's one
+     kernel and morton_coarse's four, which may not spill) and prints ptxas' registers,
      stack and spills per form; the vmem f32 frame forms of the persistent
      kernels and their first versions must keep their registers and stack
      (``PTXAS_VMEM_F32``), no persistent frame form (the tensor-core ones
@@ -130,7 +131,13 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      ``rays_skipped`` what the live counts give; on AO batch 1 of both
      scenes the card's three permutations equal to CPU stable sorts of the card's own keys,
      and the card's keys against the CPU's on the same rays (a 192-bit key
-     may differ only where the normalized direction does); the any-hit
+     may differ only where the normalized direction does); the coarse sort's
+     kernel path (``sort_batch_coarse``: ``csrc/morton_coarse.cu`` around one
+     int32 sort) against the torch chain on the card, keys, order, rays and
+     maps bit-equal with identity and shuffled maps, its order the CPU's
+     stable sort of its keys, both timed on conference AO batch 1; in the
+     ``sort_secondary`` frame four kernel launches and one
+     ``sort.kernel_batches`` a batch, none in the compacted frames; the any-hit
      kernels on AO batch 1 in identity, coarse and 192-bit order, timed in
      two passes; one bunny primary frame with ``profile_dir`` under
      ``build/``, whose Chrome trace must hold the closest-hit kernel.
@@ -273,10 +280,14 @@ carry each setting's time under ``settings``, the default form's time,
 their registers, spills and blocks per SM; their plain time and bound are
 the default form's on the same rays (the same node and triangle tests),
 and phases 37-38's launches of them are in their ``paths`` (of their
-stats forms, in ``stats_paths``).  The last entry, ``raygen_ao``, is the AO
+stats forms, in ``stats_paths``).  The entry ``raygen_ao`` is the AO
 ray generator's (phase 42): its launches in one conference AO frame, its
 largest direction deviation from the plain version, both versions' times
-on AO batch 1 and its bound, the bytes it must read and write.
+on AO batch 1 and its bound, the bytes it must read and write.  The last,
+``morton_coarse``, is the coarse sort's (phase 28): its launches in the
+``sort_secondary`` conference AO frame, its time and the torch chain's
+(``plain_ms``) on AO batch 1 and its bound, each ray and map read and
+written once.
 """
 
 from __future__ import annotations
@@ -2380,7 +2391,62 @@ def check_card_sort(rays):
           f"{int((key_rows & ~dir_rows).sum())}); coarse keys differ on {coarse_bad} rows")
     check(not (key_rows & ~dir_rows).any() and coarse_bad == 0,
           "card keys differ from CPU keys beyond the direction norm's rounding")
-    return orders
+    return orders, check_card_kernel_sort(rays, orders["coarse"])
+
+
+def check_card_kernel_sort(rays, chain_order):
+    """The coarse sort's kernel path (``sort_batch_coarse`` on the card: the
+    kernels of ``csrc/morton_coarse.cu`` around one int32 sort) against the
+    torch chain on the card, on ``rays`` with identity maps and with a
+    shuffle and its inverse: keys, order, rays and maps bit-equal; the order
+    the stable sort of the kernel's keys on the CPU.  Then both timed.
+    Returns {"ms", "plain_ms", "bound_ms"}."""
+    from tpu_rt_torch import spans
+    from tpu_rt_torch.rays import buffer, sort_kernel
+
+    kern, n, dev = sort_kernel.KERNEL, rays.num, rays.origin.device
+    keys = kern.keys(rays.origin)
+    key_bad = int((keys != buffer.morton_keys_coarse_device(rays.origin).int()).sum())
+    ident = torch.arange(n, dtype=torch.int32, device=dev)
+    shuffle = torch.randperm(n, generator=torch.Generator().manual_seed(n)).to(dev, torch.int32)
+    maps = {"identity": (ident, ident),
+            "shuffled": (shuffle, torch.empty_like(shuffle).index_put_((shuffle.long(),), ident))}
+    bad = {}
+    for name, (s2i, i2s) in maps.items():
+        before, counted = kern.launches, spans.snapshot()["counters"].get("sort.kernel_batches", 0)
+        got = buffer.sort_batch_coarse(rays, s2i, i2s)
+        served = (kern.launches - before,
+                  spans.snapshot()["counters"].get("sort.kernel_batches", 0) - counted)
+        want = (buffer.permute_rays(rays, chain_order), s2i[chain_order],
+                buffer.inverse_permutation(chain_order)[i2s.long()])
+        bad[name] = (sum(bits_differ(x, y) for x, y in zip(got[0], want[0]))
+                     + int((got[1] != want[1]).sum()) + int((got[2] != want[2]).sum()))
+        check(served == (4, 1), f"sort_batch_coarse ({name} maps): {served} kernel launches "
+              "and kernel batches counted, want (4, 1)")
+    order = buffer.sort_batch_coarse(rays, ident, ident)[1].long()
+    stable = np.argsort(keys.cpu().numpy(), kind="stable")
+    order_bad = int((order.cpu().numpy() != stable).sum())
+    print(f"sort kernel path on {n} rays: keys differing from the torch chain's {key_bad}; "
+          f"rays and maps differing from the chain's (identity, shuffled maps) "
+          f"{bad['identity']}, {bad['shuffled']}; order vs the CPU stable sort of the kernel's "
+          f"keys {order_bad} positions differ")
+    check(key_bad == 0 and not any(bad.values()) and order_bad == 0,
+          "the sort's kernel path differs from the torch chain on the card")
+
+    def chain():
+        o = buffer.morton_sort_device_coarse(rays.origin, rays.dirn)
+        return (buffer.permute_rays(rays, o), ident[o], buffer.inverse_permutation(o)[ident.long()])
+
+    k_ms = time_ms(lambda: buffer.sort_batch_coarse(rays, ident, ident), WARMUP, REPEATS)
+    p_ms = time_ms(chain, WARMUP, REPEATS)
+    # Bytes: each ray and both maps read once (32 + 8 B), each written once.
+    nbytes = n * 2 * (32 + 8)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    print(f"timing sort_batch_coarse kernel path, {n} rays: ms {[round(x, 4) for x in k_ms]} "
+          f"median {median(k_ms):.4f}; torch chain ms {[round(x, 4) for x in p_ms]} median "
+          f"{median(p_ms):.4f}; bound {nbytes} B -> {bound_ms:.6f} ms "
+          f"({bound_ms / median(k_ms) * 100:.1f}% of it)")
+    return {"ms": median(k_ms), "plain_ms": median(p_ms), "bound_ms": bound_ms}
 
 
 def secondary_sort(t0, quad_k, flat_k, bctx, cctx, fc):
@@ -2394,11 +2460,15 @@ def secondary_sort(t0, quad_k, flat_k, bctx, cctx, fc):
     the card's sort of its rays; rays_traced + rays_skipped the batch sizes
     and rays_skipped what the live counts give; the card's permutations the
     stable sorts of its own keys, and its keys against the CPU's (AO batch 1
-    of both scenes).  Then the
+    of both scenes); the coarse sort's kernels serve every sort_secondary
+    batch and no compacted one, and equal the torch chain there
+    (check_card_kernel_sort).  Then the
     any-hit kernels on AO batch 1 in identity, coarse and 192-bit order,
-    and one bunny primary frame with profile_dir.  Returns {kernel entry:
-    {path: launches}}."""
+    and one bunny primary frame with profile_dir.  Returns ({kernel entry:
+    {path: launches}}, the morton_coarse entry)."""
+    from tpu_rt_torch import spans
     from tpu_rt_torch.bench.workload import suite_ao_radius
+    from tpu_rt_torch.rays import sort_kernel
     from tpu_rt_torch.rays.buffer import (LIVE_PAD, morton_sort_device_coarse, permute_rays,
                                           sort_dead_last_device)
     from tpu_rt_torch.renderer import Renderer, RendererParams
@@ -2428,10 +2498,24 @@ def secondary_sort(t0, quad_k, flat_k, bctx, cctx, fc):
               (SECONDARY_SCENE, "compact_degenerate", "auto", cctx),
               (SECONDARY_SCENE, "compact_degenerate", "packet", fc),
               (SCENE, "compact_degenerate", "auto", {"ao": b_ao, "image": b_image}))
+    sort_k = sort_kernel.KERNEL
     for scene_name, flag, tracer, ref in frames:
         ctx = cctx if scene_name == SECONDARY_SCENE else dict(bctx, radius=b_radius)
+        sort_k.reset_counts()
+        counted = spans.snapshot()["counters"].get("sort.kernel_batches", 0)
         path, r, stats, image = ao_frame(scene_name, ctx["scene"], ctx["camera"], ctx["radius"],
                                          tracer, {flag: True})
+        # The coarse sort's kernels serve every sort_secondary batch: four
+        # launches and one counted batch each; compact_degenerate runs none.
+        served = (sort_k.launches,
+                  spans.snapshot()["counters"].get("sort.kernel_batches", 0) - counted)
+        sorted_here = stats["batches"] if flag == "sort_secondary" else 0
+        print(f"{path}: sort kernel launches {served[0]}, sort.kernel_batches {served[1]}")
+        check(served == (4 * sorted_here, sorted_here),
+              f"{path}: {served} sort kernel launches and counted batches, want "
+              f"{(4 * sorted_here, sorted_here)}")
+        if sorted_here:
+            sort_path, sort_launches = path, served[0]
         img_bad = int((image != ref["image"]).any(-1).sum())
         unsorted = ref["ao"]._batches
         check(len(r._batches) == len(unsorted) == stats["batches"], f"{path}: batches")
@@ -2462,7 +2546,7 @@ def secondary_sort(t0, quad_k, flat_k, bctx, cctx, fc):
     phase("sorted and compacted AO frames == unsorted", t0)
 
     b1 = cctx["ao"]._batches[0]
-    orders = check_card_sort(b1.rays)
+    orders, sort_times = check_card_sort(b1.rays)
     check_card_sort(b_ao._batches[0].rays)  # with dead rays, which conference lacks
     fb1 = fc["ao"]._batches[0]
     times = {}
@@ -2506,7 +2590,11 @@ def secondary_sort(t0, quad_k, flat_k, bctx, cctx, fc):
     check(len(launches) == 1, "the profile trace lacks the trace kernel's launch")
     check(bool((image == bctx["image"]).all()), "the profiled frame's image differs")
     phase("profiled frame done", t0)
-    return paths
+    return paths, {"name": "morton_coarse", "route": "cuda",
+                   "source": "tpu_rt_torch/csrc/morton_coarse.cu", "replaces": None,
+                   "path": sort_path, "launches": sort_launches, "max_abs_err": 0.0,
+                   **sort_times, "timed_on": f"{SECONDARY_SCENE} AO batch 1", "bound_by": "bytes",
+                   "library_ms": None}
 
 
 def training(t0, quad_k, flat_k, bctx, dev):
@@ -3973,6 +4061,7 @@ def main() -> None:
         return
     from tpu_rt_torch.probes import ablate2, mosaic_probe3, mxu_ablate
     from tpu_rt_torch.raygen import ao_kernel
+    from tpu_rt_torch.rays import sort_kernel
     from tpu_rt_torch.trace import common, flat_kernel, quad_kernel
 
     t0 = time.perf_counter()
@@ -3988,22 +4077,24 @@ def main() -> None:
     kernel, flat_k = quad_kernel.KERNEL, flat_kernel.KERNEL
     libs = (*quad_kernel.KERNELS, *flat_kernel.KERNELS, mxu_ablate.KERNEL, ablate2.KERNEL,
             mosaic_probe3.KERNEL)
-    raygen = ao_kernel.KERNEL
+    raygen, sort_k = ao_kernel.KERNEL, sort_kernel.KERNEL
     t1 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs) + 2) as pool:
+    with ThreadPoolExecutor(len(libs) + 3) as pool:
         capped = pool.submit(register_cap_ptxas, common)
-        raygen_built = pool.submit(raygen.load)
+        small = [pool.submit(raygen.load), pool.submit(sort_k.load)]
         list(pool.map(lambda k: k.load(), libs))
         capped = capped.result()
-        raygen_built.result()
-    print(f"build: {len(libs) + 1} libraries in {time.perf_counter() - t1:.2f} s of wall time")
-    # The AO ray generator: one kernel, no spills.
-    raygen_forms = ptxas_forms(raygen.build_log)
-    print(f"build: {raygen.name}.cu in {raygen.build_s:.2f} s")
-    for *_, ln in raygen_forms:
-        print(f"  ptxas {ln}")
-    check(len(raygen_forms) == 1 and raygen_forms[0][3] == 0,
-          f"{raygen.name}: {raygen_forms}, want one kernel without spills")
+        for built_small in small:
+            built_small.result()
+    print(f"build: {len(libs) + 2} libraries in {time.perf_counter() - t1:.2f} s of wall time")
+    # The AO ray generator (one kernel) and the coarse sort (four), no spills.
+    for k, n_kernels in ((raygen, 1), (sort_k, 4)):
+        small_forms = ptxas_forms(k.build_log)
+        print(f"build: {k.name}.cu in {k.build_s:.2f} s")
+        for *_, ln in small_forms:
+            print(f"  ptxas {ln}")
+        check(len(small_forms) == n_kernels and not any(f[3] for f in small_forms),
+              f"{k.name}: {small_forms}, want {n_kernels} kernels without spills")
     built, spills = {}, {}
     for k in libs:
         print(f"build: {k.name}.cu in {k.build_s:.2f} s")
@@ -4083,7 +4174,7 @@ def main() -> None:
     mp_runs, _ = mosaic_phase(t0, dev)
     p_entries = probe_entries(ab_runs, mp_runs)
     ab = design_ab(t0, kernel, flat_k, bctx, fb, cctx, fc, fctx)
-    new_paths = secondary_sort(t0, kernel, flat_k, bctx, cctx, fc)
+    new_paths, sort_entry = secondary_sort(t0, kernel, flat_k, bctx, cctx, fc)
     train_path, train_launches, _ = training(t0, kernel, flat_k, bctx, dev)
     new_paths["quad_trace"][train_path] = train_launches
     t1 = time.perf_counter()
@@ -4235,7 +4326,7 @@ def main() -> None:
                        ("flat", False): f_bunny[1], ("flat", True): f_b1[1]},
                       {("quad", False): bounds["quad"], ("quad", True): bounds["quad_any"],
                        ("flat", False): bounds["flat"], ("flat", True): bounds["flat_any"]}),
-        raygen_entry]
+        raygen_entry, sort_entry]
     # Phases 34-40's paths, by entry.
     by_name = {e["name"]: e for e in entries}
     # A slot library's stats forms count under its entry's "stats_paths".

@@ -93,7 +93,22 @@ def test_host_keys_bit_equal(case):
     assert (rows & same_n).sum() > 0.5 * len(o)
 
 
+def _sort_batch(o, d, tmax, s2i):
+    """The port's ``sort_batch_coarse`` on CPU tensors with the maps
+    ``s2i`` and its inverse; returns (Rays, slot_to_id, id_to_slot)."""
+    rays = make_rays(o, d, np.zeros(len(o), np.float32), tmax, device="cpu")
+    s2i = torch.tensor(s2i, dtype=torch.int32)
+    i2s = torch.empty_like(s2i)
+    i2s[s2i.long()] = torch.arange(len(o), dtype=torch.int32)
+    return p_buf.sort_batch_coarse(rays, s2i, i2s)
+
+
 def _perm(kind, lib, o, d, tmax):
+    if kind == "sort_batch_coarse":
+        if lib is t_buf:
+            return np.asarray(t_buf.morton_sort_device_coarse(o, d))
+        # With identity maps the sorted slot_to_id is the permutation.
+        return _sort_batch(o, d, tmax, np.arange(len(o)))[1].long().numpy()
     if lib is t_buf:
         if kind == "dead_last":
             return np.asarray(lib.sort_dead_last_device(
@@ -106,12 +121,27 @@ def _perm(kind, lib, o, d, tmax):
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("kind", ["morton_sort_device", "morton_sort_device_coarse", "dead_last"])
+@pytest.mark.parametrize("kind", ["morton_sort_device", "morton_sort_device_coarse", "dead_last",
+                                  "sort_batch_coarse"])
 def test_permutations_equal(kind, case):
     o, d, tmax = ray_batch(case)
     got = _perm(kind, p_buf, o, d, tmax)
-    np.testing.assert_array_equal(got, _perm(kind, t_buf, o, d, tmax))
+    want = _perm(kind, t_buf, o, d, tmax)
+    np.testing.assert_array_equal(got, want)
     assert sorted(got.tolist()) == list(range(len(o)))
+    if kind == "sort_batch_coarse":
+        # tpu_rt's coarse permutation applied to the rays and to maps that
+        # are not the identity: slot_to_id gathered, id_to_slot composed
+        # with the inverse permutation.
+        s2i = np.random.default_rng(5).permutation(len(o))
+        rays, got_s2i, got_i2s = _sort_batch(o, d, tmax, s2i)
+        for x, y in zip(rays, (o, d, np.zeros(len(o), np.float32), tmax)):
+            np.testing.assert_array_equal(x.numpy(), y[want])
+        inv = np.empty_like(want)
+        inv[want] = np.arange(len(o))
+        np.testing.assert_array_equal(got_s2i.numpy(), s2i[want])
+        np.testing.assert_array_equal(got_i2s.numpy(), inv[np.argsort(s2i)])
+        assert got_s2i.dtype == got_i2s.dtype == torch.int32
 
 
 @pytest.mark.parametrize("case", ["random", "ties"])

@@ -26,6 +26,9 @@ tmax bit for bit, its origins and directions within the tolerances of
 ``tests/test_torch_raygen.py``, and its rotation words and Halton points bit
 for bit, at 1 and 8 samples, seeds whose sum with the task wraps past 2^32,
 batches that fill a block and that do not, no input and an empty scene.
+The coarse sort's kernels ``csrc/morton_coarse.cu`` give
+``morton_keys_coarse_device``'s keys and ``sort_batch_coarse``'s rays and
+maps on the CPU bit for bit.
 The card runs the same checks at full size in ``chip_smoke.py``."""
 
 import ctypes
@@ -40,13 +43,14 @@ import torch
 
 from tpu_rt_torch.bvh import load_or_build_bvh
 from tpu_rt_torch.bvh.collapse import collapse4
-from tpu_rt_torch.core.types import make_rays
+from tpu_rt_torch.core.types import Rays, make_rays
 from tpu_rt_torch.scene import Scene, procedural
 from tpu_rt_torch.trace import common
 from tpu_rt_torch.trace.common import BLOCK, DESIGNS, persistent_grid, shared_stack_bytes
 from tpu_rt_torch.probes import ablate2, mosaic_probe3, mxu_ablate
 from tpu_rt_torch.raygen import ao_kernel
 from tpu_rt_torch.raygen.generators import _halton2, _halton3, _hash_words, gen_ao_rays_plain
+from tpu_rt_torch.rays import buffer, sort_kernel
 from tpu_rt_torch.trace.flat_kernel import (
     MXU_SMEM,
     FlatMxuKernel,
@@ -56,6 +60,7 @@ from tpu_rt_torch.trace.flat_kernel import (
 )
 from tpu_rt_torch.trace.quad_kernel import QuadTraceKernel, trace_quad_plain, upload_quad
 from tpu_rt_torch.trace.tables import _residency_flags
+from test_torch_buffer import ray_batch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LIBS = ("quad_trace", "quad_trace_c", "flat_trace", "flat_trace_c", "flat_trace_mxu",
@@ -718,3 +723,110 @@ def test_raygen_ao_refusals(raygen_lib):
                                           tri.data_ptr(), nrm.data_ptr(), 40, r, s, 1.0, 0, 0,
                                           None, None, None, None, None, None)
         assert err != 0
+
+
+# --- The coarse Morton sort (csrc/morton_coarse.cu) -----------------------------
+#
+# The box and key kernels against morton_keys_coarse_device's keys (as
+# int32), the permutation kernels against sort_batch_coarse's CPU chain,
+# around the CPU's stable torch.sort of the kernel's keys.  Cases: the batches
+# of tests/test_torch_buffer.py, no finite origin, a flat axis, sizes that
+# fill the key kernel's block (256) and the box kernel's (4,096) and that do
+# not, no ray; maps the identity or a shuffle and its inverse.
+BOX_RAYS = 256 * 16
+
+
+def _morton_batch(case, n):
+    if case in ("random", "special", "ties"):
+        return ray_batch(case, n)
+    rng = np.random.default_rng(n)
+    o = rng.normal(size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    tmax = rng.uniform(-1, 1, n).astype(np.float32)
+    if case == "no_finite":
+        o[np.arange(n), rng.integers(0, 3, n)] = np.nan   # one coordinate a row
+        o[::3, 0] = np.inf
+    elif case == "flat_axis":
+        # y flat on the finite rows; rows that a NaN x leaves out of the box
+        # hold other y values.
+        o[:, 1] = 2.5
+        o[::7, 0] = np.nan
+        o[::7, 1] = rng.uniform(0, 5, len(o[::7]))
+    elif n > 1:
+        # The box's corners in the last rays, past the first box block.
+        o[-2], o[-1] = o.min(0) - 1.0, o.max(0) + 1.0
+    return o, d, tmax
+
+
+MORTON_CASES = [("random", 4000, True), ("special", 4000, True), ("ties", 4000, False),
+                ("no_finite", 300, True), ("flat_axis", 1000, False),
+                ("sizes", 256, False), ("sizes", 257, True), ("sizes", BOX_RAYS, False),
+                ("sizes", BOX_RAYS + 1, True), ("sizes", 5, True), ("sizes", 1, False),
+                ("sizes", 0, False)]
+
+
+@pytest.fixture(scope="module")
+def morton_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is needed to build the kernels for the host")
+    so = str(tmp_path_factory.mktemp("morton_emulation") / "libmorton_coarse.so")
+    emu = os.path.join(HERE, "cuda_emulation")
+    defines = [f for f in common.NVCC_FLAGS if f.startswith("-D")]
+    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+                           "-pthread", "-I", emu, *defines,
+                           "-x", "c++", os.path.join(common.CSRC, "morton_coarse.cu"),
+                           "-x", "c++", os.path.join(emu, "sim.cpp"), "-o", so],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lib = ctypes.CDLL(so)
+    lib.sim_config(SMS, PER_SM)
+    lib.morton_coarse_keys.argtypes = sort_kernel.KEYS_ARGTYPES
+    lib.morton_coarse_permute.argtypes = sort_kernel.PERMUTE_ARGTYPES
+    lib.morton_coarse_keys.restype = lib.morton_coarse_permute.restype = ctypes.c_int
+    return lib
+
+
+def _from_ordered(words):
+    w = words.astype(np.uint32)
+    return np.where(w & 0x80000000, w & 0x7FFFFFFF, ~w).astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("case,n,shuffled", MORTON_CASES)
+def test_morton_coarse_equals_plain(morton_lib, case, n, shuffled):
+    o, d, tmax = _morton_batch(case, n)
+    rays = make_rays(o, d, np.arange(n) * 0.5, tmax, device="cpu")
+    s2i = np.random.default_rng(3).permutation(n) if shuffled else np.arange(n)
+    s2i = torch.tensor(s2i, dtype=torch.int32)
+    i2s = torch.empty_like(s2i)
+    i2s[s2i.long()] = torch.arange(n, dtype=torch.int32)
+
+    keys = torch.full((n,), -5, dtype=torch.int32)
+    box = torch.zeros((6,), dtype=torch.int32)
+    assert morton_lib.morton_coarse_keys(rays.origin.data_ptr(), n, box.data_ptr(),
+                                         keys.data_ptr(), None) == 0
+    assert torch.equal(keys, buffer.morton_keys_coarse_device(rays.origin).to(torch.int32))
+    fin = np.isfinite(o).all(1)
+    words = box.numpy().view(np.uint32)
+    if n and fin.any():
+        # The box's words: the finite rows' least and greatest coordinates.
+        np.testing.assert_array_equal(_from_ordered(words[:3]), o[fin].min(0))
+        np.testing.assert_array_equal(_from_ordered(~words[3:]), o[fin].max(0))
+    elif n:
+        assert (words == 0xFFFFFFFF).all()
+
+    order = torch.sort(keys, stable=True).indices
+    out = Rays(*(torch.full_like(x, 7.0) for x in rays))
+    out_s2i, out_i2s, inv = (torch.full((n,), -5, dtype=torch.int32) for _ in range(3))
+    assert morton_lib.morton_coarse_permute(
+        order.data_ptr(), n, *(x.data_ptr() for x in rays), s2i.data_ptr(), i2s.data_ptr(),
+        *(x.data_ptr() for x in out), out_s2i.data_ptr(), out_i2s.data_ptr(), inv.data_ptr(),
+        None) == 0
+    want, want_s2i, want_i2s = buffer.sort_batch_coarse(rays, s2i, i2s)
+    for got_x, want_x in zip(out, want):
+        assert torch.equal(_bits(got_x), _bits(want_x))
+    assert torch.equal(out_s2i, want_s2i) and torch.equal(out_i2s, want_i2s)
+    assert torch.equal(order, buffer.morton_sort_device_coarse(rays.origin, rays.dirn))
+    if n == 0:
+        # A negative count is refused.
+        assert morton_lib.morton_coarse_keys(None, -1, None, None, None) != 0

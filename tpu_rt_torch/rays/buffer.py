@@ -22,13 +22,20 @@ bitwise ops on some backends).  ``jax.lax.sort(num_keys=k, is_stable=True)``
 has no single torch call: ``_stable_lex_order`` runs one stable
 ``torch.sort`` per key word, least significant first, which gives the same
 permutation.
+
+``sort_batch_coarse`` sorts a batch and its maps by the coarse key: on a
+CUDA device with the kernels of ``csrc/morton_coarse.cu`` (``sort_kernel``)
+around one stable ``torch.sort`` of int32 keys, on the CPU with the torch
+chain above, which the tests hold the kernels to.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_rt_torch import spans
 from tpu_rt_torch.core.types import Hits, Rays
+from tpu_rt_torch.rays import sort_kernel
 
 # The live prefix is traced in multiples of this many rays (tpu_rt's
 # kernel tile); the Renderer's rays_traced / rays_skipped follow it.
@@ -141,6 +148,23 @@ def inverse_permutation(order: torch.Tensor) -> torch.Tensor:
     inv = torch.empty(order.shape, dtype=torch.int32, device=order.device)
     inv[order] = torch.arange(order.shape[0], dtype=torch.int32, device=order.device)
     return inv
+
+
+def sort_batch_coarse(rays: Rays, s2i: torch.Tensor,
+                      i2s: torch.Tensor) -> tuple[Rays, torch.Tensor, torch.Tensor]:
+    """A batch and its int32 ID<->slot maps sorted by the coarse key:
+    ``(permute_rays(rays, order), s2i[order], inverse_permutation(order)[i2s])``
+    with ``order = morton_sort_device_coarse(rays.origin, rays.dirn)``.  On a
+    CUDA device: the key kernel, one stable sort of the int32 keys, the
+    permutation kernel (``sort_kernel.KERNEL``), each batch counted in
+    ``sort.kernel_batches``; on the CPU: the torch chain."""
+    if rays.origin.device.type != "cuda":
+        order = morton_sort_device_coarse(rays.origin, rays.dirn)
+        return permute_rays(rays, order), s2i[order], inverse_permutation(order)[i2s.long()]
+    spans.count("sort.kernel_batches", 1)
+    kern = sort_kernel.KERNEL
+    order = torch.sort(kern.keys(rays.origin), stable=True).indices
+    return kern.permute(rays, s2i, i2s, order)
 
 
 def trace_live_prefix(trace_fn, rays: Rays, live: int, pad_to: int = LIVE_PAD) -> Hits:

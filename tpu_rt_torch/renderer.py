@@ -43,8 +43,8 @@ from tpu_rt_torch.core.types import Hits, Rays
 from tpu_rt_torch.raygen import RayGen
 from tpu_rt_torch.rays.buffer import (
     inverse_permutation,
-    morton_sort_device_coarse,
     permute_rays,
+    sort_batch_coarse,
     sort_dead_last_device,
     trace_live_prefix,
 )
@@ -292,17 +292,18 @@ class Renderer:
         if p.sort_secondary or p.compact_degenerate:
             # Keys, sort and permutation on the device; the ID<->slot maps
             # are permuted there too.  compact_degenerate takes the
-            # dead-last 192-bit sort; sort_secondary alone the coarse key.
+            # dead-last 192-bit sort; sort_secondary alone the coarse key
+            # (sort_batch_coarse: on the card two kernels around one sort).
             with self._phase("sort", "sort"):
                 if p.compact_degenerate:
                     order = sort_dead_last_device(rays)
                     with spans.span("sort.wait"):
                         self._batch_live = int((rays.tmax >= 0).sum())
+                    rays = permute_rays(rays, order)
+                    s2i = s2i[order]
+                    i2s = inverse_permutation(order)[i2s.long()]
                 else:
-                    order = morton_sort_device_coarse(rays.origin, rays.dirn)
-                rays = permute_rays(rays, order)
-                s2i = s2i[order]
-                i2s = inverse_permutation(order)[i2s.long()]
+                    rays, s2i, i2s = sort_batch_coarse(rays, s2i, i2s)
                 self._sync("sort.wait")
         self._batch = BatchRecord(rays=rays, hits=None, slot_to_id=s2i, id_to_slot=i2s,
                                   input_range=rng)
