@@ -9,16 +9,15 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      flat_trace.cu, flat_trace_c.cu, flat_trace_mxu.cu, the slot libraries
      quad_trace_k{1,2,4,8}.cu and flat_trace_k{1,2,4,8}.cu, mxu_ablate.cu,
      ablate2.cu, mosaic_probe3.cu, the AO ray generator raygen_ao.cu and the
-     coarse sort morton_coarse.cu; one nvcc each, all run together; 28 + 24 +
-     52 + 48 + 50 + 4 x 24 + 4 x 48 + 6 + 10 + 9 forms, raygen_ao's one
+     coarse sort morton_coarse.cu; one nvcc each, all run together; 24 + 24 +
+     48 + 48 + 48 + 4 x 24 + 4 x 48 + 6 + 10 + 9 forms, raygen_ao's one
      kernel and morton_coarse's four, which may not spill) and prints ptxas' registers,
      stack and spills per form; the vmem f32 frame forms of the persistent
-     kernels and their first versions must keep their registers and stack
-     (``PTXAS_VMEM_F32``), no persistent frame form (the tensor-core ones
-     included) may spill; the quad frame forms' ptxas at 40 registers
-     (``register_cap_ptxas``); the registers and shared memory of the
-     tensor-core forms; the SASS (cuobjdump) of each tensor-core form and
-     of each probe variant that takes mma must hold DMMA, and the probes'
+     kernels must keep their registers and stack (``PTXAS_VMEM_F32``), no
+     persistent frame form (the tensor-core ones included) may spill; the
+     registers and shared memory of the tensor-core forms; the SASS
+     (cuobjdump) of each tensor-core form and of each probe variant that
+     takes mma must hold DMMA, and the probes'
      SASS must hold each level's and mode's work, no local memory and, in
      ablate2's levels 0-6, no division or conversion (``sass_checks``);
      every ablate2 and mosaic_probe3 form a 0 B stack; their registers,
@@ -84,16 +83,18 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      a path of its own, against the binary frame of phase 10.
 21.  the conference AO frame (8 samples, 2 batches) through "packet" with
      mxu=True, "packet" with cursors=3 and "packet4" with cursors=2, each
-     a path of its own, against the first versions' AO frames.
+     a path of its own, against the default forms' AO frames.
 22.  every form of the three triangle-phase libraries (frame, uv, stats;
      closest hit on the bunny primary frame's rays, any hit on AO batch 1)
      against its plain version on every ray, bit for bit (the tensor-core
      forms at 1-4 cursors, and at 2 and 3 on the bf16 hbm and f32 mixed
-     tables), the postponed forms against the first versions' results, and
+     tables), the postponed forms against the default forms' results, and
      all against the oracles on 8,192 rays; the census at 1, 2 and 3
      cursors and with mxu.
-23.  kernel times of the first versions' and the new forms on the same
-     rays, in two passes, the second in reverse order.
+23.  kernel times of the default forms and the new forms on the same
+     rays, in two passes, the second in reverse order; the tensor-core
+     frame forms' launch shapes against ``persistent_grid`` and
+     ``MXU_SMEM``.
 24.  the MXU ablation probe (``tpu_rt_torch.probes.mxu_ablate``) at 16,384
      and 262,144 rays: ns per iteration of each variant (the tile phase's
      full, noL, noM, epi0, the product-table phase's smem, and scalar),
@@ -109,16 +110,7 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      the output of each mode's timed launch against its plain version on
      every packet; and the gather and scatter-add rates of PyTorch
      indexing at the tool's sizes.
-27.  the persistent kernels against their first versions (one ray per
-     thread): the four vmem f32 frame forms on the same rays (bunny
-     primary, conference AO batch 1, the conference diffuse batch, dragon
-     primary and AO batch 1 on the binary f32 and quad leaf-16 trees), and
-     the two tensor-core frame forms on bunny primary and AO batch 1, in
-     turns, in two passes, the second in reverse order: ms, Mray/s and
-     new/old; the stack-placement A/B (local against shared memory) on
-     bunny primary and AO batch 1; every design's hits against the
-     persistent kernel's and its launch shape against ``persistent_grid``
-     (and ``MXU_SMEM``); the refill threshold.
+27.  (none: the A/B of the traversal designs that ran here went with them)
 28.  the secondary-ray sort: the conference AO frame (8 samples) through
      ``Renderer(tracer="auto", sort_secondary=True)``, ``"auto"`` with
      ``compact_degenerate=True`` and ``"packet"`` with
@@ -263,11 +255,10 @@ the plain version's full form (u, v and counters), timed with CUDA events
 in phase 22; the probes' times are per iteration (``ablate2``'s of its full
 step, level 8; ``mosaic_probe3``'s of ``rowstep``; both on a full card),
 with ``ns_per_iter`` of every variant, level or mode.  The four frame
-forms' entries carry ``first_ms``, their first version's time, and their
-``ms`` from the same A/B (phase 27); the tensor-core frame forms' entries
-carry ``first_ms`` and ``ab_ms`` (the designs in phase 27) and their
-``launch_shape``.  No single PyTorch call computes a BVH traversal or a
-probe, so ``library_ms`` is null.  The four default frame forms' entries
+forms' ``ms`` are phases 5, 9 and 14's; the tensor-core frame forms'
+entries carry the ``launch_shape`` of their timed launches (phase 23).  No
+single PyTorch call computes a BVH traversal or a probe, so ``library_ms``
+is null.  The four default frame forms' entries
 also carry ``paths``: the launches of phases 28-40's paths, by path name
 (phase 30b's summed over its ranks; phases 31-40 as ``cli``, ``viewer``,
 ``tune``, ``bench``, ``suite``, ``fullframe``, ``diff``, ``quad_probe``,
@@ -394,78 +385,25 @@ def strided(n: int, dev) -> torch.Tensor:
     return torch.arange(0, n, max(n // ORACLE_RAYS, 1), device=dev)[:ORACLE_RAYS]
 
 
-# ptxas of the vmem f32 frame forms (registers, stack + spill bytes): the
-# persistent kernels', and the first versions' as they were before the
-# persistent kernels.
+# ptxas of the persistent kernels' vmem f32 frame forms (registers, stack +
+# spill bytes).
 PTXAS_VMEM_F32 = {"quad_trace<any=0,uv=0,stats=0>": (48, 256),
                   "quad_trace<any=1,uv=0,stats=0>": (48, 256),
                   "flat_trace<any=0,uv=0,stats=0>": (44, 256),
-                  "flat_trace<any=1,uv=0,stats=0>": (45, 256),
-                  "quad_trace<any=0,uv=0,stats=0>/first": (53, 256),
-                  "quad_trace<any=1,uv=0,stats=0>/first": (48, 256),
-                  "flat_trace<any=0,uv=0,stats=0>/first": (32, 256),
-                  "flat_trace<any=1,uv=0,stats=0>/first": (36, 256)}
+                  "flat_trace<any=1,uv=0,stats=0>": (45, 256)}
 # The template flags of each traversal kernel, in order.
-KERNEL_FLAGS = {"quad_trace": ("any", "uv", "stats", "sn", "st", "c", "shared"),
-                "flat_trace": ("any", "uv", "stats", "bf16", "sn", "st", "c", "shared"),
+KERNEL_FLAGS = {"quad_trace": ("any", "uv", "stats", "sn", "st", "c"),
+                "flat_trace": ("any", "uv", "stats", "bf16", "sn", "st", "c"),
                 "flat_trace_mxu": ("any", "uv", "stats", "bf16", "sn", "st"),
-                "quad_first": ("any",), "flat_first": ("any",), "flat_mxu_first": ("any",),
                 "quad_slots": ("any", "uv", "stats", "sn", "st"),
                 "flat_slots": ("any", "uv", "stats", "bf16", "sn", "st")}
-# The library of each kernel template.
-KERNEL_LIB = {"quad_trace": "quad_trace", "flat_trace": "flat_trace",
-              "flat_trace_mxu": "flat_trace_mxu", "quad_first": "quad_trace",
-              "flat_first": "flat_trace", "flat_mxu_first": "flat_trace_mxu"}
-# quad (+ 2 first versions and 2 with the shared-memory stack), quad_c, flat
-# (+ 2 + 2), flat_c, flat_mxu (+ 2 first versions); the slot libraries,
+# quad, quad_c, flat, flat_c, flat_mxu; the slot libraries,
 # quad_trace_k{1,2,4,8} and flat_trace_k{1,2,4,8}; the probes mxu_ablate,
 # ablate2, mosaic_probe3
-N_FORMS = 24 + 4 + 24 + 48 + 4 + 48 + 48 + 2 + 4 * 24 + 4 * 48 + 6 + 10 + 9
+N_FORMS = 24 + 24 + 48 + 48 + 48 + 4 * 24 + 4 * 48 + 6 + 10 + 9
 # The mxu_ablate variants whose SASS holds DMMA (noM replaces each mma by an
 # add and a subtract; scalar has none).
 DMMA_VARIANTS = ("full", "noL", "epi0", "smem")
-
-
-# A __launch_bounds__ minimum of 12 blocks of 128 threads per SM holds a
-# kernel to 40 registers (65,536 over 1,536 threads, in steps of 8).
-MIN_BLOCKS, REGISTER_CAP = 12, 40
-
-
-def with_min_blocks(ptx: str, blocks: int) -> tuple[str, int]:
-    """``ptx`` with every entry of 128 threads given a minimum of ``blocks``
-    blocks per SM (``.minnctapersm``, in place of any it had), and the
-    number of entries changed."""
-    ptx = re.sub(r"\n[ \t]*\.minnctapersm[ \t]+\d+", "", ptx)
-    return re.subn(r"(\.maxntid\s+128,\s*1,\s*1)", rf"\1\n.minnctapersm {blocks}", ptx)
-
-
-def register_cap_ptxas(common) -> list[tuple[str, int, int, int, str]]:
-    """ptxas of quad_trace.cu's forms under a __launch_bounds__ minimum of
-    MIN_BLOCKS blocks per SM (``.minnctapersm`` added to every entry of its
-    PTX; nvcc's -maxrregcount does not apply to a kernel with launch
-    bounds), compiled only: what that minimum costs the quad frame forms
-    (``ptxas_forms``' entries)."""
-    base = os.path.join(os.path.dirname(CACHE), f"quad_trace-min{MIN_BLOCKS}")
-    os.makedirs(os.path.dirname(base), exist_ok=True)
-    drop = {"-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v"}
-    flags = [f for f in common.NVCC_FLAGS if f not in drop]
-    proc = subprocess.run([common.nvcc(), "-arch=sm_90a", *flags, "-ptx",
-                           os.path.join(common.CSRC, "quad_trace.cu"), "-o", f"{base}.ptx"],
-                          capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0, f"quad_trace.cu to PTX:\n{(proc.stdout + proc.stderr)[-4000:]}")
-    with open(f"{base}.ptx") as f:
-        ptx, n = with_min_blocks(f.read(), MIN_BLOCKS)
-    check(n == ptx.count(".entry "), f"quad_trace.cu PTX: {n} launch bounds, "
-          f"{ptx.count('.entry ')} entries")
-    with open(f"{base}-bounded.ptx", "w") as f:
-        f.write(ptx)
-    ptxas = os.path.join(os.path.dirname(common.nvcc()), "ptxas")
-    proc = subprocess.run([ptxas, "-arch=sm_90a", "-v", f"{base}-bounded.ptx", "-o",
-                           f"{base}.cubin"], capture_output=True, text=True, timeout=600)
-    log = proc.stdout + proc.stderr
-    check(proc.returncode == 0, f"ptxas of quad_trace.cu at {MIN_BLOCKS} blocks:\n{log[-4000:]}")
-    return ptxas_forms(log)
 
 
 def ptxas_forms(log: str) -> list[tuple[str, int, int, int, str]]:
@@ -473,16 +411,14 @@ def ptxas_forms(log: str) -> list[tuple[str, int, int, int, str]]:
     bytes, spill bytes (stores + loads), the line to print).  The name is the
     library (the kernel, "_c" for its postponed-leaf forms), its three form
     flags, then the layout: "@" + residency (+ "-bf16"), nothing for vmem
-    f32, then "/first" for a first version and "/shared_stack" for the
-    persistent kernel with its stack in shared memory; the probes' are
-    "mxu_ablate<variant>", "ablate2<level=N>" and "mosaic_probe3<mode>"."""
+    f32; the probes' are "mxu_ablate<variant>", "ablate2<level=N>" and
+    "mosaic_probe3<mode>"."""
     out, name, stack, frame, spill = [], None, "", 0, 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            flags = re.search(r"(quad_trace|flat_trace_mxu|flat_trace|quad_first|flat_first|"
-                              r"flat_mxu_first|quad_slots|flat_slots)_kernelI(?:Li(\d)E)?"
-                              r"((?:Lb[01]E)+)E", m.group(1))
+            flags = re.search(r"(quad_trace|flat_trace_mxu|flat_trace|quad_slots|flat_slots)"
+                              r"_kernelI(?:Li(\d)E)?((?:Lb[01]E)+)E", m.group(1))
             probe = re.search(r"(mxu_ablate|ablate2|mosaic_probe3)_kernelILi(\d)E", m.group(1))
             if flags:
                 f = dict(zip(KERNEL_FLAGS[flags.group(1)],
@@ -493,11 +429,7 @@ def ptxas_forms(log: str) -> list[tuple[str, int, int, int, str]]:
                 if flags.group(2):
                     lib = f"{flags.group(1)[:4]}_trace_k{flags.group(2)}"
                 else:
-                    lib = KERNEL_LIB[flags.group(1)] + ("_c" if f.get("c") else "")
-                if flags.group(1).endswith("_first"):
-                    lay += "/first"
-                elif f.get("shared"):
-                    lay += "/shared_stack"
+                    lib = flags.group(1) + ("_c" if f.get("c") else "")
                 name = (f"{lib}<any={f['any']},uv={f.get('uv', 0)},stats={f.get('stats', 0)}>"
                         f"{lay}")
             elif probe:
@@ -1810,7 +1742,7 @@ def triangle_paths(t0, bctx, fb, cctx, fc):
     path of its own: bunny primary with tracer="packet" and mxu=True, and
     with cursors=2; conference AO (8 samples, 2 batches) with "packet" and
     mxu=True, with cursors=3, and "packet4" with cursors=2.  Each frame
-    against the same kernel's first-versions frame of phases 2-11: t
+    against the same kernel's default-forms frame of phases 2-11: t
     bit-equal for postponed leaves (tri at exact-t ties only), the AO
     samples' hit / miss equal on every ray both frames share; the MXU form
     the same but for rays that graze an edge."""
@@ -1836,7 +1768,7 @@ def triangle_paths(t0, bctx, fb, cctx, fc):
         print(f"{label} vs the binary kernel's frame (phase 10): t bit mismatches {t_bad}, tri "
               f"mismatches {tri_bad} of {hits.t.numel()}")
         if "cursors" in kw:
-            check(t_bad == 0, f"{label}: t differs from the first versions' frame")
+            check(t_bad == 0, f"{label}: t differs from the default forms' frame")
         else:
             check(tri_bad <= 1e-3 * hits.t.numel(), f"{label}: tri differs on {tri_bad} rays")
         paths[(SCENE, label)] = {"renderer": r, "counts": counts}
@@ -1865,7 +1797,7 @@ def triangle_paths(t0, bctx, fb, cctx, fc):
             same = rays_equal(b.rays, bb.rays)
             shared += int(same.sum())
             hm_bad += int((((b.hits.tri >= 0) != (bb.hits.tri >= 0)) & same).sum())
-        print(f"{label} AO vs the first versions' frame: primary t bit mismatches {p_t_bad}, tri "
+        print(f"{label} AO vs the default forms' frame: primary t bit mismatches {p_t_bad}, tri "
               f"mismatches {p_tri_bad}; hit / miss mismatches {hm_bad} on the {shared} of "
               f"{ao.rays_traced} AO rays both frames share")
         if "cursors" in kw:
@@ -1898,8 +1830,8 @@ def triangle_checks(t0, bctx, fb, cctx, fc, dev):
     conference AO batch 1) against its plain version on every ray: tri, t,
     u, v and the counters bit for bit; then against the oracles on their
     8,192-ray subsets, and the census.  Postponed leaves (flat_trace_c at 2
-    cursors on bunny, 3 on AO; quad_trace_c at 2): t bit-equal to the first
-    versions' and the oracle's (tri disputes only at exact-t ties).  The
+    cursors on bunny, 3 on AO; quad_trace_c at 2): t bit-equal to the default
+    forms' and the oracle's (tri disputes only at exact-t ties).  The
     tensor-core form (flat_trace_mxu) at 1-4 cursors on the Renderer's vmem
     f32 tables, and at 2 and 3 on bf16 hbm and f32 mixed tables: against
     the oracle test_pallas.py's rule."""
@@ -1915,8 +1847,8 @@ def triangle_checks(t0, bctx, fb, cctx, fc, dev):
                 ("flat", conf): (fc["ao"]._batches[0].rays, fc["ao"].flat, cctx["b1_idx"]),
                 ("quad", bunny): (bctx["renderer"].primary.rays, fb["renderer"].flat, bctx["idx"]),
                 ("quad", conf): (cctx["ao"]._batches[0].rays, fc["ao"].flat, cctx["b1_idx"])}
-    first = {("flat", bunny): fb["plain"][0], ("flat", conf): fc["plain"][0],
-             ("quad", bunny): bctx["plain"][0], ("quad", conf): cctx["b1_plain"][0]}
+    default = {("flat", bunny): fb["plain"][0], ("flat", conf): fc["plain"][0],
+               ("quad", bunny): bctx["plain"][0], ("quad", conf): cctx["b1_plain"][0]}
     oracles = {("flat", bunny): fb["oracle"], ("flat", conf): fc["oracle"],
                ("quad", bunny): fb["oracle"], ("quad", conf): cctx["b1_oracle"]}
     # (name, wrapper, tree, route, options on bunny, on AO, table layout)
@@ -1964,13 +1896,13 @@ def triangle_checks(t0, bctx, fb, cctx, fc, dev):
             bad["t_stats"] = bits_differ(hits_s.t, want.t)
             bad.update({k: int((cnt[k] != want_cnt[k]).sum()) for k in cnt})
             if not mxu:
-                # Against the first versions (cursors = 1): closest hit t
+                # Against the default forms (cursors = 1): closest hit t
                 # bit-equal; any hit, hit / miss.
-                base = first[(tree, label)]
-                bad["vs_first"] = (int(((frame.tri >= 0) != (base.tri >= 0)).sum()) if any_hit
+                base = default[(tree, label)]
+                bad["vs_default"] = (int(((frame.tri >= 0) != (base.tri >= 0)).sum()) if any_hit
                                    else bits_differ(frame.t, base.t))
             print(f"{name} ({kind}) {label}, any_hit={any_hit}: vs plain"
-                  f"{'' if mxu else ' (and the first versions)'} on {rays.num} rays: "
+                  f"{'' if mxu else ' (and the default forms)'} on {rays.num} rays: "
                   f"mismatches {bad}")
             check(not any(bad.values()), f"{name} {label}: differs from its plain version")
             # The oracles on the subset.
@@ -1990,7 +1922,7 @@ def triangle_checks(t0, bctx, fb, cctx, fc, dev):
             err = float((frame.t - want.t).abs().max())
             out[(name, label)] = {"err": err, "plain_ms": plain_ms, "counts": want_cnt,
                                   "seen": seen, "tables": tables, "rays": rays, "kind": kind}
-    phase("triangle-phase forms == plain, first versions, oracles", t0)
+    phase("triangle-phase forms == plain, default forms, oracles", t0)
 
     # The census: node and triangle tests per ray and warp efficiency, at
     # 1, 2 and 3 cursors and with the tensor-core leaf test (the plain
@@ -2026,11 +1958,15 @@ def triangle_checks(t0, bctx, fb, cctx, fc, dev):
 
 
 def triangle_timing(t0, bctx, fb, cctx, fc):
-    """Phase 23: kernel times of the first versions' forms and of the new
-    ones on the same rays (closest hit on the bunny primary frame, any hit
-    on conference AO batch 1), in two passes, the second in reverse order;
-    a form's time is the median over both."""
+    """Phase 23: kernel times of the default forms and of the new ones on
+    the same rays (closest hit on the bunny primary frame, any hit on
+    conference AO batch 1), in two passes, the second in reverse order; a
+    form's time is the median over both.  Returns the times and, by any
+    hit, the launch shape of the tensor-core frame form's last timed launch,
+    held to ``persistent_grid`` and ``MXU_SMEM``."""
     from tpu_rt_torch.trace import trace_flat, trace_quad
+    from tpu_rt_torch.trace.common import persistent_grid
+    from tpu_rt_torch.trace.flat_kernel import KERNEL_MXU, MXU_SMEM
 
     f_tab = {False: fb["renderer"].tracer_tables, True: fc["ao"].tracer_tables}
     q_tab = {False: bctx["renderer"].tracer_tables, True: cctx["ao"].tracer_tables}
@@ -2046,13 +1982,21 @@ def triangle_timing(t0, bctx, fb, cctx, fc):
              ("quad C=1", trace_quad, q_tab, q_rays, {}),
              ("quad C=2", trace_quad, q_tab, q_rays, {"cursors": 2})]
     samples = {(f[0], a): [] for f in forms for a in (False, True)}
-    passes = {}
+    passes, shapes = {}, {}
     for n_pass, seq in enumerate((forms, forms[::-1]), 1):
         for label, fn, tabs, rays, kw in seq:
             for a in (False, True):
                 ms = time_ms(lambda: fn(tabs[a], rays[a], any_hit=a, **kw), WARMUP, REPEATS)
                 samples[(label, a)].extend(ms)
                 passes[(label, a, n_pass)] = median(ms)
+                if label == "binary mxu":
+                    shapes[a] = dict(KERNEL_MXU.last_shape)
+    for a, shape in shapes.items():
+        want = {"grid": persistent_grid(f_rays[a].num, shape["sms"], shape["blocks_per_sm"]),
+                "smem_bytes": MXU_SMEM}
+        print(f"launch shape binary mxu, any_hit={a}: {shape}")
+        check(all(shape[k] == v for k, v in want.items()) and shape["blocks_per_sm"] >= 1,
+              f"binary mxu any_hit={a}: launch shape {shape}, want {want}")
     times = {k: median(v) for k, v in samples.items()}
     for label, *_ in forms:
         print(f"timing {label}: bunny primary closest ms pass 1 {passes[(label, False, 1)]:.4f} "
@@ -2060,7 +2004,7 @@ def triangle_timing(t0, bctx, fb, cctx, fc):
               f"batch 1 any hit ms pass 1 {passes[(label, True, 1)]:.4f} pass 2 "
               f"{passes[(label, True, 2)]:.4f} (median {times[(label, True)]:.4f})")
     phase("triangle-phase forms timed", t0)
-    return times
+    return times, shapes
 
 
 def probe_phase(t0, fb, bctx, dev):
@@ -2109,11 +2053,12 @@ def probe_bound(res) -> dict:
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
-def triangle_entries(paths, checks, times, probe):
+def triangle_entries(paths, checks, times, shapes, probe):
     """The kernels-line entries of this slice: the frame forms of the three
     new libraries (closest hit timed on the bunny primary frame, any hit on
-    conference AO batch 1), with the launches of their Renderer paths, and
-    the probe (times per iteration)."""
+    conference AO batch 1), with the launches of their Renderer paths (and
+    the tensor-core forms' launch shapes), and the probe (times per
+    iteration)."""
     bunny, conf = f"{SCENE} primary", f"{SECONDARY_SCENE} AO batch 1"
     rows = (
         ("flat_trace_mxu", "closest_mxu", (SCENE, "packet, mxu=True"), "binary mxu",
@@ -2144,6 +2089,8 @@ def triangle_entries(paths, checks, times, probe):
                     c["seen"], 2 if lib.startswith("flat") else 4, mxu=lib == "flat_trace_mxu"),
             "library_ms": None,
         })
+        if lib == "flat_trace_mxu":
+            entries[-1]["launch_shape"] = shapes[any_hit]
     full = probe["variants"]["full"]
     entries.append({
         "name": "mxu_ablate", "route": "cuda", "source": "tpu_rt_torch/csrc/mxu_ablate.cu",
@@ -2228,127 +2175,6 @@ def mosaic_phase(t0, dev):
     gather = mosaic_probe3.gather_rates(dev)
     phase("mosaic_probe3 probe and gather rates done", t0)
     return runs, gather
-
-
-# ---------------------------------------------------------------------------
-# Phase 27: the persistent kernels against their first versions
-# ---------------------------------------------------------------------------
-
-def design_ab(t0, quad_k, flat_k, bctx, fb, cctx, fc, fctx):
-    """Phase 27: the four vmem f32 frame forms (quad and binary, closest and
-    any hit) in their first version (one ray per thread) and persistent,
-    on the same rays, in turns, in two passes, the second in reverse order:
-    bunny primary, conference AO batch 1 (any hit), the conference diffuse
-    batch, dragon primary and dragon AO batch 1 (binary f32, quad leaf 16);
-    the two tensor-core frame forms on bunny primary and conference AO
-    batch 1; then the stack placement A/B (local against shared memory) on
-    bunny primary and conference AO batch 1.  Every design's hits equal the
-    persistent kernel's (which phases 3-22 held to the plain versions on
-    these rays), and each launch's shape is the one ``persistent_grid`` /
-    ``shared_stack_bytes`` / ``MXU_SMEM`` give.  A time is the median over
-    both passes.  Returns {(kernel, rays): ms by design, and the persistent
-    launch's shape}."""
-    from tpu_rt_torch.trace.common import BLOCK, CSRC, persistent_grid, shared_stack_bytes
-    from tpu_rt_torch.trace.flat_kernel import KERNEL_MXU, MXU_SMEM
-
-    dragon, d_b1 = fctx["frames"], fctx["b1"].rays
-    b1_q, b1_f = cctx["ao"]._batches[0], fc["ao"]._batches[0]
-    d_q, d_f = cctx["dif"]._batches[0], fc["dif"]._batches[0]
-    d_live = int((d_b1.tmax >= 0).sum())
-    # (rays label, kernel, tables, rays, any hit, rays counted for Mray/s)
-    cases = [
-        ("bunny primary", quad_k, bctx["renderer"].tracer_tables, bctx["renderer"].primary.rays,
-         False, WIDTH * HEIGHT),
-        ("bunny primary", flat_k, fb["renderer"].tracer_tables, fb["renderer"].primary.rays,
-         False, WIDTH * HEIGHT),
-        ("conference AO batch 1", quad_k, cctx["ao"].tracer_tables, b1_q.rays, True,
-         cctx["b1_live"]),
-        ("conference AO batch 1", flat_k, fc["ao"].tracer_tables, b1_f.rays, True,
-         cctx["b1_live"]),
-        ("conference diffuse", quad_k, cctx["dif"].tracer_tables, d_q.rays, False, cctx["hits"]),
-        ("conference diffuse", flat_k, fc["dif"].tracer_tables, d_f.rays, False, cctx["hits"]),
-        ("dragon primary", quad_k, dragon["auto"]["renderer"].tracer_tables,
-         dragon["auto"]["renderer"].primary.rays, False, WIDTH * HEIGHT),
-        ("dragon primary", flat_k, dragon["packet"]["renderer"].tracer_tables,
-         dragon["packet"]["renderer"].primary.rays, False, WIDTH * HEIGHT),
-        ("dragon AO batch 1", quad_k, dragon["auto"]["renderer"].tracer_tables, d_b1, True,
-         d_live),
-        ("dragon AO batch 1", flat_k, dragon["packet"]["renderer"].tracer_tables, d_b1, True,
-         d_live),
-        ("bunny primary", KERNEL_MXU, fb["renderer"].tracer_tables, fb["renderer"].primary.rays,
-         False, WIDTH * HEIGHT),
-        ("conference AO batch 1", KERNEL_MXU, fc["ao"].tracer_tables, b1_f.rays, True,
-         cctx["b1_live"]),
-    ]
-    for label, kern, tables, *_ in cases:
-        check(tables.residency == "vmem" and not getattr(tables, "bf16_nodes", False),
-              f"{label} {kern.name}: the A/B takes the vmem f32 tables")
-    stack_ab = {("bunny primary", "quad_trace"), ("bunny primary", "flat_trace"),
-                ("conference AO batch 1", "quad_trace"), ("conference AO batch 1", "flat_trace")}
-    runs = [(i, d) for i, (label, kern, *_) in enumerate(cases)
-            for d in (("first", "persistent", "shared_stack") if (label, kern.name) in stack_ab
-                      else ("first", "persistent"))]
-    ref, shapes = {}, {}
-    for i, (label, kern, tables, rays, any_hit, _) in enumerate(cases):
-        ref[i] = kern(tables, rays, any_hit=any_hit)
-    samples, passes = {}, {}
-    for n_pass, seq in enumerate((runs, runs[::-1]), 1):
-        for i, design in seq:
-            label, kern, tables, rays, any_hit, _ = cases[i]
-            checks, args, opts = kern.launch_args(tables)
-            run = partial(kern.launch, checks, args, rays, any_hit, False, False, design=design,
-                          **opts)
-            got = run()
-            shape = dict(kern.last_shape)
-            ms = time_ms(run, WARMUP, REPEATS)
-            samples.setdefault((i, design), []).extend(ms)
-            passes[(i, design, n_pass)] = median(ms)
-            if n_pass == 1:
-                bad = int((got.tri != ref[i].tri).sum()) + bits_differ(got.t, ref[i].t)
-                need = opts["stack_need"]
-                mxu = kern is KERNEL_MXU
-                if design == "first":
-                    want = {"grid": -(-rays.num // BLOCK), "blocks_per_sm": 0,
-                            "smem_bytes": MXU_SMEM["first"] if mxu else 0}
-                else:
-                    want = {"grid": persistent_grid(rays.num, shape["sms"],
-                                                    shape["blocks_per_sm"]),
-                            "smem_bytes": (MXU_SMEM[design] if mxu
-                                           else shared_stack_bytes(need)
-                                           if design == "shared_stack" else 0)}
-                    if design == "persistent":
-                        shapes[i] = shape
-                print(f"design {label}, {kern.name} any_hit={any_hit} {design}: launch {shape} "
-                      f"(stack need {need}); tri / t mismatches against the persistent kernel "
-                      f"{bad}")
-                check(bad == 0, f"{label} {kern.name} {design}: hits differ from the persistent "
-                      "kernel's")
-                check(all(shape[k] == v for k, v in want.items())
-                      and (design == "first" or shape["blocks_per_sm"] >= 1),
-                      f"{label} {kern.name} {design}: launch shape {shape}, want {want}")
-    out = {}
-    for i, (label, kern, tables, rays, any_hit, counted) in enumerate(cases):
-        first, new = median(samples[(i, "first")]), median(samples[(i, "persistent")])
-        out[(kern.name, label)] = {"first": first, "persistent": new, "shape": shapes[i]}
-        print(f"A/B {label}, {kern.name} {'any' if any_hit else 'closest'} hit ({rays.num} rays, "
-              f"{counted} counted): first {first:.4f} ms ({counted / (first * 1e3):.2f} Mray/s; "
-              f"passes {passes[(i, 'first', 1)]:.4f}, {passes[(i, 'first', 2)]:.4f}), "
-              f"persistent {new:.4f} ms ({counted / (new * 1e3):.2f} Mray/s; passes "
-              f"{passes[(i, 'persistent', 1)]:.4f}, {passes[(i, 'persistent', 2)]:.4f}); new/old "
-              f"{new / first:.4f}")
-        if (label, kern.name) in stack_ab:
-            sh = median(samples[(i, "shared_stack")])
-            out[(kern.name, label)]["shared_stack"] = sh
-            print(f"stack A/B {label}, {kern.name}: local memory (the persistent kernel) "
-                  f"{new:.4f} ms, shared memory {sh:.4f} ms (passes "
-                  f"{passes[(i, 'shared_stack', 1)]:.4f}, {passes[(i, 'shared_stack', 2)]:.4f}); "
-                  f"shared/local {sh / new:.4f}")
-    with open(os.path.join(CSRC, "trace_common.cuh")) as f:
-        refill = re.search(r"constexpr int kRefill = (\d+);", f.read()).group(1)
-    print(f"refill threshold: a warp refills below {refill} of 32 active lanes "
-          "(trace_common.cuh kRefill)")
-    phase("persistent kernels against their first versions", t0)
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4079,11 +3905,9 @@ def main() -> None:
             mosaic_probe3.KERNEL)
     raygen, sort_k = ao_kernel.KERNEL, sort_kernel.KERNEL
     t1 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs) + 3) as pool:
-        capped = pool.submit(register_cap_ptxas, common)
+    with ThreadPoolExecutor(len(libs) + 2) as pool:
         small = [pool.submit(raygen.load), pool.submit(sort_k.load)]
         list(pool.map(lambda k: k.load(), libs))
-        capped = capped.result()
         for built_small in small:
             built_small.result()
     print(f"build: {len(libs) + 2} libraries in {time.perf_counter() - t1:.2f} s of wall time")
@@ -4102,43 +3926,31 @@ def main() -> None:
             print(f"  ptxas {ln}")
             built[name] = (regs, frame + spill)
             spills[name] = spill
-    check(len(built) == N_FORMS, f"{len(built)} kernel forms compiled, want {N_FORMS}: 24 + 4 + "
-          "24 quad, 48 + 4 + 48 binary, 48 + 2 tensor-core binary, 4 x 24 quad and 4 x 48 "
-          "binary slot forms, 6 + 10 + 9 probe forms")
+    check(len(built) == N_FORMS, f"{len(built)} kernel forms compiled, want {N_FORMS}: 24 + "
+          "24 quad, 48 + 48 binary, 48 tensor-core binary, 4 x 24 quad and 4 x 48 binary slot "
+          "forms, 6 + 10 + 9 probe forms")
     for name, want in PTXAS_VMEM_F32.items():
         check(built.get(name) == want, f"ptxas {name}: {built.get(name)} (registers, stack + "
               f"spill bytes), want {want}")
     # The persistent frame forms (every library, residency and node format;
     # no uv, no counters) spill nothing.
     frame = [n for n in spills
-             if re.match(r"(quad|flat)_trace(_c|_mxu)?<any=[01],uv=0,stats=0>", n)
-             and "/first" not in n]
-    check(len(frame) == 2 * 6 + 3 * 12 + 4 and not any(spills[n] for n in frame),
+             if re.match(r"(quad|flat)_trace(_c|_mxu)?<any=[01],uv=0,stats=0>", n)]
+    check(len(frame) == 2 * 6 + 3 * 12 and not any(spills[n] for n in frame),
           f"spills in the persistent frame forms: {[(n, spills[n]) for n in frame if spills[n]]}")
     # The tensor-core forms: registers (ptxas) and dynamic shared memory per
-    # block (the warps' ray tables; the first version's product tables).
+    # block (the warps' ray tables).
     mxu_regs = {n: built[n][0] for n in built if n.startswith("flat_trace_mxu<")}
-    persistent = [v for n, v in mxu_regs.items() if "/" not in n]
-    frame_regs = {n: r for n, r in mxu_regs.items() if "uv=0,stats=0>" in n}
-    print(f"tensor-core forms: persistent {min(persistent)}-{max(persistent)} registers (frame "
-          f"forms {sorted(set(v for n, v in frame_regs.items() if '/' not in n))}), dynamic "
-          f"shared memory {flat_kernel.MXU_SMEM['persistent']} B per block; first version"
-          f" {[v for n, v in frame_regs.items() if '/first' in n]} registers, "
-          f"{flat_kernel.MXU_SMEM['first']} B per block")
-    # What a __launch_bounds__ minimum of MIN_BLOCKS blocks would cost the
-    # quad frame forms: their ptxas at REGISTER_CAP registers.
-    capped = [c for c in capped if re.fullmatch(r"quad_trace<any=[01],uv=0,stats=0>", c[0])]
-    for name, regs, frame_b, spill, ln in capped:
-        print(f"launch bounds minimum {MIN_BLOCKS} blocks: {ln}")
-    check(len(capped) == 2 and all(c[1] <= REGISTER_CAP for c in capped),
-          f"quad frame forms at {MIN_BLOCKS} blocks: {capped}")
+    frame_regs = sorted({r for n, r in mxu_regs.items() if "uv=0,stats=0>" in n})
+    print(f"tensor-core forms: {min(mxu_regs.values())}-{max(mxu_regs.values())} registers "
+          f"(frame forms {frame_regs}), dynamic shared memory {flat_kernel.MXU_SMEM} B per block")
     # The tensor-core forms issue FP64 mma: DMMA in the SASS of each.
     dmma = {fn: sum(op.startswith("DMMA") for op in c["ops"])
             for fn, c in sass_counts(flat_kernel.KERNEL_MXU.path).items()
-            if re.search(r"flat_trace_mxu_kernel|flat_mxu_first_kernel", fn)}
+            if "flat_trace_mxu_kernel" in fn}
     print(f"sass: flat_trace_mxu: {len(dmma)} kernel forms, DMMA per form "
           f"{min(dmma.values(), default=0)}-{max(dmma.values(), default=0)}")
-    check(len(dmma) == 50 and all(dmma.values()),
+    check(len(dmma) == 48 and all(dmma.values()),
           f"flat_trace_mxu forms without DMMA: {[f for f, n in dmma.items() if not n]}")
     probe_dmma = {mxu_ablate.VARIANTS[i]: sum(op.startswith("DMMA") for op in c["ops"])
                   for i, c in sass_forms(mxu_ablate.KERNEL.path, "mxu_ablate").items()}
@@ -4167,13 +3979,12 @@ def main() -> None:
     d_entries = dragon_entries(kernel, flat_k, fctx, d_times, d_plain)
     tri_paths = triangle_paths(t0, bctx, fb, cctx, fc)
     tri_checks = triangle_checks(t0, bctx, fb, cctx, fc, dev)
-    tri_times = triangle_timing(t0, bctx, fb, cctx, fc)
+    tri_times, mxu_shapes = triangle_timing(t0, bctx, fb, cctx, fc)
     probe = probe_phase(t0, fb, bctx, dev)
-    t_entries = triangle_entries(tri_paths, tri_checks, tri_times, probe)
+    t_entries = triangle_entries(tri_paths, tri_checks, tri_times, mxu_shapes, probe)
     ab_runs = ablate2_phase(t0, fb, bctx, dev)
     mp_runs, _ = mosaic_phase(t0, dev)
     p_entries = probe_entries(ab_runs, mp_runs)
-    ab = design_ab(t0, kernel, flat_k, bctx, fb, cctx, fc, fctx)
     new_paths, sort_entry = secondary_sort(t0, kernel, flat_k, bctx, cctx, fc)
     train_path, train_launches, _ = training(t0, kernel, flat_k, bctx, dev)
     new_paths["quad_trace"][train_path] = train_launches
@@ -4223,13 +4034,6 @@ def main() -> None:
               f"{r['frame_spill_bytes']} B; all forms {r['registers'][0]}-{r['registers'][1]} "
               f"registers, stack up to {r['stack_bytes']} B, spills up to {r['spill_bytes']} B; "
               f"blocks per SM {blocks}")
-    # The tensor-core frame forms' first versions, from the same A/B.
-    for e in t_entries:
-        if e["name"] in ("flat_trace_mxu", "flat_trace_mxu_anyhit"):
-            r = ab[("flat_trace_mxu", "conference AO batch 1" if e["name"].endswith("_anyhit")
-                    else "bunny primary")]
-            e.update({"first_ms": r["first"], "ab_ms": r["persistent"],
-                      "launch_shape": r["shape"]})
 
     # The bound of each earlier entry, on the rays it was timed on, from
     # the plain version's counters on those rays.
@@ -4282,8 +4086,7 @@ def main() -> None:
         "path": closest["path"],
         "launches": closest["launches"],
         "max_abs_err": max(closest["max_abs_err"], closest_secondary["max_abs_err"]),
-        "ms": ab[("quad_trace", "bunny primary")]["persistent"],
-        "first_ms": ab[("quad_trace", "bunny primary")]["first"],
+        "ms": closest["ms"],
         "plain_ms": closest["plain_ms"],
         **bounds["quad"], "library_ms": None,
     }, {
@@ -4293,8 +4096,6 @@ def main() -> None:
         "source": quad_src,
         "replaces": f"{PACKET2} (any_hit=True, :552-567, :881-883)",
         **anyhit,
-        "ms": ab[("quad_trace", "conference AO batch 1")]["persistent"],
-        "first_ms": ab[("quad_trace", "conference AO batch 1")]["first"],
         **bounds["quad_any"], "library_ms": None,
     }, *form_entries("quad", quad_src, "quad_trace"), {
         "name": "flat_trace",
@@ -4305,8 +4106,7 @@ def main() -> None:
         "path": f_closest["path"],
         "launches": f_closest["launches"],
         "max_abs_err": max(f_closest["max_abs_err"], f_closest_secondary["max_abs_err"]),
-        "ms": ab[("flat_trace", "bunny primary")]["persistent"],
-        "first_ms": ab[("flat_trace", "bunny primary")]["first"],
+        "ms": f_bunny[0],
         "plain_ms": f_bunny[1],
         **bounds["flat"], "library_ms": None,
     }, {
@@ -4316,8 +4116,7 @@ def main() -> None:
         "source": flat_src,
         "replaces": f"{PACKET2} (binary node unit :704-770, any_hit=True :552-567, :881-883)",
         **f_anyhit,
-        "ms": ab[("flat_trace", "conference AO batch 1")]["persistent"],
-        "first_ms": ab[("flat_trace", "conference AO batch 1")]["first"],
+        "ms": f_b1[0],
         "plain_ms": f_b1[1],
         **bounds["flat_any"], "library_ms": None,
     }, *form_entries("flat", flat_src, "flat_trace"), *d_entries, *t_entries, *p_entries,

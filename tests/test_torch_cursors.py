@@ -2,7 +2,7 @@
 versions, on tables that tpu_rt built: t bit-equal to the host oracles on
 every ray, tri equal to theirs but at exact-t ties, any-hit hit / miss
 equal; tri equal to tpu_rt's Pallas kernels with ``c=`` (interpret mode);
-cursors = 1 the first versions' results, counters included; the routes
+cursors = 1 the default forms' results, counters included; the routes
 and their kinds."""
 
 import numpy as np

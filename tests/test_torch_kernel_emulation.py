@@ -9,13 +9,13 @@ barrier of the block, shared memory host memory the block's threads share),
 and launched through their C ABI with the wrappers' ctypes ``argtypes``.  Every
 form (closest and any hit, uv, counters, postponed leaves, the tensor-core
 leaf test at 1-4 cursors, f32 and bf16 nodes, the residencies) of the
-persistent kernels, their shared-memory stack and the first versions, and
-the slot forms at K = 1, 2, 4, 8 rays a thread, U = 1, 3, 16 Woop rows at
-once (32 on a 32-wide quad tree) and block pools of 128 and 512 rays, give
-the plain PyTorch version's hits and counters bit for bit, on rays from
-outside and inside two scenes, at ray counts that fill warps and that do
-not; the launch shape is ``persistent_grid``'s (at K rays a thread) and
-``shared_stack_bytes``' (``MXU_SMEM`` for the tensor-core form).  Every variant of the probe gives
+persistent kernels, and the slot forms at K = 1, 2, 4, 8 rays a thread, U =
+1, 3, 16 Woop rows at once (32 on a 32-wide quad tree) and block pools of
+128 and 512 rays, give the plain PyTorch version's hits and counters bit
+for bit, on rays from outside and inside two scenes, at ray counts that
+fill warps and that do not; the launch shape is ``persistent_grid``'s (at
+K rays a thread), with ``MXU_SMEM`` of dynamic shared memory for the
+tensor-core form and none for the others.  Every variant of the probe gives
 its plain version's accumulators bit for bit, and so does every level of
 ``ablate2`` (on node tables of 1-129 records and Woop tables whose last
 group of 128 rows holds 1 or 2) and every mode of ``mosaic_probe3``.  The
@@ -46,7 +46,7 @@ from tpu_rt_torch.bvh.collapse import collapse4
 from tpu_rt_torch.core.types import Rays, make_rays
 from tpu_rt_torch.scene import Scene, procedural
 from tpu_rt_torch.trace import common
-from tpu_rt_torch.trace.common import BLOCK, DESIGNS, persistent_grid, shared_stack_bytes
+from tpu_rt_torch.trace.common import BLOCK, persistent_grid
 from tpu_rt_torch.probes import ablate2, mosaic_probe3, mxu_ablate
 from tpu_rt_torch.raygen import ao_kernel
 from tpu_rt_torch.raygen.generators import _halton2, _halton3, _hash_words, gen_ao_rays_plain
@@ -140,19 +140,19 @@ def _spec(kernel):
 
 
 def _tables(name, kernel, residency="vmem", bf16=False):
-    """(tables, table arguments of the C ABI, stack need, wrapper) of a
-    kernel spec (``_spec``)."""
+    """(tables, table arguments of the C ABI, wrapper) of a kernel spec
+    (``_spec``)."""
     _, flat, quad, quad32 = _scene(name)
     tree, k, _, _ = _spec(kernel)
     if tree.startswith("quad"):
         t = upload_quad(quad32 if tree == "quad32" else quad, "cpu", residency)
-        return (t, [t.nodes.data_ptr(), t.nodes.shape[0], t.woop.data_ptr()], 3 * t.depth,
+        return (t, [t.nodes.data_ptr(), t.nodes.shape[0], t.woop.data_ptr()],
                 QuadTraceKernel(f"quad_trace_k{k}", slots=k) if k else QuadTraceKernel())
     t = upload_flat(flat, "cpu", residency, bf16)
     wrapper = (FlatMxuKernel() if kernel == "mxu" else
                FlatTraceKernel(f"flat_trace_k{k}", slots=k) if k else FlatTraceKernel())
     return (t, [t.nodes.data_ptr(), t.nodes.shape[0], int(bf16), t.woop.data_ptr(),
-                t.leaf_counts.data_ptr(), t.leaf_counts.shape[0]], t.depth, wrapper)
+                t.leaf_counts.data_ptr(), t.leaf_counts.shape[0]], wrapper)
 
 
 def _lib(kernel, cursors):
@@ -165,8 +165,8 @@ def _lib(kernel, cursors):
     return f"{kernel}_trace" + ("_c" if cursors > 1 else "")
 
 
-def _launch(lib, wrapper, name, table_args, need, rays, any_hit, uv, stats, cursors, design,
-            residency, units=None, tile=None):
+def _launch(lib, wrapper, name, table_args, rays, any_hit, uv, stats, cursors, residency,
+            units=None, tile=None):
     """One launch through the C ABI (a slot library's with U = ``units``
     and S = ``tile``, None as the wrapper passes it); returns (error,
     outputs, shape, counter)."""
@@ -186,8 +186,8 @@ def _launch(lib, wrapper, name, table_args, need, rays, any_hit, uv, stats, curs
              rays.tmin.data_ptr(), rays.tmax.data_ptr(), tri.data_ptr(), t.data_ptr(),
              u.data_ptr() if uv else None, v.data_ptr() if uv else None,
              nt.data_ptr() if stats else None, tt.data_ptr() if stats else None, n, cursors,
-             int(any_hit), int(uv), int(stats), int(sn), int(st), 0, 0, DESIGNS[design], need,
-             counter.data_ptr(), ctypes.addressof(shape), None)
+             int(any_hit), int(uv), int(stats), int(sn), int(st), 0, 0, counter.data_ptr(),
+             ctypes.addressof(shape), None)
     return err, (tri, t, u, v, nt, tt), list(shape), int(counter[0])
 
 
@@ -211,33 +211,35 @@ def _bits(x):
 CASES = []
 for _kernel in ("quad", "flat"):
     for _any in (False, True):
-        for _design in ("persistent", "first", "shared_stack"):
-            CASES.append((_kernel, 1, _any, False, False, _design, "vmem", False))
-        for _uv, _stats in ((True, False), (False, True), (True, True)):
-            CASES.append((_kernel, 1, _any, _uv, _stats, "persistent", "vmem", False))
+        for _uv, _stats in ((False, False), (True, False), (False, True), (True, True)):
+            CASES.append((_kernel, 1, _any, _uv, _stats, "vmem", False))
         for _c in (2, 3, 4):
-            CASES.append((_kernel, _c, _any, False, False, "persistent", "vmem", False))
-            CASES.append((_kernel, _c, _any, True, True, "persistent", "vmem", False))
-    CASES.append((_kernel, 1, True, True, True, "persistent", "hbm", False))
-    CASES.append((_kernel, 2, False, False, True, "persistent", "mixed", False))
+            CASES.append((_kernel, _c, _any, False, False, "vmem", False))
+            CASES.append((_kernel, _c, _any, True, True, "vmem", False))
+    CASES.append((_kernel, 1, True, True, True, "hbm", False))
+    CASES.append((_kernel, 2, False, False, True, "mixed", False))
 for _any in (False, True):
-    CASES.append(("flat", 1, _any, False, False, "persistent", "vmem", True))
-    CASES.append(("flat", 3, _any, True, True, "persistent", "hbm", True))
-# The tensor-core form: both designs, every form at 1 cursor, frame and
-# full forms at 2-4, and the other node format and residencies.
+    CASES.append(("flat", 1, _any, False, False, "vmem", True))
+    CASES.append(("flat", 3, _any, True, True, "hbm", True))
+# The frame forms of the forced large-scene layouts (chip_smoke.py phase
+# 18): the quad tree, binary f32 and binary bf16 in mixed and hbm.
+for _kernel, _bf16 in (("quad", False), ("flat", False), ("flat", True)):
+    for _residency in ("mixed", "hbm"):
+        for _any in (False, True):
+            CASES.append((_kernel, 1, _any, False, False, _residency, _bf16))
+# The tensor-core form: every form at 1 cursor, frame and full forms at 2-4,
+# and the other node format and residencies.
 for _any in (False, True):
-    for _design in ("persistent", "first"):
-        CASES.append(("mxu", 1, _any, False, False, _design, "vmem", False))
-    for _uv, _stats in ((True, False), (False, True), (True, True)):
-        CASES.append(("mxu", 1, _any, _uv, _stats, "persistent", "vmem", False))
+    for _uv, _stats in ((False, False), (True, False), (False, True), (True, True)):
+        CASES.append(("mxu", 1, _any, _uv, _stats, "vmem", False))
     for _c in (2, 3, 4):
-        CASES.append(("mxu", _c, _any, False, False, "persistent", "vmem", False))
-        CASES.append(("mxu", _c, _any, True, True, "persistent", "vmem", False))
-    CASES.append(("mxu", 1, _any, False, False, "persistent", "vmem", True))
-    CASES.append(("mxu", 2, _any, True, True, "persistent", "mixed", False))
-    CASES.append(("mxu", 3, _any, False, True, "persistent", "hbm", False))
-    CASES.append(("mxu", 4, _any, True, True, "persistent", "hbm", True))
-    CASES.append(("mxu", 1, _any, True, False, "persistent", "mixed", True))
+        CASES.append(("mxu", _c, _any, False, False, "vmem", False))
+        CASES.append(("mxu", _c, _any, True, True, "vmem", False))
+    CASES.append(("mxu", 1, _any, False, False, "vmem", True))
+    CASES.append(("mxu", 2, _any, True, True, "mixed", False))
+    CASES.append(("mxu", 3, _any, False, True, "hbm", False))
+    CASES.append(("mxu", 4, _any, True, True, "hbm", True))
+    CASES.append(("mxu", 1, _any, True, False, "mixed", True))
 # The slot forms (one library per K; the spec names K, U and the block's
 # pool, _spec): every K on the frame forms and with uv and counters, U 1, 3
 # and 16 at K = 1 (32 on the 32-wide quad tree), pools of 128 and 512 rays,
@@ -245,35 +247,32 @@ for _any in (False, True):
 for _kernel in ("quad", "flat"):
     for _k in common.SLOTS:
         for _any in (False, True):
-            CASES.append((f"{_kernel}_k{_k}", 1, _any, False, False, "persistent", "vmem", False))
-            CASES.append((f"{_kernel}_k{_k}", 1, _any, True, True, "persistent", "vmem", False))
+            CASES.append((f"{_kernel}_k{_k}", 1, _any, False, False, "vmem", False))
+            CASES.append((f"{_kernel}_k{_k}", 1, _any, True, True, "vmem", False))
     for _any in (False, True):
         for _u in (1, 3, 16):
-            CASES.append((f"{_kernel}_k1_u{_u}", 1, _any, False, True, "persistent", "vmem",
-                          False))
+            CASES.append((f"{_kernel}_k1_u{_u}", 1, _any, False, True, "vmem", False))
         for _t in (128, 512):
-            CASES.append((f"{_kernel}_k1_t{_t}", 1, _any, False, True, "persistent", "vmem",
-                          False))
-        CASES.append((f"{_kernel}_k2_u3_t512", 1, _any, True, True, "persistent", "mixed", False))
-        CASES.append((f"{_kernel}_k8_u16_t128", 1, _any, False, True, "persistent", "hbm", False))
+            CASES.append((f"{_kernel}_k1_t{_t}", 1, _any, False, True, "vmem", False))
+        CASES.append((f"{_kernel}_k2_u3_t512", 1, _any, True, True, "mixed", False))
+        CASES.append((f"{_kernel}_k8_u16_t128", 1, _any, False, True, "hbm", False))
 for _any in (False, True):
-    CASES.append(("quad32_k1_u32", 1, _any, True, True, "persistent", "vmem", False))
-    CASES.append(("quad32_k4_u16_t512", 1, _any, False, True, "persistent", "mixed", False))
-    CASES.append(("flat_k2", 1, _any, False, False, "persistent", "vmem", True))
-    CASES.append(("flat_k4_u3_t512", 1, _any, True, True, "persistent", "hbm", True))
-    CASES.append(("flat_k8_t128", 1, _any, False, True, "persistent", "mixed", True))
+    CASES.append(("quad32_k1_u32", 1, _any, True, True, "vmem", False))
+    CASES.append(("quad32_k4_u16_t512", 1, _any, False, True, "mixed", False))
+    CASES.append(("flat_k2", 1, _any, False, False, "vmem", True))
+    CASES.append(("flat_k4_u3_t512", 1, _any, True, True, "hbm", True))
+    CASES.append(("flat_k8_t128", 1, _any, False, True, "mixed", True))
 
 
 @pytest.mark.parametrize("scene", sorted(SCENES))
-@pytest.mark.parametrize("kernel, cursors, any_hit, uv, stats, design, residency, bf16", CASES)
-def test_kernel_equals_plain(libs, scene, kernel, cursors, any_hit, uv, stats, design,
-                             residency, bf16):
-    tables, targs, need, wrapper = _tables(scene, kernel, residency, bf16)
+@pytest.mark.parametrize("kernel, cursors, any_hit, uv, stats, residency, bf16", CASES)
+def test_kernel_equals_plain(libs, scene, kernel, cursors, any_hit, uv, stats, residency, bf16):
+    tables, targs, wrapper = _tables(scene, kernel, residency, bf16)
     rays = _rays(_scene(scene)[0], 700, 3)
     lib = _lib(kernel, cursors)
     tree, k, units, tile = _spec(kernel)
-    err, got, shape, counter = _launch(libs[lib], wrapper, lib, targs, need, rays, any_hit, uv,
-                                       stats, cursors, design, residency, units, tile)
+    err, got, shape, counter = _launch(libs[lib], wrapper, lib, targs, rays, any_hit, uv, stats,
+                                       cursors, residency, units, tile)
     assert err == 0
     # The slot forms' plain version is the default forms' (cursors = 1).
     want, want_cnt = _plain(scene, tree, tables, rays, any_hit, cursors,
@@ -287,15 +286,11 @@ def test_kernel_equals_plain(libs, scene, kernel, cursors, any_hit, uv, stats, d
         assert torch.equal(nt, want_cnt["node_tests"])
         assert torch.equal(tt, want_cnt["tri_tests"])
     n = rays.origin.shape[0]
-    smem = MXU_SMEM[design] if kernel == "mxu" else (
-        shared_stack_bytes(need) if design == "shared_stack" else 0)
-    if design == "first":
-        assert shape == [-(-n // 128), 0, smem, SMS]
-    else:
-        assert shape == [persistent_grid(n, SMS, PER_SM, BLOCK * (k or 1)), PER_SM, smem, SMS]
-        # The pool was zeroed by the launch and handed out past n (a block
-        # pool claims whole tiles).
-        assert counter >= n and counter % (tile or 1) == 0
+    smem = MXU_SMEM if kernel == "mxu" else 0
+    assert shape == [persistent_grid(n, SMS, PER_SM, BLOCK * (k or 1)), PER_SM, smem, SMS]
+    # The pool was zeroed by the launch and handed out past n (a block pool
+    # claims whole tiles).
+    assert counter >= n and counter % (tile or 1) == 0
 
 
 @pytest.mark.parametrize("kernel", ["flat", "mxu", "flat_k4_t128", "quad_k8_u3_t512",
@@ -305,7 +300,7 @@ def test_partial_warps_and_pool(libs, n, kernel):
     # Fewer rays than a warp, or than the grid's lanes (or than a block
     # pool's tile, or a last tile only in part filled): every ray is traced
     # once, by whichever warp takes it.
-    tables, targs, need, wrapper = _tables("interior", kernel)
+    tables, targs, wrapper = _tables("interior", kernel)
     rays = _rays(_scene("interior")[0], max(n, 1), 11)
     if n == 0:
         rays = make_rays(np.zeros((0, 3)), np.zeros((0, 3)), np.zeros(0), np.zeros(0),
@@ -313,8 +308,8 @@ def test_partial_warps_and_pool(libs, n, kernel):
     lib = _lib(kernel, 1)
     tree, k, units, tile = _spec(kernel)
     for any_hit in (False, True):
-        err, got, shape, _ = _launch(libs[lib], wrapper, lib, targs, need, rays, any_hit, False,
-                                     False, 1, "persistent", "vmem", units, tile)
+        err, got, shape, _ = _launch(libs[lib], wrapper, lib, targs, rays, any_hit, False, False,
+                                     1, "vmem", units, tile)
         assert err == 0
         if n == 0:
             assert shape == [-1, -1, -1, -1]   # nothing launched
@@ -347,10 +342,11 @@ def _tie_leaf(ids):
 @pytest.mark.parametrize("ids", [(5, 9), (9, 5), (3, 9, 9, 1, 7, 9, 2, 8),
                                  (9, 9, 3, 1, 7, 2, 8, 5), (9, 1, 2, 9, 3, 4, 5, 6),
                                  (9, 1, 2, 3, 4, 9, 5, 6)])
-@pytest.mark.parametrize("design", ["persistent", "first"])
-def test_mxu_tie_rule(libs, ids, design):
+@pytest.mark.parametrize("cursors", [1, 2])
+def test_mxu_tie_rule(libs, ids, cursors):
     # Every candidate of the leaf ties in t on every ray: the winner is the
-    # largest id, and of equal ids the first row, with that row's u, v.
+    # largest id, and of equal ids the first row, with that row's u, v.  At
+    # 2 cursors the ray holds the leaf until its stack is empty.
     flat = _tie_leaf(ids)
     tables = upload_flat(flat, "cpu", "vmem", False)
     rng = np.random.default_rng(len(ids))
@@ -360,71 +356,42 @@ def test_mxu_tie_rule(libs, ids, design):
                      np.zeros(n, np.float32), np.full(n, 10.0, np.float32), device="cpu")
     targs = [tables.nodes.data_ptr(), 1, 0, tables.woop.data_ptr(),
              tables.leaf_counts.data_ptr(), tables.leaf_counts.shape[0]]
-    uv = design == "persistent"
     err, got, _, _ = _launch(libs["flat_trace_mxu"], FlatMxuKernel(), "flat_trace_mxu", targs,
-                             tables.depth, rays, False, uv, False, 1, design, "vmem")
+                             rays, False, True, False, cursors, "vmem")
     assert err == 0
-    want = trace_flat_plain(tables, rays, want_uv=True, mxu=True)
+    want = trace_flat_plain(tables, rays, want_uv=True, mxu=True, cursors=cursors)
     assert (want.tri == max(ids)).all() and (want.t == 1.0).all()
     assert torch.equal(got[0], want.tri) and torch.equal(_bits(got[1]), _bits(want.t))
-    if uv:
-        assert torch.equal(_bits(got[2]), _bits(want.u)) and torch.equal(_bits(got[3]),
-                                                                          _bits(want.v))
-        # The first row of the largest id: u = x on an even row, u = y on an odd one.
-        first = ids.index(max(ids))
-        assert torch.equal(want.u, rays.origin[:, first % 2])
+    assert torch.equal(_bits(got[2]), _bits(want.u)) and torch.equal(_bits(got[3]),
+                                                                      _bits(want.v))
+    # The first row of the largest id: u = x on an even row, u = y on an odd one.
+    first = ids.index(max(ids))
+    assert torch.equal(want.u, rays.origin[:, first % 2])
 
 
 @pytest.mark.parametrize("kernel", ["quad", "mxu", "quad_k2", "flat_k4"])
 def test_refusals(libs, kernel):
-    tables, targs, need, wrapper = _tables("blob", kernel)
+    tables, targs, wrapper = _tables("blob", kernel)
     rays = _rays(_scene("blob")[0], 64, 5)
     name = _lib(kernel, 1)
     lib = libs[name]
     if wrapper.slots:
-        # The slot forms: persistent only, at cursors = 1, U in
-        # 1..kMaxUnits, a tile a multiple of the block (or 0).
-        def slot_launch(design="persistent", cursors=1, units=1, tile=0, stack=need):
-            return _launch(lib, wrapper, name, targs, stack, rays, False, False, False,
-                           cursors, design, "vmem", units, tile)[0]
+        # The slot forms: at cursors = 1, U in 1..kMaxUnits, a tile a
+        # multiple of the block (or 0).
+        def slot_launch(cursors=1, units=1, tile=0):
+            return _launch(lib, wrapper, name, targs, rays, False, False, False, cursors, "vmem",
+                           units, tile)[0]
 
         assert slot_launch() == 0 and slot_launch(units=32, tile=256) == 0
-        for bad in ({"design": "first"}, {"design": "shared_stack"}, {"cursors": 2},
-                    {"cursors": 0}, {"units": 0}, {"units": common.MAX_UNITS + 1},
-                    {"tile": 100}, {"tile": -128}, {"stack": common.STACK_SIZE + 1}):
+        for bad in ({"cursors": 2}, {"cursors": 0}, {"units": 0},
+                    {"units": common.MAX_UNITS + 1}, {"tile": 100}, {"tile": -128}):
             assert slot_launch(**bad) != 0, bad
         return
-    # A first version (and, in quad_trace, a shared-memory stack) exists for
-    # the vmem f32 frame forms at cursors = 1 only.
-    for design in ("first", "shared_stack"):
-        for uv, stats, residency in ((True, False, "vmem"), (False, True, "vmem"),
-                                     (False, False, "hbm")):
-            err, *_ = _launch(lib, wrapper, name, targs, need, rays, False, uv, stats, 1,
-                              design, residency)
-            assert err != 0
-        if kernel == "quad":
-            err, *_ = _launch(libs["quad_trace_c"], wrapper, "quad_trace_c", targs, need, rays,
-                              False, False, False, 2, design, "vmem")
-        else:
-            err, *_ = _launch(lib, wrapper, name, targs, need, rays, False, False, False, 2,
-                              design, "vmem")
+    # Cursors outside the library's range: 1 for quad_trace, 1..kMaxCursors
+    # for the tensor-core form.
+    for cursors in (0, wrapper.cursors[1] + 1):
+        err, *_ = _launch(lib, wrapper, name, targs, rays, False, False, False, cursors, "vmem")
         assert err != 0
-    if kernel == "mxu":
-        # No shared-memory stack, and no first version of the bf16 forms.
-        for design, bf16 in (("shared_stack", False), ("first", True)):
-            t, targs_b, _, _ = _tables("blob", kernel, "vmem", bf16)
-            err, *_ = _launch(lib, wrapper, name, targs_b, need, rays, False, False, False, 1,
-                              design, "vmem")
-            assert err != 0
-        # Cursors outside 1..kMaxCursors.
-        for cursors in (0, common.MAX_CURSORS + 1):
-            err, *_ = _launch(lib, wrapper, name, targs, need, rays, False, False, False,
-                              cursors, "persistent", "vmem")
-            assert err != 0
-    # A stack need the local stack cannot hold.
-    err, *_ = _launch(lib, wrapper, name, targs, common.STACK_SIZE + 1, rays, False,
-                      False, False, 1, "persistent", "vmem")
-    assert err != 0
 
 
 @pytest.mark.parametrize("variant", mxu_ablate.VARIANTS)

@@ -1,11 +1,11 @@
 """The persistent traversal kernels' launch shape and C ABI, on the CPU:
-the grid and shared-stack helpers of ``tpu_rt_torch.trace.common``, the
-ctypes ``argtypes`` of every traversal wrapper against the
-``QUAD_LAUNCH_ARGS`` / ``FLAT_LAUNCH_ARGS`` macros of ``csrc/`` (after a
-slot library's ``int units, int tile``), argument
-for argument (a pointer that ctypes passes as a 32-bit int would be cut,
-and nothing on the CPU would notice), and the constants the Python side
-shares with the kernels."""
+the grid helper of ``tpu_rt_torch.trace.common``, the ctypes ``argtypes``
+of every traversal wrapper against the ``QUAD_LAUNCH_ARGS`` /
+``FLAT_LAUNCH_ARGS`` macros of ``csrc/`` (after a slot library's ``int
+units, int tile``), argument for argument (a pointer that ctypes passes as
+a 32-bit int would be cut, and nothing on the CPU would notice), each
+wrapper's refusals of what its library does not take, and the constants
+the Python side shares with the kernels."""
 
 import ctypes
 import os
@@ -14,15 +14,8 @@ import re
 import pytest
 
 from tpu_rt_torch.trace import common, flat_kernel, quad_kernel
-from tpu_rt_torch.trace.common import (
-    BLOCK,
-    DESIGNS,
-    MAX_SHARED_PER_BLOCK,
-    STACK_SIZE,
-    StackDepthError,
-    persistent_grid,
-    shared_stack_bytes,
-)
+from tpu_rt_torch.core.types import make_rays
+from tpu_rt_torch.trace.common import BLOCK, MAX_UNITS, persistent_grid
 
 CSRC = common.CSRC
 C_TYPES = {"const void *": ctypes.c_void_p, "void *": ctypes.c_void_p, "int": ctypes.c_int,
@@ -79,26 +72,6 @@ def test_persistent_grid_refuses_no_occupancy():
         persistent_grid(1000, 0, 12)
 
 
-@pytest.mark.parametrize("need, want", [(24, 24 * BLOCK * 4), (30, 30 * BLOCK * 4),
-                                        (0, BLOCK * 4), (1, BLOCK * 4),
-                                        (STACK_SIZE, STACK_SIZE * BLOCK * 4)])
-def test_shared_stack_bytes(need, want):
-    # check_stack's need of the tree, one int32 entry per thread and level.
-    assert shared_stack_bytes(need) == want
-    assert want <= MAX_SHARED_PER_BLOCK
-
-
-def test_shared_stack_refuses_above_a_block():
-    most = MAX_SHARED_PER_BLOCK // (BLOCK * 4)
-    assert shared_stack_bytes(most) <= MAX_SHARED_PER_BLOCK
-    with pytest.raises(StackDepthError, match="per block"):
-        shared_stack_bytes(most + 1)
-    with pytest.raises(StackDepthError):
-        shared_stack_bytes(STACK_SIZE, block=1024)
-    with pytest.raises(ValueError):
-        shared_stack_bytes(-1)
-
-
 @pytest.mark.parametrize("lib", sorted(WRAPPERS))
 def test_argtypes_match_the_c_abi(lib):
     params = _abi(lib)
@@ -107,9 +80,10 @@ def test_argtypes_match_the_c_abi(lib):
     for i, ((ctype, name), argtype) in enumerate(zip(params, got)):
         assert argtype is C_TYPES[ctype], f"{lib} argument {i} {name}: {ctype} but ctypes " \
                                           f"{argtype.__name__}"
-    # The pointers the launch adds for the persistent kernels.
+    # The L2 window, then the pointers the launch adds for the persistent
+    # kernels.
     names = [n for _, n in params]
-    assert names[-5:] == ["design", "stack_need", "counter", "shape", "stream"]
+    assert names[-5:] == ["window_bytes", "set_aside", "counter", "shape", "stream"]
 
 
 @pytest.mark.parametrize("lib", sorted(WRAPPERS))
@@ -131,47 +105,41 @@ def test_entry_point_takes_the_macro(lib):
             f"_k{WRAPPERS[lib].slots}")
 
 
-# The designs each library keeps: the first versions of the vmem f32 frame
-# forms in quad_trace, flat_trace and flat_trace_mxu, the shared-memory
-# stack in the first two; the postponed-leaf libraries run persistent only.
-KEPT = {"quad_trace": {"persistent", "first", "shared_stack"},
-        "flat_trace": {"persistent", "first", "shared_stack"},
-        "quad_trace_c": {"persistent"}, "flat_trace_c": {"persistent"},
-        "flat_trace_mxu": {"persistent", "first"},
-        **{lib: {"persistent"} for lib in WRAPPERS if "_trace_k" in lib}}
+# What each library refuses before it looks at a tensor: a cursor count
+# outside its range, U / S given to a library without slots or out of range
+# for a slot library; and, given what it takes, rays on the CPU.
+FAULTS = ("cpu", "cursors", "schedule")
 
 
-@pytest.mark.parametrize("design", sorted(DESIGNS))
+@pytest.mark.parametrize("fault", FAULTS)
 @pytest.mark.parametrize("lib", sorted(WRAPPERS))
-def test_designs_each_library_keeps(lib, design):
+def test_launch_refuses_each_library(lib, fault):
     kern = WRAPPERS[lib]
-    assert set(kern.designs) == KEPT[lib]
     lo, hi = kern.cursors
-    if design in KEPT[lib] and (design == "persistent" or lo == 1):
-        kern.check_design(design, cursors=lo)      # the frame forms on vmem f32
+    rays = make_rays([[0.0, 0.0, 1.0]], [[0.0, 0.0, -1.0]], [0.0], [10.0], device="cpu")
+    kw = {"cursors": lo}
+    if kern.slots:
+        kw.update(units=1, tile=BLOCK)
+    if fault == "cpu":
+        match = "needs CUDA tensors"
+    elif fault == "cursors":
+        kw["cursors"] = hi + 1
+        match = f"takes cursors {lo}..{hi}"
+    elif kern.slots:
+        kw["units"] = MAX_UNITS + 1
+        match = f"u must be in 1..{MAX_UNITS}"
     else:
-        with pytest.raises(ValueError):
-            kern.check_design(design, cursors=lo)
-    others = [{"want_uv": True}, {"with_stats": True}, {"residency": "mixed"},
-              {"residency": "hbm"}, {"bf16_nodes": True}, {"cursors": hi if hi > 1 else 2}]
-    for kw in others:
-        if design == "persistent":
-            kern.check_design(design, **{"cursors": lo, **kw})
-        else:
-            with pytest.raises(ValueError):
-                kern.check_design(design, **{"cursors": lo, **kw})
-    with pytest.raises(ValueError):
-        kern.check_design("bogus")
+        kw["tile"] = BLOCK
+        match = "takes no u or tile"
+    with pytest.raises(ValueError, match=match):
+        kern.launch([], [], rays, False, False, False, **kw)
+    assert kern.launches == 0
 
 
-def test_designs_and_block_match_the_kernels():
+def test_block_and_sentinel_match_the_kernels():
     src = _read("trace_common.cuh")
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert consts["kBlock"] == BLOCK
-    assert consts["kPersistent"] == DESIGNS["persistent"]
-    assert consts["kFirst"] == DESIGNS["first"]
-    assert consts["kSharedStack"] == DESIGNS["shared_stack"]
-    assert len(DESIGNS) == 3
     # kEmpty, the stack's sentinel, is the quad tree's empty-slot link.
     from tpu_rt_torch.bvh.collapse import SENT
 
@@ -192,27 +160,21 @@ def test_ptxas_names_of_the_new_forms():
     import chip_smoke
 
     mangled = {
-        "_ZN12_GLOBAL__N_117quad_trace_kernelILb1ELb0ELb0ELb0ELb0ELb0ELb{s}EEEvN12tpu_rt_torch9"
-        "TraceArgsE": "quad_trace<any=1,uv=0,stats=0>{lay}",
-        "_ZN12_GLOBAL__N_117flat_trace_kernelILb0ELb1ELb0ELb1ELb1ELb1ELb1ELb{s}EEEvN12tpu_rt_"
-        "torch9TraceArgsE": "flat_trace_c<any=0,uv=1,stats=0>@hbm-bf16{lay}",
-        "_ZN12_GLOBAL__N_117quad_first_kernelILb0EEEvPK6float4iS3_PKfS5_S5_S5_PiPfi":
-            "quad_trace<any=0,uv=0,stats=0>/first",
+        "_ZN12_GLOBAL__N_117quad_trace_kernelILb1ELb0ELb0ELb0ELb0ELb0EEEvN12tpu_rt_torch9"
+        "TraceArgsE": "quad_trace<any=1,uv=0,stats=0>",
+        "_ZN12_GLOBAL__N_117flat_trace_kernelILb0ELb1ELb0ELb1ELb1ELb1ELb1EEEvN12tpu_rt_"
+        "torch9TraceArgsE": "flat_trace_c<any=0,uv=1,stats=0>@hbm-bf16",
+        "_ZN12_GLOBAL__N_121flat_trace_mxu_kernelILb1ELb0ELb1ELb0ELb0ELb1EEEvN12tpu_rt_"
+        "torch9TraceArgsE": "flat_trace_mxu<any=1,uv=0,stats=1>@mixed",
     }
     log = []
-    want = []
-    for i, (m, name) in enumerate(mangled.items()):
-        for s in (0, 1):
-            log += [f"ptxas info    : Compiling entry function '{m.format(s=s)}' for 'sm_90a'",
-                    f"    {8 * i} bytes stack frame, {4 * s} bytes spill stores, {4 * s} bytes "
-                    "spill loads",
-                    f"ptxas info    : Used {30 + i} registers"]
-            lay = "/shared_stack" if s else ""
-            want.append((name.format(lay=lay), 30 + i, 8 * i, 8 * s))
-            if "{s}" not in m:
-                break
+    for i, m in enumerate(mangled):
+        log += [f"ptxas info    : Compiling entry function '{m}' for 'sm_90a'",
+                f"    {8 * i} bytes stack frame, {4 * i} bytes spill stores, {4 * i} bytes "
+                "spill loads",
+                f"ptxas info    : Used {30 + i} registers"]
     got = [(n, r, b, s) for n, r, b, s, _ in chip_smoke.ptxas_forms("\n".join(log))]
-    assert got == want
+    assert got == [(name, 30 + i, 8 * i, 8 * i) for i, name in enumerate(mangled.values())]
 
 
 def test_ptxas_names_of_the_slot_forms():
@@ -243,15 +205,3 @@ def test_ptxas_names_of_the_slot_forms():
     got = [(n, r, b, s) for n, r, b, s, _ in chip_smoke.ptxas_forms("\n".join(log))]
     assert got == [(name, 40 + i, 8 * i, 4 * i) for i, name in enumerate(mangled.values())]
 
-
-def test_min_blocks_rewrites_every_entry():
-    # chip_smoke.py's ptxas of the quad frame forms under a minimum of 12
-    # blocks: each entry's launch bounds gain (or replace) .minnctapersm.
-    import chip_smoke
-
-    ptx = (".visible .entry a(\n.param .u64 p\n)\n.maxntid 128, 1, 1\n.minnctapersm 1\n{\n}\n"
-           ".visible .entry b(\n)\n.maxntid 128, 1, 1\n{\n}\n")
-    got, n = chip_smoke.with_min_blocks(ptx, 12)
-    assert n == 2 == got.count(".entry ")
-    assert got.count(".minnctapersm 12") == 2 and ".minnctapersm 1\n" not in got
-    assert got.index(".minnctapersm 12") > got.index(".maxntid 128, 1, 1")

@@ -50,8 +50,7 @@
 //     `Postponed`).  t stays the oracle's bit for bit.
 //
 // Files: this header holds the kernel and its dispatch; flat_trace.cu
-// instantiates the forms without kPostpone (and the first versions),
-// flat_trace_c.cu those with it, flat_trace_mxu.cu the tensor-core
+// instantiates the forms without kPostpone, flat_trace_c.cu those with it, flat_trace_mxu.cu the tensor-core
 // triangle phase on FlatLane with held leaves, and flat_trace_k<K>.cu the
 // slot forms (flat_slots_kernel: tpu_rt's K, U and tile, trace_common.cuh
 // persistent_slots), each a library of its own built by its own nvcc.
@@ -64,9 +63,8 @@
 // whose leaf is done pops on, draining the leaves it pops until it pops an
 // inner node, as the oracle does.  The postponed forms hold a leaf they
 // reach and pop on; they drain in the leaf phase.  The top of the stack is
-// a register; the rest is in local memory (or shared memory, sized from the
-// tree's need: the other side of chip_smoke.py's A/B).  The frame forms
-// take 44-45 registers, 10 blocks of 128 threads per SM.
+// a register; the rest is in local memory.  The frame forms take 44-45
+// registers, 10 blocks of 128 threads per SM.
 //
 // What bounds it: a data-dependent walk, as in quad_trace.cu, but with
 // half-line nodes: each node is 64 bytes (4 float4 loads), a binary tree is
@@ -75,17 +73,13 @@
 // conference's tables fit the 50 MB L2; dragon's do not (nodes 19.7 MB f32
 // or 9.8 MB bf16, Woop rows 58.3 MB), which is what the bf16 records and
 // the mixed residency address: fewer node bytes per visit, and node
-// records kept in L2 while triangle rows stream past them.  The first
-// versions ran at 2-7% of the bound from the rows their rays read
+// records kept in L2 while triangle rows stream past them.  A kernel of
+// one ray per thread ran at 2-7% of the bound from the rows its rays read
 // (PERF.md), so dependent-load latency and divergence bound it, not bytes;
 // the schedule takes the divergence between rays (a warp no longer waits
-// for its slowest ray) and between the node and leaf code paths (the first
-// version's if-if loop ran them in turns).  What is left is the chain of
-// dependent node loads of each ray.
-//
-// The first versions (flat_first_kernel: one ray per thread, a stack of
-// STACK_SIZE entries in local memory, an if-if loop) stay compiled for the
-// vmem f32 frame forms, for chip_smoke.py's A/B only.
+// for its slowest ray) and between the node and leaf code paths (a
+// ray-per-thread if-if loop runs them in turns).  What is left is the chain
+// of dependent node loads of each ray.
 //
 // Layouts (row-major, contiguous):
 //   nodes [N,16] f32: cols 0..3 child 0 (lo.x, hi.x, lo.y, hi.y), cols 4..7
@@ -127,17 +121,11 @@ struct Bf16Rec {
     int4 a, b;
 };
 
-// The record of inner node `node`: plain loads (kReadOnly false: the first
-// versions) or ldg; the streaming hint with kStreamNodes either way.
-template <bool kBf16Nodes, bool kStreamNodes, bool kReadOnly>
+// The record of inner node `node`, read through ldg (the streaming hint
+// with kStreamNodes).
+template <bool kBf16Nodes, bool kStreamNodes>
 __device__ __forceinline__ auto load_record(const float4* __restrict__ nodes, int node) {
-    const auto get = [](const auto* p) {
-        if constexpr (kReadOnly) {
-            return ldg<kStreamNodes>(p);
-        } else {
-            return load<kStreamNodes>(p);
-        }
-    };
+    const auto get = [](const auto* p) { return ldg<kStreamNodes>(p); };
     if constexpr (kBf16Nodes) {
         const int4* rec = reinterpret_cast<const int4*>(nodes) + static_cast<size_t>(node) * 2;
         const int4 a = get(rec), b = get(rec + 1);
@@ -177,81 +165,13 @@ __device__ __forceinline__ void record_children(const F32Rec& rec, const R& r, f
 
 // The two children of inner node `node`: its record (load_record) and
 // their slab tests (record_children).
-template <bool kBf16Nodes, bool kStreamNodes, bool kReadOnly, typename R>
+template <bool kBf16Nodes, bool kStreamNodes, typename R>
 __device__ __forceinline__ void test_children(const float4* __restrict__ nodes, int node,
                                               const R& r, float hit_t, bool& hit0,
                                               float& near0, int& c0, bool& hit1, float& near1,
                                               int& c1) {
-    record_children(load_record<kBf16Nodes, kStreamNodes, kReadOnly>(nodes, node), r, hit_t,
+    record_children(load_record<kBf16Nodes, kStreamNodes>(nodes, node), r, hit_t,
                     hit0, near0, c0, hit1, near1, c1);
-}
-
-// One visit of the inner node `node` (>= 0), as the oracle: both children
-// slab-tested against the hit distance so far; with both hit, `node` moves
-// to the nearer entry and the other is pushed; with one hit, to that one.
-// Returns false when neither is hit: the ray must pop.  The node step of
-// the first versions (and of flat_trace_mxu.cu's).
-template <bool kStats, bool kBf16Nodes, bool kStreamNodes>
-__device__ __forceinline__ bool visit_inner(const float4* __restrict__ nodes, const Ray& r,
-                                            Hit& h, int& node, int* stack, int& sp) {
-    if constexpr (kStats) ++h.node_tests;
-    float near0, near1;
-    bool hit0, hit1;
-    int c0, c1;
-    test_children<kBf16Nodes, kStreamNodes, false>(nodes, node, r, h.t, hit0, near0, c0, hit1,
-                                                   near1, c1);
-    if (hit0 && hit1) {
-        // Nearer entry first; the other waits on the stack.
-        if (near1 < near0) {
-            const int c = c0;
-            c0 = c1;
-            c1 = c;
-        }
-        stack[sp++] = c1;
-        node = c0;
-        return true;
-    }
-    if (hit0 || hit1) {
-        node = hit0 ? c0 : c1;
-        return true;
-    }
-    return false;
-}
-
-// The first version of the vmem f32 frame forms, kept for the A/B: one ray
-// per thread, a per-thread stack in local memory, an if-if loop that visits
-// an inner node or drains a leaf in each iteration.
-template <bool kAnyHit>
-__global__ void __launch_bounds__(kBlock)
-flat_first_kernel(const float4* __restrict__ nodes, int n_nodes,
-                  const float4* __restrict__ woop,
-                  const int* __restrict__ leaf_counts, int n_counts,
-                  const float* __restrict__ origin, const float* __restrict__ dirn,
-                  const float* __restrict__ tmin, const float* __restrict__ tmax,
-                  int* __restrict__ out_tri, float* __restrict__ out_t, int n_rays) {
-    const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-    if (ray >= n_rays) return;
-
-    Hit h{tmax[ray], -1, 0.0f, 0.0f, 0, 0};
-    if (!(h.t < 0.0f) && n_nodes > 0) {
-        const Ray r = load_ray(origin, dirn, tmin, ray);
-        int stack[STACK_SIZE];
-        int sp = 0;
-        int node = 0;
-        for (;;) {
-            if (node >= 0) {
-                if (visit_inner<false, false, false>(nodes, r, h, node, stack, sp)) continue;
-            } else {
-                const int first = ~node;
-                const int count = leaf_counts[min(first, n_counts - 1)];
-                if (drain<kAnyHit, false, false, false>(woop, first, count, r, h)) break;
-            }
-            if (sp == 0) break;
-            node = stack[--sp];
-        }
-    }
-    out_tri[ray] = h.tri;
-    out_t[ray] = h.t;
 }
 
 // One lane of the persistent binary kernel: its ray, its hit, its link
@@ -259,14 +179,14 @@ flat_first_kernel(const float4* __restrict__ nodes, int n_nodes,
 // (`pending`, a leaf link, or 0), its stack and, in the postponed forms,
 // its held leaves.
 template <bool kAnyHit, bool kWantUv, bool kStats, bool kBf16Nodes, bool kStreamNodes,
-          bool kStreamTris, bool kPostpone, bool kShared>
+          bool kStreamTris, bool kPostpone>
 struct FlatLane {
     int ray = -1;
     LeanRay r;
     Hit h;
     int node;
     int pending = 0;
-    TraversalStack<kShared> stack;
+    TraversalStack stack;
     Postponed held;
     int ready;   // held leaves to drain now (postponed forms)
 
@@ -336,14 +256,15 @@ struct FlatLane {
         }
     }
 
-    // One node visit, as visit_inner; with no child hit the lane pops.
+    // One visit of the inner node `node`, as the oracle: both children
+    // slab-tested against the hit distance so far, then `take`.
     __device__ __forceinline__ void node_step(const TraceArgs& a) {
         if constexpr (kStats) ++h.node_tests;
         float near0, near1;
         bool hit0, hit1;
         int c0, c1;
-        test_children<kBf16Nodes, kStreamNodes, true>(a.nodes, node, r, h.t, hit0, near0, c0,
-                                                      hit1, near1, c1);
+        test_children<kBf16Nodes, kStreamNodes>(a.nodes, node, r, h.t, hit0, near0, c0, hit1,
+                                                near1, c1);
         take(a, hit0, near0, c0, hit1, near1, c1);
     }
 
@@ -352,7 +273,7 @@ struct FlatLane {
     // visit of it.
     using Rec = std::conditional_t<kBf16Nodes, Bf16Rec, F32Rec>;
     __device__ __forceinline__ Rec fetch(const TraceArgs& a, bool walk) const {
-        return load_record<kBf16Nodes, kStreamNodes, true>(a.nodes, walk ? node : 0);
+        return load_record<kBf16Nodes, kStreamNodes>(a.nodes, walk ? node : 0);
     }
     __device__ __forceinline__ void step(const TraceArgs& a, const Rec& rec) {
         if constexpr (kStats) ++h.node_tests;
@@ -408,12 +329,11 @@ struct FlatLane {
 // A minimum of one block per SM: ptxas then gives the form the registers
 // it asks for; with no minimum it aims lower (PERF.md).
 template <bool kAnyHit, bool kWantUv, bool kStats, bool kBf16Nodes, bool kStreamNodes,
-          bool kStreamTris, bool kPostpone, bool kShared>
+          bool kStreamTris, bool kPostpone>
 __global__ void __launch_bounds__(kBlock, 1)
 flat_trace_kernel(const __grid_constant__ TraceArgs a) {
-    FlatLane<kAnyHit, kWantUv, kStats, kBf16Nodes, kStreamNodes, kStreamTris, kPostpone, kShared>
-        lane;
-    int stack[STACK_SIZE];   // the local-memory stack (kShared false)
+    FlatLane<kAnyHit, kWantUv, kStats, kBf16Nodes, kStreamNodes, kStreamTris, kPostpone> lane;
+    int stack[STACK_SIZE];   // the stack below its top, in local memory
     lane.stack.bind(stack);
     persistent_warps(lane, a);
 }
@@ -425,8 +345,7 @@ template <int kSlots, bool kAnyHit, bool kWantUv, bool kStats, bool kBf16Nodes,
           bool kStreamNodes, bool kStreamTris>
 __global__ void __launch_bounds__(kBlock, 1)
 flat_slots_kernel(const __grid_constant__ TraceArgs a, int units, unsigned tile) {
-    FlatLane<kAnyHit, kWantUv, kStats, kBf16Nodes, kStreamNodes, kStreamTris, false, false>
-        slot[kSlots];
+    FlatLane<kAnyHit, kWantUv, kStats, kBf16Nodes, kStreamNodes, kStreamTris, false> slot[kSlots];
     int stack[kSlots][STACK_SIZE];
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) slot[s].stack.bind(stack[s]);
@@ -435,13 +354,12 @@ flat_slots_kernel(const __grid_constant__ TraceArgs a, int units, unsigned tile)
 
 // Checks the host arguments, picks the instantiation of `launch_form`'s
 // template from the form flags, the node format and the residency, and
-// calls it: the launch behind the C ABI of flat_trace.cu, flat_trace_c.cu
-// and flat_trace_mxu.cu.  `launch_form(a, u, c, bf, sn, st, args, ctx,
-// design)` launches the form for those std::integral_constant flags and
-// returns its CUDA error; `cursors_ok` is the library's rule for `cursors`.
-// The other arguments are quad_dispatch's (quad_trace.cuh), with the node
-// format (`bf16_nodes`) and the leaf-count table added; `stack_need` is the
-// tree's depth.
+// calls it: the launch behind the C ABI of flat_trace.cu, flat_trace_c.cu,
+// flat_trace_mxu.cu and flat_trace_k<K>.cu.  `launch_form(a, u, c, bf, sn,
+// st, args, ctx)` launches the form for those std::integral_constant flags
+// and returns its CUDA error; `cursors_ok` is the library's rule for
+// `cursors`.  The other arguments are quad_dispatch's (quad_trace.cuh),
+// with the node format (`bf16_nodes`) and the leaf-count table added.
 template <typename LaunchForm>
 int flat_dispatch(LaunchForm launch_form, bool cursors_ok, const void* nodes, int n_nodes,
                   int bf16_nodes, const void* woop, const void* leaf_counts, int n_counts,
@@ -449,18 +367,12 @@ int flat_dispatch(LaunchForm launch_form, bool cursors_ok, const void* nodes, in
                   void* out_tri, void* out_t, void* out_u, void* out_v, void* out_node_tests,
                   void* out_tri_tests, int n_rays, int cursors, int any_hit, int want_uv,
                   int stats, int stream_nodes, int stream_tris, size_t window_bytes,
-                  size_t set_aside, int design, int stack_need, void* counter, void* shape,
-                  void* stream) {
-    if (!cursors_ok || design < kPersistent || design > kSharedStack ||
-        (design != kPersistent &&
-         (want_uv || stats || bf16_nodes || stream_nodes || stream_tris)) ||
-        stack_need < 0 || stack_need > STACK_SIZE) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+                  size_t set_aside, void* counter, void* shape, void* stream) {
+    if (!cursors_ok) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSuccess;
     if (n_rays > 0) {
         const LaunchCtx ctx{static_cast<cudaStream_t>(stream), nodes, window_bytes, set_aside,
-                            design, stack_need, static_cast<int*>(shape)};
+                            static_cast<int*>(shape)};
         const TraceArgs args{static_cast<const float4*>(nodes), n_nodes,
                              static_cast<const float4*>(woop),
                              static_cast<const int*>(leaf_counts), n_counts,
@@ -485,39 +397,15 @@ int flat_dispatch(LaunchForm launch_form, bool cursors_ok, const void* nodes, in
 }
 
 // The launch of one form of the persistent kernel (flat_trace.cu with
-// kPostpone false, flat_trace_c.cu with it); for the vmem f32 frame forms
-// at cursors = 1, the first version and the shared-memory stack too.
+// kPostpone false, flat_trace_c.cu with it).
 template <bool kPostpone>
 struct FlatLaunch {
     template <typename A, typename U, typename C, typename B, typename SN, typename ST>
     cudaError_t operator()(A, U, C, B, SN, ST, const TraceArgs& args, const LaunchCtx& ctx) const {
-        constexpr bool kFrameVmem = !U::value && !C::value && !B::value && !SN::value &&
-                                    !ST::value && !kPostpone;
-        if (args.counter == nullptr || (ctx.design != kPersistent && !kFrameVmem)) {
-            return cudaErrorInvalidValue;
-        }
-        if constexpr (kFrameVmem) {
-            if (ctx.design == kFirst) {
-                return launch_per_ray(flat_first_kernel<A::value>, args.n_rays, 0, ctx, args.nodes,
-                                      args.n_nodes, args.woop, args.leaf_counts, args.n_counts,
-                                      args.origin, args.dirn, args.tmin, args.tmax, args.out_tri,
-                                      args.out_t, args.n_rays);
-            }
-        }
-        if (ctx.design == kPersistent) {
-            return launch_persistent(flat_trace_kernel<A::value, U::value, C::value, B::value,
-                                                       SN::value, ST::value, kPostpone, false>,
-                                     args.n_rays, 0, args.counter, ctx, args);
-        }
-        if constexpr (kFrameVmem) {
-            if (ctx.design == kSharedStack) {
-                return launch_persistent(flat_trace_kernel<A::value, U::value, C::value, B::value,
-                                                           SN::value, ST::value, kPostpone, true>,
-                                         args.n_rays, stack_smem(ctx.stack_need), args.counter,
-                                         ctx, args);
-            }
-        }
-        return cudaErrorInvalidValue;
+        if (args.counter == nullptr) return cudaErrorInvalidValue;
+        return launch_persistent(flat_trace_kernel<A::value, U::value, C::value, B::value,
+                                                   SN::value, ST::value, kPostpone>,
+                                 args.n_rays, 0, args.counter, ctx, args);
     }
 };
 
@@ -530,7 +418,7 @@ struct FlatSlotLaunch {
 
     template <typename A, typename U, typename C, typename B, typename SN, typename ST>
     cudaError_t operator()(A, U, C, B, SN, ST, const TraceArgs& args, const LaunchCtx& ctx) const {
-        if (args.counter == nullptr || ctx.design != kPersistent) return cudaErrorInvalidValue;
+        if (args.counter == nullptr) return cudaErrorInvalidValue;
         LaunchCtx slots_ctx = ctx;
         slots_ctx.slots = kSlots;
         return launch_persistent(flat_slots_kernel<kSlots, A::value, U::value, C::value, B::value,
@@ -551,10 +439,9 @@ struct FlatSlotLaunch {
         const void *tmin, const void *tmax, void *out_tri, void *out_t, void *out_u,        \
         void *out_v, void *out_node_tests, void *out_tri_tests, int n_rays, int cursors,    \
         int any_hit, int want_uv, int stats, int stream_nodes, int stream_tris,             \
-        size_t window_bytes, size_t set_aside, int design, int stack_need, void *counter,   \
-        void *shape, void *stream
+        size_t window_bytes, size_t set_aside, void *counter, void *shape, void *stream
 #define FLAT_LAUNCH_CALL                                                                    \
     nodes, n_nodes, bf16_nodes, woop, leaf_counts, n_counts, origin, dirn, tmin, tmax,      \
         out_tri, out_t, out_u, out_v, out_node_tests, out_tri_tests, n_rays, cursors,       \
-        any_hit, want_uv, stats, stream_nodes, stream_tris, window_bytes, set_aside, design, \
-        stack_need, counter, shape, stream
+        any_hit, want_uv, stats, stream_nodes, stream_tris, window_bytes, set_aside,        \
+        counter, shape, stream

@@ -42,11 +42,6 @@
 // the widest and trace_flat(mxu=True) refuses wider ones, as pack_tables2
 // does (:170).
 //
-// The first version stays compiled for the vmem f32 frame forms at
-// cursors = 1, for chip_smoke.py's A/B only (design "first",
-// flat_mxu_first_kernel: one ray per thread, one leaf per warp round, the
-// products through a 7,104-byte table per warp).
-//
 // What bounds it: the walk is flat_trace.cuh's (dependent node loads,
 // divergence), at the occupancy the leaf phase's registers leave; the leaf
 // phase does 8 x 8 candidate-ray pairs per tile where a group needs its
@@ -67,10 +62,8 @@ namespace {
 // lane order, that drain it; row r of the tile is the group's r-th lane.
 template <bool kAnyHit, bool kWantUv, bool kStats, bool kBf16Nodes, bool kStreamNodes,
           bool kStreamTris>
-struct MxuLane
-    : FlatLane<kAnyHit, kWantUv, kStats, kBf16Nodes, kStreamNodes, kStreamTris, true, false> {
-    using Base = FlatLane<kAnyHit, kWantUv, kStats, kBf16Nodes, kStreamNodes, kStreamTris, true,
-                          false>;
+struct MxuLane : FlatLane<kAnyHit, kWantUv, kStats, kBf16Nodes, kStreamNodes, kStreamTris, true> {
+    using Base = FlatLane<kAnyHit, kWantUv, kStats, kBf16Nodes, kStreamNodes, kStreamTris, true>;
 
     // FlatLane's start, then the ray (and its tmax) into the warp's table.
     __device__ __forceinline__ void start(const TraceArgs& a, int i) {
@@ -169,119 +162,21 @@ flat_trace_mxu_kernel(const __grid_constant__ TraceArgs a) {
     persistent_warps(lane, a);
 }
 
-// The first version of the vmem f32 frame forms, kept for the A/B: one ray
-// per thread, the first versions' node step (visit_inner), and a leaf phase
-// that tests one leaf per warp round: the first lane's oldest leaf is
-// broadcast, the lanes whose oldest leaf it is form the group, every lane
-// loads its A element, the warp runs 6 products x (the n8 tiles that hold a
-// lane of the group) mma into the product table, and the group's lanes
-// read their columns and pick the leaf's winner.
-template <bool kAnyHit>
-__global__ void __launch_bounds__(kBlock)
-flat_mxu_first_kernel(const float4* __restrict__ nodes, int n_nodes,
-                      const float4* __restrict__ woop,
-                      const int* __restrict__ leaf_counts, int n_counts,
-                      const float* __restrict__ origin, const float* __restrict__ dirn,
-                      const float* __restrict__ tmin, const float* __restrict__ tmax,
-                      int* __restrict__ out_tri, float* __restrict__ out_t, int n_rays) {
-    constexpr int cursors = 1;
-    const int lane = threadIdx.x & 31;
-    MxuWarp& s = mxu_warp(threadIdx.x >> 5);
-    const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool in_range = ray < n_rays;
-
-    Hit h{in_range ? tmax[ray] : -1.0f, -1, 0.0f, 0.0f, 0, 0};
-    const float t_max = h.t;
-    Ray r{};
-    if (in_range) r = load_ray(origin, dirn, tmin, ray);
-    put_ray(s, lane, r, in_range);
-    __syncwarp();
-
-    bool walking = in_range && !(h.t < 0.0f) && n_nodes > 0;
-    Postponed held;
-    int stack[STACK_SIZE];
-    int sp = 0;
-    int node = 0;
-    for (;;) {
-        // Walk until `cursors` leaves are held or the stack is empty.
-        while (walking && held.n < cursors) {
-            if (node >= 0) {
-                if (visit_inner<false, false, false>(nodes, r, h, node, stack, sp)) continue;
-            } else {
-                held.add(node);
-            }
-            if (sp == 0) {
-                walking = false;
-            } else {
-                node = stack[--sp];
-            }
-        }
-        // Leaf phase: one leaf group at a time, the whole warp.
-        for (;;) {
-            const unsigned pending = __ballot_sync(kFullMask, held.n > 0);
-            if (pending == 0) break;
-            const int link = __shfl_sync(kFullMask, held.link[0], __ffs(pending) - 1);
-            const unsigned group = __ballot_sync(kFullMask, held.n > 0 && held.link[0] == link);
-            const int first = ~link;
-            const int count = min(leaf_counts[min(first, n_counts - 1)], kMxuLeaf);
-            leaf_products(leaf_a<false>(woop, first, count, lane), group, s, lane);
-            if (group & (1u << lane)) {
-                held.pop();
-                const LeafHit b = leaf_best<false>(s, lane, woop, first, count, r.t_min, t_max);
-                if (b.t < h.t && (!kAnyHit || h.tri < 0)) {
-                    h.t = b.t;
-                    h.tri = b.tri;
-                }
-                if constexpr (kAnyHit) {
-                    if (h.tri >= 0) {
-                        held.n = 0;
-                        walking = false;
-                    }
-                }
-            }
-            __syncwarp();   // s.out is rewritten by the next group
-        }
-        if (!__any_sync(kFullMask, walking)) break;
-    }
-    if (in_range) {
-        out_tri[ray] = h.tri;
-        out_t[ray] = h.t;
-    }
-}
-
 // The launch of one form: the persistent kernel with the warps' ray tables
-// in dynamic shared memory; for the vmem f32 frame forms at cursors = 1,
-// also the first version (one ray per thread, the product tables).
+// in dynamic shared memory.
 struct MxuLaunch {
     template <typename A, typename U, typename C, typename B, typename SN, typename ST>
     cudaError_t operator()(A, U, C, B, SN, ST, const TraceArgs& args, const LaunchCtx& ctx) const {
-        constexpr bool kFrameVmem = !U::value && !C::value && !B::value && !SN::value &&
-                                    !ST::value;
         if (args.counter == nullptr) return cudaErrorInvalidValue;
-        if (ctx.design == kPersistent) {
-            return launch_persistent(
-                flat_trace_mxu_kernel<A::value, U::value, C::value, B::value, SN::value,
-                                      ST::value>,
-                args.n_rays, kWarps * sizeof(MxuRays), args.counter, ctx, args);
-        }
-        if constexpr (kFrameVmem) {
-            if (ctx.design == kFirst && args.cursors == 1) {
-                return launch_per_ray(flat_mxu_first_kernel<A::value>, args.n_rays,
-                                      kWarps * sizeof(MxuWarp), ctx, args.nodes, args.n_nodes,
-                                      args.woop, args.leaf_counts, args.n_counts, args.origin,
-                                      args.dirn, args.tmin, args.tmax, args.out_tri, args.out_t,
-                                      args.n_rays);
-            }
-        }
-        return cudaErrorInvalidValue;
+        return launch_persistent(
+            flat_trace_mxu_kernel<A::value, U::value, C::value, B::value, SN::value, ST::value>,
+            args.n_rays, kWarps * sizeof(MxuRays), args.counter, ctx, args);
     }
 };
 
 }  // namespace
 
-// C ABI as flat_trace_launch (flat_trace.cuh), 1 <= cursors <= kMaxCursors;
-// design kPersistent, or kFirst for the vmem f32 frame forms at
-// cursors = 1.
+// C ABI as flat_trace_launch (flat_trace.cuh), 1 <= cursors <= kMaxCursors.
 extern "C" int flat_trace_mxu_launch(FLAT_LAUNCH_ARGS) {
     return flat_dispatch(MxuLaunch{}, cursors >= 1 && cursors <= tpu_rt_torch::kMaxCursors,
                          FLAT_LAUNCH_CALL);

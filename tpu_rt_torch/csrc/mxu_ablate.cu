@@ -30,7 +30,7 @@
 //           when none of its t is in range, and epi0 never does, so epi0
 //           issues at least as many DMMA as full: full - epi0 is a lower
 //           bound on the epilogue's cost, not the cost itself;
-//   smem    the first version's product-table phase (leaf_products,
+//   smem    the product-table phase (mxu_leaf.cuh leaf_products,
 //           leaf_best): the 24 DMMA's products through the 7,104-byte table
 //           in shared memory, each lane's winner read back from it: what
 //           the table costs against full.

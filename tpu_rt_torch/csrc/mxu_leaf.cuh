@@ -52,8 +52,8 @@
 //   - The product-table phase (MxuWarp, leaf_products, leaf_best): one leaf
 //     per warp round, the candidates as A against the warp's 32 rays, the
 //     six products through a 7,104-byte table in shared memory, each lane's
-//     winner read back from it.  Only the MXU form's first version (design
-//     "first") and the probe's smem variant run it.
+//     winner read back from it.  Only the probe's smem variant runs it: no
+//     trace library keeps it, and it lost to the tile phase (PERF.md).
 // Both phases keep their tables in the dynamic shared memory `mxu_smem`,
 // which the launch sizes.
 
@@ -336,7 +336,7 @@ __device__ __forceinline__ LeafHit row_winner(const LeafHit& b, int row_of_lane)
 }
 
 // ---------------------------------------------------------------------------
-// The product-table phase: one leaf per warp round (the first version)
+// The product-table phase: one leaf per warp round (the probe's smem)
 // ---------------------------------------------------------------------------
 
 // A warp's shared memory: its rays (for the B fragments) and the six

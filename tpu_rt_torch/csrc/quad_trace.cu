@@ -1,7 +1,6 @@
 // The 4-wide traversal kernel's forms with one leaf drained as soon as it
 // is reached (cursors = 1): closest and any hit, uv, counters, three
-// residencies (quad_trace.cuh), and the first versions of the vmem frame
-// forms.
+// residencies (quad_trace.cuh).
 #include "quad_trace.cuh"
 
 extern "C" int quad_trace_launch(QUAD_LAUNCH_ARGS) {

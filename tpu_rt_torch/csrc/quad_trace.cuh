@@ -67,11 +67,10 @@
 // tested node and a mask of its hit leaf slots; a leaf's link is read again
 // from the record when its turn comes.  The postponed forms hold their
 // leaves as before and drain them in the leaf phase.  The top of the stack
-// is a register; the rest is in local memory (or shared memory, sized from
-// the tree's need: the other side of chip_smoke.py's A/B).  The frame forms
-// take 48 registers, 10 blocks of 128 threads per SM; held to 40 (what a
-// __launch_bounds__ minimum of 12 blocks asks), ptxas spills (chip_smoke.py
-// phase 1), so the minimum is 1.
+// is a register; the rest is in local memory.  The frame forms take 48
+// registers, 10 blocks of 128 threads per SM; held to 40 (what a
+// __launch_bounds__ minimum of 12 blocks asks), ptxas spills (PERF.md), so
+// the minimum is 1.
 //
 // What bounds it: a data-dependent walk.  Each node is one 128-byte record
 // (8 float4 loads, one cache line) and each triangle one 64-byte Woop row
@@ -80,20 +79,17 @@
 // Woop rows 58 MB) the triangle rows could evict the node records every ray
 // needs first, which the mixed residency addresses (nodes persisting,
 // triangle rows streamed).  So the bound is the latency of the dependent
-// node loads and the warp's divergence, not device-memory bandwidth: the
-// first versions ran at 1-3% of the bound from the rows their rays read
-// (PERF.md).  The schedule answers the divergence: a warp no longer waits
-// for its slowest ray (any hit ends a ray at its first occluder, so an AO
-// warp's lanes finish far apart), and the four per-slot drains of the
-// first version, which lanes with leaves in different slots ran one after
-// another, are one loop.  What is left is the node test's chain of
-// dependent loads and the leaf loop's length, which the warp's longest
-// queue sets.
+// node loads and the warp's divergence, not device-memory bandwidth: a
+// kernel of one ray per thread ran at 1-3% of the bound from the rows its
+// rays read (PERF.md).  The schedule answers the divergence: a warp no
+// longer waits for its slowest ray (any hit ends a ray at its first
+// occluder, so an AO warp's lanes finish far apart), and the four per-slot
+// drains of a ray-per-thread walk, which lanes with leaves in different
+// slots ran one after another, are one loop.  What is left is the node
+// test's chain of dependent loads and the leaf loop's length, which the
+// warp's longest queue sets.
 //
-// The first versions (quad_first_kernel: one ray per thread, a stack of
-// STACK_SIZE entries in local memory, each hit leaf drained in its own
-// statement) stay compiled for the vmem frame forms, for chip_smoke.py's
-// A/B only.  quad_trace_k<K>.cu instantiates the slot forms
+// quad_trace_k<K>.cu instantiates the slot forms
 // (quad_slots_kernel: tpu_rt's K, U and tile on QuadLane,
 // trace_common.cuh persistent_slots).
 //
@@ -119,82 +115,7 @@ using namespace tpu_rt_torch;
 
 constexpr int kSent = 0x7FFFFFFF;
 constexpr int kCountShift = 24;
-constexpr int kFirstMask = (1 << kCountShift) - 1;
-
-// Drain the leaf behind `link` = ~(first | count << 24) (the first versions).
-template <bool kAnyHit, bool kWantUv, bool kStats, bool kStreamTris>
-__device__ __forceinline__ bool drain_leaf(const float4* __restrict__ woop, int link,
-                                           const Ray& r, Hit& h) {
-    const int c = ~link;
-    return drain<kAnyHit, kWantUv, kStats, kStreamTris>(woop, c & kFirstMask,
-                                                        (c >> kCountShift) & 0xFF, r, h);
-}
-
-// The first version of the vmem f32 frame forms, kept for the A/B: one ray
-// per thread, a per-thread stack in local memory, each hit leaf drained in
-// its own statement, in visit order, before the inner children are taken.
-template <bool kAnyHit>
-__global__ void __launch_bounds__(kBlock)
-quad_first_kernel(const float4* __restrict__ nodes, int n_nodes,
-                  const float4* __restrict__ woop,
-                  const float* __restrict__ origin, const float* __restrict__ dirn,
-                  const float* __restrict__ tmin, const float* __restrict__ tmax,
-                  int* __restrict__ out_tri, float* __restrict__ out_t, int n_rays) {
-    const int ray = blockIdx.x * blockDim.x + threadIdx.x;
-    if (ray >= n_rays) return;
-
-    Hit h{tmax[ray], -1, 0.0f, 0.0f, 0, 0};
-    if (!(h.t < 0.0f) && n_nodes > 0) {
-        const Ray r = load_ray(origin, dirn, tmin, ray);
-        int stack[STACK_SIZE];
-        int sp = 0;
-        int node = 0;
-        for (;;) {
-            const float4* rec = nodes + static_cast<size_t>(node) * 8;
-            const float4 q0 = rec[0], q1 = rec[1], q2 = rec[2], q3 = rec[3];
-            const float4 q4 = rec[4], q5 = rec[5], q6 = rec[6], q7 = rec[7];
-            const int l0 = __float_as_int(q6.x), l1 = __float_as_int(q6.y);
-            const int l2 = __float_as_int(q6.z), l3 = __float_as_int(q6.w);
-            const int hint = __float_as_int(q7.x);
-            const bool h0 = l0 != kSent && slab(r, h.t, q0.x, q0.y, q0.z, q0.w, q1.x, q1.y);
-            const bool h1 = l1 != kSent && slab(r, h.t, q1.z, q1.w, q2.x, q2.y, q2.z, q2.w);
-            const bool h2 = l2 != kSent && slab(r, h.t, q3.x, q3.y, q3.z, q3.w, q4.x, q4.y);
-            const bool h3 = l3 != kSent && slab(r, h.t, q4.z, q4.w, q5.x, q5.y, q5.z, q5.w);
-            const float dh = hint == 0 ? r.dx : (hint == 1 ? r.dy : r.dz);
-            const bool fwd = dh >= 0.0f;
-            const bool v0 = fwd ? h0 : h3, v1 = fwd ? h1 : h2;
-            const bool v2 = fwd ? h2 : h1, v3 = fwd ? h3 : h0;
-            const int k0 = fwd ? l0 : l3, k1 = fwd ? l1 : l2;
-            const int k2 = fwd ? l2 : l1, k3 = fwd ? l3 : l0;
-            if constexpr (kAnyHit) {
-                if ((v0 && k0 < 0 && drain_leaf<true, false, false, false>(woop, k0, r, h)) ||
-                    (v1 && k1 < 0 && drain_leaf<true, false, false, false>(woop, k1, r, h)) ||
-                    (v2 && k2 < 0 && drain_leaf<true, false, false, false>(woop, k2, r, h)) ||
-                    (v3 && k3 < 0 && drain_leaf<true, false, false, false>(woop, k3, r, h))) {
-                    break;
-                }
-            } else {
-                if (v0 && k0 < 0) drain_leaf<false, false, false, false>(woop, k0, r, h);
-                if (v1 && k1 < 0) drain_leaf<false, false, false, false>(woop, k1, r, h);
-                if (v2 && k2 < 0) drain_leaf<false, false, false, false>(woop, k2, r, h);
-                if (v3 && k3 < 0) drain_leaf<false, false, false, false>(woop, k3, r, h);
-            }
-            int next = -1;
-            if (v3 && k3 >= 0) next = k3;
-            if (v2 && k2 >= 0) { if (next >= 0) stack[sp++] = next; next = k2; }
-            if (v1 && k1 >= 0) { if (next >= 0) stack[sp++] = next; next = k1; }
-            if (v0 && k0 >= 0) { if (next >= 0) stack[sp++] = next; next = k0; }
-            if (next >= 0) {
-                node = next;
-                continue;
-            }
-            if (sp == 0) break;
-            node = stack[--sp];
-        }
-    }
-    out_tri[ray] = h.tri;
-    out_t[ray] = h.t;
-}
+constexpr int kStartMask = (1 << kCountShift) - 1;
 
 // Bits of a lane's leaf queue (QuadLane::qmask): bits 0-3 the hit leaf
 // children of leaf_node not yet drained, by visit position; kReverse when
@@ -210,7 +131,7 @@ constexpr unsigned kReverse = 1u << 8;
 // leaves, which the lane drains before its next node test, as the oracle
 // does.
 template <bool kAnyHit, bool kWantUv, bool kStats, bool kStreamNodes, bool kStreamTris,
-          bool kPostpone, bool kShared>
+          bool kPostpone>
 struct QuadLane {
     int ray = -1;
     LeanRay r;
@@ -219,7 +140,7 @@ struct QuadLane {
     int leaf_node;
     unsigned qmask;
     int pending = 0;
-    TraversalStack<kShared> stack;
+    TraversalStack stack;
     Postponed held;
     int ready;   // held leaves to drain now (postponed forms)
 
@@ -400,7 +321,7 @@ struct QuadLane {
     __device__ __forceinline__ void drain_units(const TraceArgs& a, int units) {
         while (pending < 0) {
             const int c = ~pending;
-            const int first = c & kFirstMask;
+            const int first = c & kStartMask;
             const int end = first + ((c >> kCountShift) & 0xFF);
             if (test_rows<kAnyHit, kWantUv, kStats, kStreamTris>(a.woop, first, end, units, r,
                                                                   h)) {
@@ -415,11 +336,11 @@ struct QuadLane {
 // A minimum of one block per SM: ptxas then gives the form the registers
 // it asks for; with no minimum it aims lower (PERF.md).
 template <bool kAnyHit, bool kWantUv, bool kStats, bool kStreamNodes, bool kStreamTris,
-          bool kPostpone, bool kShared>
+          bool kPostpone>
 __global__ void __launch_bounds__(kBlock, 1)
 quad_trace_kernel(const __grid_constant__ TraceArgs a) {
-    QuadLane<kAnyHit, kWantUv, kStats, kStreamNodes, kStreamTris, kPostpone, kShared> lane;
-    int stack[STACK_SIZE];   // the local-memory stack (kShared false)
+    QuadLane<kAnyHit, kWantUv, kStats, kStreamNodes, kStreamTris, kPostpone> lane;
+    int stack[STACK_SIZE];   // the stack below its top, in local memory
     lane.stack.bind(stack);
     persistent_warps(lane, a);
 }
@@ -431,7 +352,7 @@ template <int kSlots, bool kAnyHit, bool kWantUv, bool kStats, bool kStreamNodes
           bool kStreamTris>
 __global__ void __launch_bounds__(kBlock, 1)
 quad_slots_kernel(const __grid_constant__ TraceArgs a, int units, unsigned tile) {
-    QuadLane<kAnyHit, kWantUv, kStats, kStreamNodes, kStreamTris, false, false> slot[kSlots];
+    QuadLane<kAnyHit, kWantUv, kStats, kStreamNodes, kStreamTris, false> slot[kSlots];
     int stack[kSlots][STACK_SIZE];
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) slot[s].stack.bind(stack[s]);
@@ -448,29 +369,22 @@ quad_slots_kernel(const __grid_constant__ TraceArgs a, int units, unsigned tile)
 // u, v and the counters may be null in the forms that do not write them.
 // `window_bytes` > 0 attaches the mixed residency's L2 window over the node
 // table, with the persisting set-aside `set_aside` (launch_window).
-// `design` picks the persistent kernel (kPersistent) or, for the vmem frame
-// forms at cursors = 1 only, the first version (kFirst) or the
-// shared-memory stack (kSharedStack); `stack_need` is the tree's stack need
-// (3 x depth), `counter` the 4-byte ray pool, `shape` (may be null)
-// receives the launch shape (trace_common.cuh LaunchCtx).  Launches on
-// `stream` and returns the first CUDA error.
+// `counter` is the 4-byte ray pool, `shape` (may be null) receives the
+// launch shape (trace_common.cuh LaunchCtx).  Launches on `stream` and
+// returns the first CUDA error.
 template <typename LaunchForm>
 int quad_dispatch(LaunchForm launch_form, bool cursors_ok, const void* nodes, int n_nodes,
                   const void* woop, const void* origin, const void* dirn, const void* tmin,
                   const void* tmax, void* out_tri, void* out_t, void* out_u, void* out_v,
                   void* out_node_tests, void* out_tri_tests, int n_rays, int cursors,
                   int any_hit, int want_uv, int stats, int stream_nodes, int stream_tris,
-                  size_t window_bytes, size_t set_aside, int design, int stack_need,
-                  void* counter, void* shape, void* stream) {
-    if (!cursors_ok || design < kPersistent || design > kSharedStack ||
-        (design != kPersistent && (want_uv || stats || stream_nodes || stream_tris)) ||
-        stack_need < 0 || stack_need > STACK_SIZE) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+                  size_t window_bytes, size_t set_aside, void* counter, void* shape,
+                  void* stream) {
+    if (!cursors_ok) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSuccess;
     if (n_rays > 0) {
         const LaunchCtx ctx{static_cast<cudaStream_t>(stream), nodes, window_bytes, set_aside,
-                            design, stack_need, static_cast<int*>(shape)};
+                            static_cast<int*>(shape)};
         const TraceArgs args{static_cast<const float4*>(nodes), n_nodes,
                              static_cast<const float4*>(woop), nullptr, 0,
                              static_cast<const float*>(origin), static_cast<const float*>(dirn),
@@ -491,38 +405,15 @@ int quad_dispatch(LaunchForm launch_form, bool cursors_ok, const void* nodes, in
 }
 
 // The launch of one form of the persistent kernel (quad_trace.cu with
-// kPostpone false, quad_trace_c.cu with it); for the vmem frame forms at
-// cursors = 1, the first version and the shared-memory stack too.
+// kPostpone false, quad_trace_c.cu with it).
 template <bool kPostpone>
 struct QuadLaunch {
     template <typename A, typename U, typename C, typename SN, typename ST>
     cudaError_t operator()(A, U, C, SN, ST, const TraceArgs& args, const LaunchCtx& ctx) const {
-        constexpr bool kFrameVmem = !U::value && !C::value && !SN::value && !ST::value &&
-                                    !kPostpone;
-        if (args.counter == nullptr || (ctx.design != kPersistent && !kFrameVmem)) {
-            return cudaErrorInvalidValue;
-        }
-        if constexpr (kFrameVmem) {
-            if (ctx.design == kFirst) {
-                return launch_per_ray(quad_first_kernel<A::value>, args.n_rays, 0, ctx, args.nodes,
-                                      args.n_nodes, args.woop, args.origin, args.dirn, args.tmin,
-                                      args.tmax, args.out_tri, args.out_t, args.n_rays);
-            }
-        }
-        if (ctx.design == kPersistent) {
-            return launch_persistent(quad_trace_kernel<A::value, U::value, C::value, SN::value,
-                                                       ST::value, kPostpone, false>,
-                                     args.n_rays, 0, args.counter, ctx, args);
-        }
-        if constexpr (kFrameVmem) {
-            if (ctx.design == kSharedStack) {
-                return launch_persistent(quad_trace_kernel<A::value, U::value, C::value, SN::value,
-                                                           ST::value, kPostpone, true>,
-                                         args.n_rays, stack_smem(ctx.stack_need), args.counter,
-                                         ctx, args);
-            }
-        }
-        return cudaErrorInvalidValue;
+        if (args.counter == nullptr) return cudaErrorInvalidValue;
+        return launch_persistent(quad_trace_kernel<A::value, U::value, C::value, SN::value,
+                                                   ST::value, kPostpone>,
+                                 args.n_rays, 0, args.counter, ctx, args);
     }
 };
 
@@ -535,7 +426,7 @@ struct QuadSlotLaunch {
 
     template <typename A, typename U, typename C, typename SN, typename ST>
     cudaError_t operator()(A, U, C, SN, ST, const TraceArgs& args, const LaunchCtx& ctx) const {
-        if (args.counter == nullptr || ctx.design != kPersistent) return cudaErrorInvalidValue;
+        if (args.counter == nullptr) return cudaErrorInvalidValue;
         LaunchCtx slots_ctx = ctx;
         slots_ctx.slots = kSlots;
         return launch_persistent(quad_slots_kernel<kSlots, A::value, U::value, C::value,
@@ -554,10 +445,8 @@ struct QuadSlotLaunch {
         const void *tmin, const void *tmax, void *out_tri, void *out_t, void *out_u,        \
         void *out_v, void *out_node_tests, void *out_tri_tests, int n_rays, int cursors,    \
         int any_hit, int want_uv, int stats, int stream_nodes, int stream_tris,             \
-        size_t window_bytes, size_t set_aside, int design, int stack_need, void *counter,   \
-        void *shape, void *stream
+        size_t window_bytes, size_t set_aside, void *counter, void *shape, void *stream
 #define QUAD_LAUNCH_CALL                                                                    \
     nodes, n_nodes, woop, origin, dirn, tmin, tmax, out_tri, out_t, out_u, out_v,           \
         out_node_tests, out_tri_tests, n_rays, cursors, any_hit, want_uv, stats,            \
-        stream_nodes, stream_tris, window_bytes, set_aside, design, stack_need, counter,    \
-        shape, stream
+        stream_nodes, stream_tris, window_bytes, set_aside, counter, shape, stream

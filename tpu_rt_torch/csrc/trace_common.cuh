@@ -17,7 +17,7 @@
 //   kStreamNodes  node records read with the streaming hint (ld.global.cs,
 //                 evict first);
 //   kStreamTris   Woop rows (and leaf counts) read with the streaming hint.
-// "vmem" is (false, false): plain loads, the code of the first versions.
+// "vmem" is (false, false): loads through the read-only path (ldg).
 // "mixed" is (false, true), launched with an L2 access-policy window over
 // the node table (persisting on hit, streaming on miss; launch_window
 // below); "hbm" is (true, true), no window.  Node fetches are the
@@ -51,19 +51,16 @@
 //     in one loop (woop_test), so every lane runs one Woop code path.  A
 //     lane drains its leaves exactly where the oracle does, before its next
 //     node test: nothing is speculated, so each ray's ops, and with them its
-//     results, are the first versions'.
+//     results, are the oracle's.
 //   - The traversal stack keeps its top in a register above a sentinel
 //     (kEmpty; :70-71) and the rest in local memory (TraversalStack).  The
 //     lane's other state (LeanRay: the ray without o * (1 / d), which a slab
 //     test takes again) stays in registers.
 //   - Node records and Woop rows are read through the read-only path (ldg),
 //     or with the streaming hint in the mixed / hbm forms.
-// Two other designs stay compiled for the vmem f32 frame forms (closest and
-// any hit, cursors = 1) as the other sides of the A/B that chip_smoke.py
-// times, and no entry point reaches them: the first versions (one ray per
-// thread, a per-thread stack in local memory, drains as the oracle walks)
-// and the persistent kernel with the stack below its top in dynamic shared
-// memory, sized from the tree's stack need (TraversalStack<true>).
+// This is the one design of every traversal library.  A kernel of one ray
+// per thread, and this one with the stack in shared memory, were timed
+// against it on the H100 and lost (PERF.md).
 
 #pragma once
 
@@ -420,22 +417,12 @@ struct TraceArgs {
     unsigned* counter;   // the ray pool: zeroed by the launch
 };
 
-// The dynamic shared memory of the shared-memory stacks: entry i of thread
-// x at [i * kBlock + x], so a warp's 32 entries of one depth sit in 32
-// banks.
-extern __shared__ int trace_stack_smem[];
-
 // The traversal stack of one lane: the top in a register, above the
-// sentinel kEmpty, and the entries below it in local memory (kShared
-// false: the kernel's own array of STACK_SIZE entries, which bind() takes,
-// so that the lane's other state can live in registers) or in
-// trace_stack_smem (the launch sizes it to the tree's need).  pop() on an
-// empty stack returns kEmpty.
-template <bool kShared>
-struct TraversalStack;
-
-template <>
-struct TraversalStack<false> {
+// sentinel kEmpty, and the entries below it in local memory (the kernel's
+// own array of STACK_SIZE entries, which bind() takes, so that the lane's
+// other state can live in registers).  pop() on an empty stack returns
+// kEmpty.
+struct TraversalStack {
     int top;
     int sp;
     int* mem;
@@ -452,31 +439,6 @@ struct TraversalStack<false> {
     __device__ __forceinline__ int pop() {
         const int x = top;
         if (x != kEmpty) top = mem[--sp];
-        return x;
-    }
-};
-
-template <>
-struct TraversalStack<true> {
-    int top;
-    int off;   // the next free entry's index in trace_stack_smem
-
-    __device__ __forceinline__ void bind(int*) {}
-    __device__ __forceinline__ void clear() {
-        top = kEmpty;
-        off = threadIdx.x;
-    }
-    __device__ __forceinline__ void push(int x) {
-        trace_stack_smem[off] = top;
-        off += kBlock;
-        top = x;
-    }
-    __device__ __forceinline__ int pop() {
-        const int x = top;
-        if (x != kEmpty) {
-            off -= kBlock;
-            top = trace_stack_smem[off];
-        }
         return x;
     }
 };
@@ -831,19 +793,10 @@ struct LaunchCtx {
     const void* window_base;
     size_t window_bytes;
     size_t set_aside;
-    int design;       // kPersistent, kFirst or kSharedStack
-    int stack_need;   // stack entries the tree needs (0 <= need <= STACK_SIZE)
     int* shape;       // host int[4] (grid, blocks per SM, dynamic smem bytes,
                       // SMs), or null
     int slots = 1;    // rays a thread holds (the slot forms' kSlots)
 };
-
-// The `design` argument of the C ABI.  The designs but the persistent
-// kernel exist only for the vmem f32 frame forms at cursors = 1, and each
-// only in the libraries that keep it.
-constexpr int kPersistent = 0;   // the persistent kernel, stack in local memory
-constexpr int kFirst = 1;        // the first versions: one ray per thread
-constexpr int kSharedStack = 2;  // the persistent kernel, stack in shared memory
 
 // Shared memory the runtime reserves per block (sm_90).
 constexpr size_t kSmemReserved = 1024;
@@ -852,10 +805,10 @@ constexpr size_t kSmemReserved = 1024;
 // shared memory: the device's SMs x the blocks that fit on one, clipped to
 // the blocks n_rays need at `slots` rays per thread.  The L1 / shared
 // carveout is the shared memory of the blocks the registers allow, and no
-// more: the rest is L1, where the local-memory stack lives.  The carveout is an attribute of the kernel,
-// not of the launch, and one kernel is launched with a different `smem` for
-// each tree, so it is set again before every launch; the occupancy and
-// carveout of each (device, kernel, smem) are computed once.
+// more: the rest is L1, where the local-memory stack lives.  The carveout
+// is an attribute of the kernel, not of the launch, so it is set again
+// before every launch; the occupancy and carveout of each (device, kernel,
+// smem) are computed once.
 template <typename... Params>
 cudaError_t persistent_grid(void (*kernel)(Params...), int n_rays, size_t smem, int out[4],
                             int slots = 1) {
@@ -949,35 +902,6 @@ cudaError_t launch_persistent(void (*kernel)(Params...), int n_rays, size_t smem
     }
     return launch_window(kernel, shape[0], smem, ctx.stream, ctx.window_base, ctx.window_bytes,
                          ctx.set_aside, args...);
-}
-
-// A launch of one ray per thread (the first versions) with `smem` bytes of
-// dynamic shared memory: ceil(n_rays / kBlock) blocks; shape gets (grid, 0,
-// smem, SMs).
-template <typename... Params, typename... Args>
-cudaError_t launch_per_ray(void (*kernel)(Params...), int n_rays, size_t smem,
-                           const LaunchCtx& ctx, Args... args) {
-    const int grid = (n_rays + kBlock - 1) / kBlock;
-    if (ctx.shape != nullptr) {
-        int dev = 0, sms = 0;
-        cudaError_t err = cudaGetDevice(&dev);
-        if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (err != cudaSuccess) return err;
-        ctx.shape[0] = grid;
-        ctx.shape[1] = 0;
-        ctx.shape[2] = static_cast<int>(smem);
-        ctx.shape[3] = sms;
-    }
-    return launch_window(kernel, grid, smem, ctx.stream, ctx.window_base, ctx.window_bytes,
-                         ctx.set_aside, args...);
-}
-
-// Dynamic shared memory of a shared-memory stack of `need` entries per
-// thread (at least one, so that the launch always has the table).  At most
-// STACK_SIZE entries: within the 48 KB a launch may take without opting in.
-static_assert(STACK_SIZE * kBlock * sizeof(int) <= 48 * 1024, "shared stack above 48 KB");
-inline size_t stack_smem(int need) {
-    return static_cast<size_t>(need > 0 ? need : 1) * kBlock * sizeof(int);
 }
 
 }  // namespace tpu_rt_torch

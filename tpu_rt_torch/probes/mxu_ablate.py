@@ -9,7 +9,7 @@ fresh closest-hit query.  Variants (see the source): ``scalar`` (the
 scalar kernels' f32 drain), ``full`` (the MXU form's tile phase: the
 epilogue in the mma's D fragments), ``noL`` (L from shared memory, built
 once), ``noM`` (no tensor-core products), ``epi0`` (the products summed, no
-epilogue), ``smem`` (the first version's phase: the products through a
+epilogue), ``smem`` (the product-table phase: the products through a
 table in shared memory).  ``full``, ``noL`` and ``smem`` compute one
 function.  ``tpu_rt``'s ``noT`` and ``noR`` time TPU relayouts that have
 no counterpart on the card.

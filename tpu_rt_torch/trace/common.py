@@ -24,12 +24,9 @@ names end in ``_c``), the binary kernel's tensor-core leaf test
 cursors; ``_mxu``) and the slot forms, one library per K
 (``quad_trace_k<K>``, ``flat_trace_k<K>``: tpu_rt's ``k``, ``u`` and
 ``tile``, see ``check_schedule``; ``_k<K>``, then ``_u<U>`` and
-``_t<tile>`` where given).  All run as persistent warps that fetch their rays
-from a pool (``trace_common.cuh``); ``quad_trace``, ``flat_trace`` and
-``flat_trace_mxu`` also keep the first versions of their vmem f32 frame
-forms (one ray per thread), and the first two a placement of the stack in
-shared memory, which only an A/B reaches (``CudaTraceKernel.launch``'s
-``design``; ``CudaTraceKernel.designs``).
+``_t<tile>`` where given).  Every library has one design: persistent warps
+that fetch their rays from a pool, each lane's traversal stack in local
+memory below a top held in a register (``trace_common.cuh``).
 
 The ``mixed`` residency holds the node table in a persisting L2
 access-policy window attached to each launch.  Its set-aside (the device's
@@ -75,21 +72,13 @@ MXU_LEAF = 8
 SLOTS = (1, 2, 4, 8)
 MAX_UNITS = 32
 
-# Threads per block of every traversal kernel (trace_common.cuh kBlock) and
-# the shared memory one block may use on sm_90 (227 KB).
+# Threads per block of every traversal kernel (trace_common.cuh kBlock).
 BLOCK = 128
-MAX_SHARED_PER_BLOCK = 232_448
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               f"-DSTACK_SIZE={STACK_SIZE}"]
-
-# The `design` argument of the C ABI (trace_common.cuh): the persistent
-# kernel, and, for the vmem f32 frame forms at cursors = 1 only, the first
-# versions and the persistent kernel with its stack in shared memory (in
-# the libraries that keep them: CudaTraceKernel.designs).
-DESIGNS = {"persistent": 0, "first": 1, "shared_stack": 2}
 
 
 class StackDepthError(ValueError):
@@ -128,20 +117,6 @@ def persistent_grid(n_rays: int, sms: int, blocks_per_sm: int, block: int = BLOC
     if sms < 1 or blocks_per_sm < 1:
         raise ValueError(f"need an SM count and blocks per SM >= 1, got {sms}, {blocks_per_sm}")
     return min(sms * blocks_per_sm, -(-max(int(n_rays), 0) // block))
-
-
-def shared_stack_bytes(need: int, block: int = BLOCK) -> int:
-    """Dynamic shared memory of a block's shared-memory stacks for a tree
-    whose stack needs ``need`` entries (``check_stack``'s need): ``need``
-    int32 entries per thread, at least one (the kernels' ``stack_smem``).
-    Refuses more than a block may use."""
-    if need < 0:
-        raise ValueError(f"stack need must be >= 0, got {need}")
-    nbytes = max(int(need), 1) * block * 4
-    if nbytes > MAX_SHARED_PER_BLOCK:
-        raise StackDepthError(f"a shared-memory stack of {need} entries for {block} threads is "
-                              f"{nbytes} B > {MAX_SHARED_PER_BLOCK} B per block")
-    return nbytes
 
 
 def check_cursors(cursors) -> int:
@@ -495,25 +470,22 @@ class CudaTraceKernel:
     The C entry point takes the table arguments, then origin, dirn, tmin,
     tmax, out_tri, out_t, out_u, out_v, out_node_tests, out_tri_tests,
     n_rays, cursors, any_hit, want_uv, stats, nodes_stream, tris_stream,
-    window_bytes, set_aside, design, stack_need, counter, shape, stream
-    (``argtypes``; the QUAD_LAUNCH_ARGS / FLAT_LAUNCH_ARGS macros of
-    ``csrc/``).  ``last_shape`` holds the last launch's grid, blocks per SM,
-    dynamic shared memory and SM count.  ``designs`` are the ``DESIGNS``
-    the library keeps (``check_design``).
+    window_bytes, set_aside, counter, shape, stream (``argtypes``; the
+    QUAD_LAUNCH_ARGS / FLAT_LAUNCH_ARGS macros of ``csrc/``).
+    ``last_shape`` holds the last launch's grid, blocks per SM, dynamic
+    shared memory and SM count.
 
     A slot library (``slots`` = K, one of SLOTS) takes U (``units``) and S
     (``tile``, 0 for none) before the table arguments, and counts its
     launches under ``form_name(..., k=K, u=, tile=)`` + layout."""
 
     def __init__(self, name: str, table_argtypes: list, suffix: str = "",
-                 cursors: tuple[int, int] = (1, 1), designs: tuple = ("persistent",),
-                 slots: int | None = None):
+                 cursors: tuple[int, int] = (1, 1), slots: int | None = None):
         self.name = name
         self.source = os.path.join(CSRC, f"{name}.cu")
         self.table_argtypes = table_argtypes
         self.suffix = suffix
         self.cursors = cursors
-        self.designs = designs
         self.slots = slots
         self.forms = tuple(form_name(a, u, s, k=slots) + suffix for a in (False, True)
                            for u in (False, True) for s in (False, True))
@@ -534,7 +506,7 @@ class CudaTraceKernel:
         vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         schedule = [ci, ci] if self.slots else []
         return (schedule + self.table_argtypes + [vp] * 10 + [ci] * 7
-                + [sz, sz, ci, ci, vp, vp, vp])
+                + [sz, sz, vp, vp, vp])
 
     def load(self):
         if self._fn is None:
@@ -591,38 +563,16 @@ class CudaTraceKernel:
         self.launches = 0
         self.launches_by_form = dict.fromkeys(self.forms, 0)
 
-    def check_design(self, design: str, want_uv: bool = False, with_stats: bool = False,
-                     residency: str = "vmem", bf16_nodes: bool = False, cursors: int = 1) -> None:
-        """Refuse a ``design`` the library does not keep for this form: any
-        design but "persistent" exists only in ``designs``, and only for the
-        vmem f32 frame forms at cursors = 1."""
-        if design not in DESIGNS:
-            raise ValueError(f"design must be one of {sorted(DESIGNS)}, got {design!r}")
-        if design not in self.designs:
-            raise ValueError(f"{self.name} keeps the designs {self.designs}, not {design!r}")
-        if design != "persistent" and (want_uv or with_stats or residency != "vmem" or bf16_nodes
-                                       or cursors != 1):
-            raise ValueError(f"design {design!r} exists for the vmem f32 frame forms at "
-                             "cursors = 1 only")
-
     def launch(self, tables: list, table_args: list, rays: Rays, any_hit: bool,
                want_uv: bool, with_stats: bool, residency: str = "vmem",
-               bf16_nodes: bool = False, cursors: int = 1, stack_need: int = STACK_SIZE,
-               design: str = "persistent", units: int | None = None, tile: int | None = None):
-        """Check ``tables`` ([(name, tensor, dtype, shape)]; the first is
-        the node table, and float32 and int32 tables are read as 16-byte
-        rows), ``rays`` and ``cursors``, launch the form on tables of
-        ``residency`` whose tree needs ``stack_need`` stack entries, and
-        return what the plain version returns.  ``design`` (``DESIGNS``)
-        other than "persistent" picks the first version or the shared-memory
-        stack of a vmem f32 frame form at cursors = 1, for an A/B, where
-        the library keeps it (``check_design``); its launches count under
-        the form's key + "/" + design.  No wrapper's ``__call__`` passes it:
-        ``launch_args`` gives the rest.  ``units`` and ``tile`` (U and S,
-        ``check_schedule``) go to a slot library only."""
-        dev = rays.origin.device
-        if dev.type != "cuda":
-            raise ValueError(f"{self.name} needs CUDA tensors, got {dev}")
+               bf16_nodes: bool = False, cursors: int = 1, units: int | None = None,
+               tile: int | None = None):
+        """Check ``cursors`` (in the library's range) and ``units`` /
+        ``tile`` (U and S, ``check_schedule``: to a slot library only)
+        before any tensor, then ``tables`` ([(name, tensor, dtype, shape)];
+        the first is the node table, and float32 and int32 tables are read
+        as 16-byte rows) and ``rays``; launch the form on tables of
+        ``residency``, and return what the plain version returns."""
         lo, hi = self.cursors
         if not lo <= cursors <= hi:
             raise ValueError(f"{self.name} takes cursors {lo}..{hi}, got {cursors}")
@@ -630,11 +580,9 @@ class CudaTraceKernel:
             raise ValueError(f"{self.name} takes no u or tile (a slot library does)")
         if self.slots is not None:
             check_schedule(tile, self.slots, units)
-        self.check_design(design, want_uv, with_stats, residency, bf16_nodes, cursors)
-        if not 0 <= stack_need <= STACK_SIZE:
-            raise StackDepthError(f"stack need {stack_need} outside 0..STACK_SIZE={STACK_SIZE}")
-        if design == "shared_stack":
-            shared_stack_bytes(stack_need)
+        dev = rays.origin.device
+        if dev.type != "cuda":
+            raise ValueError(f"{self.name} needs CUDA tensors, got {dev}")
         n = rays.origin.shape[0]
         f32, i32 = torch.float32, torch.int32
         checks = tables + [("origin", rays.origin, f32, (n, 3)), ("dirn", rays.dirn, f32, (n, 3)),
@@ -672,8 +620,8 @@ class CudaTraceKernel:
             err = fn(*schedule, *table_args, rays.origin.data_ptr(), rays.dirn.data_ptr(),
                      rays.tmin.data_ptr(), rays.tmax.data_ptr(), *outs, n, int(cursors),
                      int(bool(any_hit)), int(bool(want_uv)), int(bool(with_stats)),
-                     int(nodes_stream), int(tris_stream), window, set_aside, DESIGNS[design],
-                     int(stack_need), counter.data_ptr(), ctypes.addressof(shape), stream)
+                     int(nodes_stream), int(tris_stream), window, set_aside,
+                     counter.data_ptr(), ctypes.addressof(shape), stream)
         if set_aside:
             _L2_HELD.add(self)
         if err != 0:
@@ -682,9 +630,7 @@ class CudaTraceKernel:
             self.last_shape = dict(zip(("grid", "blocks_per_sm", "smem_bytes", "sms"), shape))
         self.launches += 1
         key = (form_name(any_hit, want_uv, with_stats, k=self.slots, u=units, tile=tile)
-               + self.suffix
-               + layout_name(residency, bf16_nodes)
-               + ("" if design == "persistent" else f"/{design}"))
+               + self.suffix + layout_name(residency, bf16_nodes))
         self.launches_by_form[key] = self.launches_by_form.get(key, 0) + 1
         if not want_uv:
             # The frame forms write no u, v: zeros, enqueued after the

@@ -302,11 +302,9 @@ class FlatTraceKernel(CudaTraceKernel):
     ``flat_trace.cu`` or ``flat_trace_c.cu`` (postponed leaves)."""
 
     def __init__(self, name: str = "flat_trace", suffix: str = "",
-                 cursors: tuple[int, int] = (1, 1),
-                 designs: tuple = ("persistent", "first", "shared_stack"),
-                 slots: int | None = None):
+                 cursors: tuple[int, int] = (1, 1), slots: int | None = None):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        super().__init__(name, [vp, ci, ci, vp, vp, ci], suffix, cursors, designs, slots)
+        super().__init__(name, [vp, ci, ci, vp, vp, ci], suffix, cursors, slots)
 
     def launch_args(self, tables: FlatTables) -> tuple[list, list, dict]:
         """``launch``'s table checks, table arguments and table options."""
@@ -318,8 +316,7 @@ class FlatTraceKernel(CudaTraceKernel):
                   ("leaf_counts", tables.leaf_counts, torch.int32, (nc,))]
         args = [tables.nodes.data_ptr(), tables.nodes.shape[0], int(tables.bf16_nodes),
                 tables.woop.data_ptr(), tables.leaf_counts.data_ptr(), nc]
-        return checks, args, {"residency": tables.residency, "bf16_nodes": tables.bf16_nodes,
-                              "stack_need": tables.depth}
+        return checks, args, {"residency": tables.residency, "bf16_nodes": tables.bf16_nodes}
 
     def __call__(self, tables: FlatTables, rays: Rays, any_hit: bool = False,
                  want_uv: bool = False, with_stats: bool = False, cursors: int = 1,
@@ -331,13 +328,11 @@ class FlatTraceKernel(CudaTraceKernel):
 
 class FlatMxuKernel(FlatTraceKernel):
     """Wrapper of ``flat_trace_mxu.cu``, the tensor-core leaf test with
-    1..MAX_CURSORS leaves held per ray (and, for its vmem f32 frame forms,
-    the first version, ``design="first"``); refuses leaves wider than
+    1..MAX_CURSORS leaves held per ray; refuses leaves wider than
     MXU_LEAF."""
 
     def __init__(self):
-        super().__init__("flat_trace_mxu", "_mxu", (1, MAX_CURSORS),
-                         ("persistent", "first"))
+        super().__init__("flat_trace_mxu", "_mxu", (1, MAX_CURSORS))
 
     def __call__(self, tables: FlatTables, rays: Rays, any_hit: bool = False,
                  want_uv: bool = False, with_stats: bool = False, cursors: int = 1):
@@ -345,23 +340,22 @@ class FlatMxuKernel(FlatTraceKernel):
         return super().__call__(tables, rays, any_hit, want_uv, with_stats, cursors)
 
 
-# Dynamic shared memory per block of the tensor-core form's designs
-# (mxu_leaf.cuh): a warp's ray table (MxuRays, 1,408 bytes) or, in the first
-# version, its product table (MxuWarp, 7,104 bytes), for each of 4 warps.
-MXU_SMEM = {"persistent": 4 * 1408, "first": 4 * 7104}
+# Dynamic shared memory per block of the tensor-core form (mxu_leaf.cuh): a
+# warp's ray table (MxuRays, 1,408 bytes) for each of 4 warps.
+MXU_SMEM = 4 * 1408
 
 KERNEL = FlatTraceKernel()
-KERNEL_C = FlatTraceKernel("flat_trace_c", "_c", (2, MAX_CURSORS), ("persistent",))
+KERNEL_C = FlatTraceKernel("flat_trace_c", "_c", (2, MAX_CURSORS))
 KERNEL_MXU = FlatMxuKernel()
 # The slot forms, one library per K.
-KERNEL_K = {k: FlatTraceKernel(f"flat_trace_k{k}", "", (1, 1), ("persistent",), k)
+KERNEL_K = {k: FlatTraceKernel(f"flat_trace_k{k}", "", (1, 1), k)
             for k in SLOTS}
 KERNELS = (KERNEL, KERNEL_C, KERNEL_MXU, *KERNEL_K.values())
 
 
 def kernel_for(mxu: bool, cursors: int) -> FlatTraceKernel:
     """The library of a form: the tensor-core leaf test, postponed leaves
-    (cursors > 1) or the first versions' forms."""
+    (cursors > 1) or the default forms."""
     return KERNEL_MXU if mxu else KERNEL_C if cursors > 1 else KERNEL
 
 

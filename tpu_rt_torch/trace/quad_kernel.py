@@ -242,11 +242,9 @@ class QuadTraceKernel(CudaTraceKernel):
     leaves; see ``CudaTraceKernel``)."""
 
     def __init__(self, name: str = "quad_trace", suffix: str = "",
-                 cursors: tuple[int, int] = (1, 1),
-                 designs: tuple = ("persistent", "first", "shared_stack"),
-                 slots: int | None = None):
+                 cursors: tuple[int, int] = (1, 1), slots: int | None = None):
         super().__init__(name, [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], suffix, cursors,
-                         designs, slots)
+                         slots)
 
     def launch_args(self, tables: QuadTables) -> tuple[list, list, dict]:
         """``launch``'s table checks, table arguments and table options."""
@@ -254,7 +252,7 @@ class QuadTraceKernel(CudaTraceKernel):
         checks = [("nodes", tables.nodes, f32, (tables.nodes.shape[0], 32)),
                   ("woop", tables.woop, f32, (tables.woop.shape[0], 16))]
         args = [tables.nodes.data_ptr(), tables.nodes.shape[0], tables.woop.data_ptr()]
-        return checks, args, {"residency": tables.residency, "stack_need": 3 * tables.depth}
+        return checks, args, {"residency": tables.residency}
 
     def __call__(self, tables: QuadTables, rays: Rays, any_hit: bool = False,
                  want_uv: bool = False, with_stats: bool = False, cursors: int = 1,
@@ -265,9 +263,9 @@ class QuadTraceKernel(CudaTraceKernel):
 
 
 KERNEL = QuadTraceKernel()
-KERNEL_C = QuadTraceKernel("quad_trace_c", "_c", (2, MAX_CURSORS), ("persistent",))
+KERNEL_C = QuadTraceKernel("quad_trace_c", "_c", (2, MAX_CURSORS))
 # The slot forms, one library per K.
-KERNEL_K = {k: QuadTraceKernel(f"quad_trace_k{k}", "", (1, 1), ("persistent",), k)
+KERNEL_K = {k: QuadTraceKernel(f"quad_trace_k{k}", "", (1, 1), k)
             for k in SLOTS}
 KERNELS = (KERNEL, KERNEL_C, *KERNEL_K.values())
 
