@@ -1232,7 +1232,7 @@ def bound(what, tables, rays, counts, seen, boxes, want_uv=False, with_stats=Fal
         rows[name] = (int(mask.sum()), mask.numel(),
                       x.element_size() * (x.shape[1] if x.dim() > 1 else 1))
     table_b = sum(r * b for r, _, b in rows.values())
-    out_b = HIT_OUT_BYTES + (8 if want_uv else 0) + (8 if with_stats else 0)
+    out_b = HIT_OUT_BYTES + (8 if want_uv else 0) + (12 if with_stats else 0)
     nbytes = table_b + rays.num * (RAY_IN_BYTES + out_b)
     t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3 + t_dots, nbytes / PEAK_BYTES * 1e3
     print(f"bound {what}: rows read " + ", ".join(f"{k} {r} of {n} ({r * b} B)"
@@ -1548,6 +1548,7 @@ def dragon_frames(t0, quad_k, flat_k, dev, dctx):
                "v": bits_differ(uv.v, want.v), "stats_t": bits_differ(hits_s.t, want.t),
                "node_tests": int((cnt["node_tests"] != want_cnt["node_tests"]).sum()),
                "tri_tests": int((cnt["tri_tests"] != want_cnt["tri_tests"]).sum()),
+               "stack": int((cnt["stack"] != want_cnt["stack"]).sum()),
                "any_tri": int((anyb1.tri != want_a.tri).sum()),
                "any_t": bits_differ(anyb1.t, want_a.t),
                "t_vs_binary_f32": bits_differ(closest.t, ref.t),

@@ -27,7 +27,8 @@ from tpu_rt_torch.scene import procedural as port_procedural
 from tpu_rt_torch.trace import make_routing_tracer
 
 CELL = "sanmiguel-diffuse"
-COUNTERS = ("trace.stats_rays", "trace.node_tests", "trace.tri_tests", "trace.warp_tests")
+COUNTERS = ("trace.stats_rays", "trace.node_tests", "trace.tri_tests", "trace.warp_tests",
+            "trace.stack_entries")
 NEW_READERS = ("tests_per_ray.trace", "simt_efficiency.trace")
 
 
@@ -224,8 +225,10 @@ def test_stats_route_records_its_sums(tree, prefer):
     spans.reset()
     assert set(got) == set(COUNTERS)
     assert got["trace.stats_rays"] == 2 * rays.num
-    for k in ("node_tests", "tri_tests"):
-        assert got[f"trace.{k}"] == int(stats[k].sum()) + int(stats2[k].sum())
+    for k, name in (("node_tests", "node_tests"), ("tri_tests", "tri_tests"),
+                    ("stack", "stack_entries")):
+        assert got[f"trace.{name}"] == int(stats[k].sum()) + int(stats2[k].sum())
+    assert got["trace.stack_entries"] > 0
     assert got["trace.warp_tests"] == census(stats)[1] + census(stats2)[1]
 
 
@@ -258,7 +261,7 @@ def test_readers_read_the_counters_and_nothing_else():
     for name in NEW_READERS:
         m = entries[name]
         assert (m["source"], m["layer"], m["moves"], m["workloads"]) == (
-            "program_counter", "trace kernels", "mrays_per_s", [CELL])
+            "program_counter", "trace kernels", "mrays_per_s", [CELL, "hairball-primary"])
 
 
 def test_diffuse_frame_names_its_raygen_span():

@@ -211,10 +211,34 @@ def test_deep_tree_refused_and_traced():
         np.testing.assert_array_equal(_bits(hits.t.numpy()), _bits(s_t))
         np.testing.assert_array_equal(counts["node_tests"].numpy(), st.per_ray_node_tests)
         np.testing.assert_array_equal(counts["tri_tests"].numpy(), st.per_ray_tri_tests)
+        # Along +x the near child is leaf i: node 0 pushes the rest of the
+        # chain when the ray reaches it (x = 1, t = 2) and pops it at once.
+        assert counts["stack"].tolist() == (tmax >= 2).astype(int).tolist()
     b_id, _, _, _ = intersect_brute(tris, o, d, tmin, tmax)
     np.testing.assert_array_equal(s_id >= 0, b_id >= 0)
     with pytest.raises(StackDepthError, match="STACK_SIZE"):
         upload_flat(_chain_flat(STACK_SIZE + 1)[0], "cpu")
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_stack_counter_by_hand(any_hit):
+    # Along -x from past the chain's end the rest of the chain is the near
+    # child at every node, so each of the STACK_SIZE nodes pushes its leaf
+    # and the stack holds one entry a level: STACK_SIZE at once, the most
+    # the binary stack takes.  From inside the chain, at x = 10.5, the rest
+    # of the chain is the near child at nodes 0..9, which push their
+    # leaves, and node 10 has only its leaf ahead: 10 at once.  A ray that
+    # has nothing to trace pushes none.
+    flat, _ = _chain_flat(STACK_SIZE)
+    tables = upload_flat(flat, "cpu")
+    o = np.float32([[STACK_SIZE + 1, 0.1, 0.2], [10.5, 0.1, 0.2], [STACK_SIZE + 1, 0.1, 0.2]])
+    d = np.tile(np.float32([-1.0, 0.0, 0.0]), (3, 1))
+    tmax = np.float32([1e3, 1e3, -1])
+    hits, counts = trace_flat_plain(tables, make_rays(o, d, np.zeros(3), tmax, device="cpu"),
+                                    any_hit=any_hit, with_stats=True)
+    assert hits.tri.tolist() == [STACK_SIZE, 10, -1]
+    assert counts["stack"].tolist() == [STACK_SIZE, 10, 0]
+    assert int(counts["stack"].max()) <= tables.depth
 
 
 def test_auto_falls_to_binary_only_for_a_deep_quad_tree():

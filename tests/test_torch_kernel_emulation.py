@@ -177,7 +177,7 @@ def _launch(lib, wrapper, name, table_args, rays, any_hit, uv, stats, cursors, r
     tri = torch.full((n,), 12345, dtype=torch.int32)
     t = torch.full((n,), 7.0)
     u, v = torch.full((n,), 9.0), torch.full((n,), 9.0)
-    nt, tt = torch.full((n,), -5, dtype=torch.int32), torch.full((n,), -5, dtype=torch.int32)
+    nt, tt, sk = (torch.full((n,), -5, dtype=torch.int32) for _ in range(3))
     counter = torch.full((1,), 77, dtype=torch.int32)
     shape = (ctypes.c_int * 4)(-1, -1, -1, -1)
     sn, st = _residency_flags(residency)
@@ -185,10 +185,10 @@ def _launch(lib, wrapper, name, table_args, rays, any_hit, uv, stats, cursors, r
     err = fn(*schedule, *table_args, rays.origin.data_ptr(), rays.dirn.data_ptr(),
              rays.tmin.data_ptr(), rays.tmax.data_ptr(), tri.data_ptr(), t.data_ptr(),
              u.data_ptr() if uv else None, v.data_ptr() if uv else None,
-             nt.data_ptr() if stats else None, tt.data_ptr() if stats else None, n, cursors,
+             *(x.data_ptr() if stats else None for x in (nt, tt, sk)), n, cursors,
              int(any_hit), int(uv), int(stats), int(sn), int(st), 0, 0, counter.data_ptr(),
              ctypes.addressof(shape), None)
-    return err, (tri, t, u, v, nt, tt), list(shape), int(counter[0])
+    return err, (tri, t, u, v, nt, tt, sk), list(shape), int(counter[0])
 
 
 _PLAIN = {}
@@ -277,7 +277,7 @@ def test_kernel_equals_plain(libs, scene, kernel, cursors, any_hit, uv, stats, r
     # The slot forms' plain version is the default forms' (cursors = 1).
     want, want_cnt = _plain(scene, tree, tables, rays, any_hit, cursors,
                             (scene, tree, residency, bf16, any_hit, cursors))
-    tri, t, u, v, nt, tt = got
+    tri, t, u, v, nt, tt, sk = got
     assert torch.equal(tri, want.tri)
     assert torch.equal(_bits(t), _bits(want.t))
     if uv:
@@ -285,6 +285,7 @@ def test_kernel_equals_plain(libs, scene, kernel, cursors, any_hit, uv, stats, r
     if stats:
         assert torch.equal(nt, want_cnt["node_tests"])
         assert torch.equal(tt, want_cnt["tri_tests"])
+        assert torch.equal(sk, want_cnt["stack"])
     n = rays.origin.shape[0]
     smem = MXU_SMEM if kernel == "mxu" else 0
     assert shape == [persistent_grid(n, SMS, PER_SM, BLOCK * (k or 1)), PER_SM, smem, SMS]

@@ -149,12 +149,18 @@ def test_plain_uv_and_counters(setup, any_hit):
     # hit and stops there, so it never does more work.
     live = tmax >= 0
     nt, tt = counts["node_tests"].numpy(), counts["tri_tests"].numpy()
-    assert counts["node_tests"].dtype == torch.int32
+    sk = counts["stack"].numpy()
+    assert counts["node_tests"].dtype == counts["stack"].dtype == torch.int32
     assert np.all(nt[live] >= 1) and not nt[~live].any() and not tt[~live].any()
+    # The stack holds at most 3 entries a level.  A closest-hit ray tests
+    # every node it pushes, so one that tested one node pushed none.
+    assert not sk[~live].any() and sk.max() <= 3 * tables.depth and sk.max() > 0
+    assert any_hit or not sk[nt == 1].any()
     assert np.all(tt[hits.tri.numpy() >= 0] >= 1)
     if any_hit:
         _, c_counts = trace_quad_plain(tables, rays, with_stats=True)
         assert np.all(nt <= c_counts["node_tests"].numpy())
+        assert np.all(sk <= c_counts["stack"].numpy())
         assert np.all(tt <= c_counts["tri_tests"].numpy())
         assert np.any(tt < c_counts["tri_tests"].numpy())
 
@@ -195,6 +201,48 @@ def _chain_quad(depth):
     woop = np.zeros((1, 12), np.float32)
     return type("Quad", (), {"nodes": nodes, "tri_woop": woop,
                              "tri_index": np.zeros(1, np.int32)})()
+
+
+def _comb_quad(levels):
+    """A quad tree of ``levels`` comb nodes over one level of empty inner
+    nodes (depth ``levels`` + 1): comb node q holds, in stored order, comb
+    node q + 1 (the last: a leaf of one triangle) and three inner nodes
+    with no children; every box is [-1, 1]^3, every hint axis x."""
+    rows = 4 * levels
+    nodes = np.full((rows, 32), np.nan, np.float32)
+    links = np.full((rows, 4), 0x7FFFFFFF, np.int32)
+    for q in range(levels):
+        nodes[q, 0:24] = [-1, 1] * 12
+        links[q] = [q + 1 if q + 1 < levels else ~(0 | (1 << 24)),
+                    *(levels + 3 * q + j for j in range(3))]
+    nodes[:, 24:28] = links.view(np.float32)
+    nodes[:, 28:32] = np.zeros((rows, 4), np.int32).view(np.float32)
+    woop = np.zeros((1, 12), np.float32)
+    return type("Quad", (), {"nodes": nodes, "tri_woop": woop,
+                             "tri_index": np.zeros(1, np.int32)})()
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_stack_counter_by_hand(any_hit):
+    # Along +x every comb node is visited in stored order: it goes to the
+    # next comb node and pushes its three empty nodes, and the last pushes
+    # two (its first child is the leaf), so the stack holds 3 L - 1 entries
+    # at once.  Along -x (reversed order) each comb node pushes three, the
+    # walk pops the two empty ones and the next comb node: 3 at once.  A
+    # ray that misses the root's boxes or has nothing to trace pushes none.
+    # None passes the 3 x depth that the upload allows.
+    levels = STACK_SIZE // 3 - 1
+    tables = upload_quad(_comb_quad(levels), "cpu")
+    assert tables.depth == levels + 1
+    o = np.float32([[-5, 0.1, 0.2], [5, 0.1, 0.2], [-5, 3, 3], [-5, 0.1, 0.2],
+                    [-5, 0.1, 0.2]])
+    d = np.float32([[1, 0, 0], [-1, 0, 0], [1, 0, 0], [1, 0, 0], [1, 0, 0]])
+    tmax = np.float32([100, 100, 100, 1, -1])
+    _, counts = trace_quad_plain(tables, make_rays(o, d, np.zeros(5), tmax, device="cpu"),
+                                 any_hit=any_hit, with_stats=True)
+    assert counts["stack"].dtype == torch.int32
+    assert counts["stack"].tolist() == [3 * levels - 1, 3, 0, 0, 0]
+    assert int(counts["stack"].max()) <= 3 * tables.depth <= STACK_SIZE
 
 
 def test_upload_depth_check():

@@ -330,6 +330,7 @@ def test_benchmark_entries_name_files():
         assert os.path.exists(os.path.join(paths.BENCH_DIR, "metrics", f"{name}.py"))
     assert entries["launch_us_per_call.trace"]["workloads"] == ["conference-ao8",
                                                                 "dragon-primary",
-                                                                "sanmiguel-diffuse"]
+                                                                "sanmiguel-diffuse",
+                                                                "hairball-primary"]
     assert entries["host_wait_ms.frame"]["workloads"] == ["conference-ao8-frames"]
     assert entries["pretrace_ms.frame"]["workloads"] == ["conference-ao8-frames"]

@@ -102,7 +102,7 @@ def test_wavefront_matches_oracle_and_binary_plain(setup, any_hit):
                                         with_stats=True)
     np.testing.assert_array_equal(k_hits.tri.numpy(), got.tri.numpy())
     np.testing.assert_array_equal(k_counts["node_tests"].numpy(), st.per_ray_node_tests)
-    for k in ("node_tests", "tri_tests"):
+    for k in ("node_tests", "tri_tests", "stack"):
         same = (k_counts[k] == counts[k]).float().mean()
         assert same >= 0.99, (k, same)
 

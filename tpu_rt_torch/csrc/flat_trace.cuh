@@ -24,8 +24,10 @@
 // is comparable.  node_tests (inner nodes visited) and tri_tests
 // (triangles tested) count what the oracle's RayStats count
 // (cpu_reference.py:223, :254), so they equal `per_ray_node_tests` and
-// `per_ray_tri_tests`.  With -fmad=false and no fast math, every float op
-// is the oracle's in its order, so (tri, t, u, v) equal it bit for bit.
+// `per_ray_tri_tests`; stack is the most entries the ray's stack held in
+// local memory at once (at most one a level).  With -fmad=false and no
+// fast math, every float op is the oracle's in its order, so (tri, t, u, v)
+// equal it bit for bit.
 //
 // Node formats and residencies (row 6 of the kernel table, the large-scene
 // variants of `_kernel2`):
@@ -176,11 +178,12 @@ __device__ __forceinline__ void test_children(const float4* __restrict__ nodes, 
 
 // One lane of the persistent binary kernel: its ray, its hit, its link
 // (an inner node to test, a leaf, or kEmpty), the leaf it drains next
-// (`pending`, a leaf link, or 0), its stack and, in the postponed forms,
-// its held leaves.
+// (`pending`, a leaf link, or 0), its stack (and in the counter forms the
+// stack's high-water, StackHigh) and, in the postponed forms, its held
+// leaves.
 template <bool kAnyHit, bool kWantUv, bool kStats, bool kBf16Nodes, bool kStreamNodes,
           bool kStreamTris, bool kPostpone>
-struct FlatLane {
+struct FlatLane : StackHigh<kStats> {
     int ray = -1;
     LeanRay r;
     Hit h;
@@ -194,14 +197,15 @@ struct FlatLane {
     __device__ __forceinline__ bool walking() const { return ray >= 0 && pending == 0; }
 
     __device__ __forceinline__ void finish(const TraceArgs& a) {
-        store_hit<kWantUv, kStats>(h, ray, a.out_tri, a.out_t, a.out_u, a.out_v,
-                                   a.out_node_tests, a.out_tri_tests);
+        store_hit<kWantUv, kStats>(h, this->high(), ray, a.out_tri, a.out_t, a.out_u,
+                                   a.out_v, a.out_node_tests, a.out_tri_tests, a.out_stack);
         ray = -1;
         pending = 0;
     }
 
     __device__ __forceinline__ void start(const TraceArgs& a, int i) {
         ray = i;
+        this->clear_high();
         h = Hit{a.tmax[i], -1, 0.0f, 0.0f, 0, 0};
         pending = 0;
         if (h.t < 0.0f || a.n_nodes <= 0) {
@@ -295,7 +299,7 @@ struct FlatLane {
                 c0 = c1;
                 c1 = c;
             }
-            stack.push(c1);
+            this->push(stack, c1);
             node = c0;
         } else if (hit0 || hit1) {
             node = hit0 ? c0 : c1;
@@ -365,8 +369,8 @@ int flat_dispatch(LaunchForm launch_form, bool cursors_ok, const void* nodes, in
                   int bf16_nodes, const void* woop, const void* leaf_counts, int n_counts,
                   const void* origin, const void* dirn, const void* tmin, const void* tmax,
                   void* out_tri, void* out_t, void* out_u, void* out_v, void* out_node_tests,
-                  void* out_tri_tests, int n_rays, int cursors, int any_hit, int want_uv,
-                  int stats, int stream_nodes, int stream_tris, size_t window_bytes,
+                  void* out_tri_tests, void* out_stack, int n_rays, int cursors, int any_hit,
+                  int want_uv, int stats, int stream_nodes, int stream_tris, size_t window_bytes,
                   size_t set_aside, void* counter, void* shape, void* stream) {
     if (!cursors_ok) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSuccess;
@@ -381,7 +385,8 @@ int flat_dispatch(LaunchForm launch_form, bool cursors_ok, const void* nodes, in
                              static_cast<int*>(out_tri), static_cast<float*>(out_t),
                              static_cast<float*>(out_u), static_cast<float*>(out_v),
                              static_cast<int*>(out_node_tests), static_cast<int*>(out_tri_tests),
-                             n_rays, cursors, static_cast<unsigned*>(counter)};
+                             n_rays, cursors, static_cast<unsigned*>(counter),
+                             static_cast<int*>(out_stack)};
         dispatch_form(any_hit != 0, want_uv != 0, stats != 0, [&](auto a, auto u, auto c) {
             const auto launch = [&](auto bf) {
                 return dispatch_residency(stream_nodes != 0, stream_tris != 0,
@@ -437,11 +442,12 @@ struct FlatSlotLaunch {
     const void *nodes, int n_nodes, int bf16_nodes, const void *woop,                      \
         const void *leaf_counts, int n_counts, const void *origin, const void *dirn,        \
         const void *tmin, const void *tmax, void *out_tri, void *out_t, void *out_u,        \
-        void *out_v, void *out_node_tests, void *out_tri_tests, int n_rays, int cursors,    \
-        int any_hit, int want_uv, int stats, int stream_nodes, int stream_tris,             \
-        size_t window_bytes, size_t set_aside, void *counter, void *shape, void *stream
+        void *out_v, void *out_node_tests, void *out_tri_tests, void *out_stack,            \
+        int n_rays, int cursors, int any_hit, int want_uv, int stats, int stream_nodes,     \
+        int stream_tris, size_t window_bytes, size_t set_aside, void *counter, void *shape, \
+        void *stream
 #define FLAT_LAUNCH_CALL                                                                    \
     nodes, n_nodes, bf16_nodes, woop, leaf_counts, n_counts, origin, dirn, tmin, tmax,      \
-        out_tri, out_t, out_u, out_v, out_node_tests, out_tri_tests, n_rays, cursors,       \
-        any_hit, want_uv, stats, stream_nodes, stream_tris, window_bytes, set_aside,        \
-        counter, shape, stream
+        out_tri, out_t, out_u, out_v, out_node_tests, out_tri_tests, out_stack, n_rays,     \
+        cursors, any_hit, want_uv, stats, stream_nodes, stream_tris, window_bytes,          \
+        set_aside, counter, shape, stream

@@ -26,10 +26,11 @@
 //     children by a packet vote, so its occluder may differ; hit vs miss
 //     cannot.
 //   - want_uv: u, v of the accepted hit, the oracle's (collapse.py:323-326);
-//   - stats: node_tests (quad nodes visited) and tri_tests (triangles
-//     tested), as the plain version counts them.  The Pallas census counts
-//     loop iterations per grid step, a packet's; per-ray counts are the
-//     SIMT quantity.
+//   - stats: node_tests (quad nodes visited), tri_tests (triangles
+//     tested) and stack (the most entries the ray's stack held in local
+//     memory at once, at most 3 a level), as the plain version counts
+//     them.  The Pallas census counts loop iterations per grid step, a
+//     packet's; per-ray counts are the SIMT quantity.
 // The three forms are template flags (trace_common.cuh), one instantiation
 // each, so the frame forms carry no any-hit, uv or counter code.
 //
@@ -103,7 +104,7 @@
 //     original triangle id as int32 bits.
 //   origin, dirn [N,3] f32; tmin, tmax [N] f32 (tmax < 0: skip the ray).
 // Outputs: tri [N] i32 (-1 miss), t [N] f32 (tmax where missed); u, v [N]
-// f32 (want_uv); node_tests, tri_tests [N] i32 (stats).
+// f32 (want_uv); node_tests, tri_tests, stack [N] i32 (stats).
 
 #pragma once
 
@@ -125,14 +126,15 @@ constexpr unsigned kReverse = 1u << 8;
 
 // One lane of the persistent 4-wide kernel: its ray, its hit, the node it
 // tests next, its leaf queue (the hit leaves of leaf_node), the leaf it
-// drains next (`pending`, a leaf link, or 0), its stack and, in the
-// postponed forms, its held leaves.  A node test takes the node's inner
+// drains next (`pending`, a leaf link, or 0), its stack (and in the
+// counter forms the stack's high-water, StackHigh) and, in the postponed
+// forms, its held leaves.  A node test takes the node's inner
 // children at once (the next, the pushes): they do not depend on its
 // leaves, which the lane drains before its next node test, as the oracle
 // does.
 template <bool kAnyHit, bool kWantUv, bool kStats, bool kStreamNodes, bool kStreamTris,
           bool kPostpone>
-struct QuadLane {
+struct QuadLane : StackHigh<kStats> {
     int ray = -1;
     LeanRay r;
     Hit h;
@@ -148,14 +150,15 @@ struct QuadLane {
     __device__ __forceinline__ bool walking() const { return ray >= 0 && pending == 0; }
 
     __device__ __forceinline__ void finish(const TraceArgs& a) {
-        store_hit<kWantUv, kStats>(h, ray, a.out_tri, a.out_t, a.out_u, a.out_v,
-                                   a.out_node_tests, a.out_tri_tests);
+        store_hit<kWantUv, kStats>(h, this->high(), ray, a.out_tri, a.out_t, a.out_u,
+                                   a.out_v, a.out_node_tests, a.out_tri_tests, a.out_stack);
         ray = -1;
         pending = 0;
     }
 
     __device__ __forceinline__ void start(const TraceArgs& a, int i) {
         ray = i;
+        this->clear_high();
         h = Hit{a.tmax[i], -1, 0.0f, 0.0f, 0, 0};
         pending = 0;
         if (h.t < 0.0f || a.n_nodes <= 0) {
@@ -178,9 +181,9 @@ struct QuadLane {
     __device__ __forceinline__ int advance(unsigned inner, int k0, int k1, int k2, int k3) {
         int next = kEmpty;
         if (inner & 8u) next = k3;
-        if (inner & 4u) { if (next != kEmpty) stack.push(next); next = k2; }
-        if (inner & 2u) { if (next != kEmpty) stack.push(next); next = k1; }
-        if (inner & 1u) { if (next != kEmpty) stack.push(next); next = k0; }
+        if (inner & 4u) { if (next != kEmpty) this->push(stack, next); next = k2; }
+        if (inner & 2u) { if (next != kEmpty) this->push(stack, next); next = k1; }
+        if (inner & 1u) { if (next != kEmpty) this->push(stack, next); next = k0; }
         return next != kEmpty ? next : stack.pop();
     }
 
@@ -376,10 +379,10 @@ template <typename LaunchForm>
 int quad_dispatch(LaunchForm launch_form, bool cursors_ok, const void* nodes, int n_nodes,
                   const void* woop, const void* origin, const void* dirn, const void* tmin,
                   const void* tmax, void* out_tri, void* out_t, void* out_u, void* out_v,
-                  void* out_node_tests, void* out_tri_tests, int n_rays, int cursors,
-                  int any_hit, int want_uv, int stats, int stream_nodes, int stream_tris,
-                  size_t window_bytes, size_t set_aside, void* counter, void* shape,
-                  void* stream) {
+                  void* out_node_tests, void* out_tri_tests, void* out_stack, int n_rays,
+                  int cursors, int any_hit, int want_uv, int stats, int stream_nodes,
+                  int stream_tris, size_t window_bytes, size_t set_aside, void* counter,
+                  void* shape, void* stream) {
     if (!cursors_ok) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSuccess;
     if (n_rays > 0) {
@@ -392,7 +395,8 @@ int quad_dispatch(LaunchForm launch_form, bool cursors_ok, const void* nodes, in
                              static_cast<int*>(out_tri), static_cast<float*>(out_t),
                              static_cast<float*>(out_u), static_cast<float*>(out_v),
                              static_cast<int*>(out_node_tests), static_cast<int*>(out_tri_tests),
-                             n_rays, cursors, static_cast<unsigned*>(counter)};
+                             n_rays, cursors, static_cast<unsigned*>(counter),
+                             static_cast<int*>(out_stack)};
         dispatch_form(any_hit != 0, want_uv != 0, stats != 0, [&](auto a, auto u, auto c) {
             const bool ok = dispatch_residency(stream_nodes != 0, stream_tris != 0,
                                                [&](auto sn, auto st) {
@@ -443,10 +447,11 @@ struct QuadSlotLaunch {
 #define QUAD_LAUNCH_ARGS                                                                   \
     const void *nodes, int n_nodes, const void *woop, const void *origin, const void *dirn, \
         const void *tmin, const void *tmax, void *out_tri, void *out_t, void *out_u,        \
-        void *out_v, void *out_node_tests, void *out_tri_tests, int n_rays, int cursors,    \
-        int any_hit, int want_uv, int stats, int stream_nodes, int stream_tris,             \
-        size_t window_bytes, size_t set_aside, void *counter, void *shape, void *stream
+        void *out_v, void *out_node_tests, void *out_tri_tests, void *out_stack,            \
+        int n_rays, int cursors, int any_hit, int want_uv, int stats, int stream_nodes,     \
+        int stream_tris, size_t window_bytes, size_t set_aside, void *counter, void *shape, \
+        void *stream
 #define QUAD_LAUNCH_CALL                                                                    \
     nodes, n_nodes, woop, origin, dirn, tmin, tmax, out_tri, out_t, out_u, out_v,           \
-        out_node_tests, out_tri_tests, n_rays, cursors, any_hit, want_uv, stats,            \
+        out_node_tests, out_tri_tests, out_stack, n_rays, cursors, any_hit, want_uv, stats, \
         stream_nodes, stream_tris, window_bytes, set_aside, counter, shape, stream

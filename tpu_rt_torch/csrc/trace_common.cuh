@@ -8,7 +8,8 @@
 // The forms of a kernel are template flags with one instantiation each:
 //   kAnyHit  stop at the first accepted triangle (AO occlusion);
 //   kWantUv  keep the barycentrics u, v of the accepted hit;
-//   kStats   count node visits and triangle tests per ray.
+//   kStats   count node visits and triangle tests per ray, and the most
+//            entries its traversal stack held in local memory at once.
 // A flag that is false compiles to nothing, so the frame forms (kWantUv =
 // kStats = false) carry no uv or counter code.
 //
@@ -373,14 +374,17 @@ struct Postponed {
     }
 };
 
-// Outputs of one ray: (tri, t) always, u and v and the two counters only in
-// the forms that keep them.
+// Outputs of one ray: (tri, t) always, u and v and the three counters (the
+// hit's two and the stack's high-water, `stack`) only in the forms that
+// keep them.
 template <bool kWantUv, bool kStats>
-__device__ __forceinline__ void store_hit(const Hit& h, int ray, int* __restrict__ out_tri,
+__device__ __forceinline__ void store_hit(const Hit& h, int stack, int ray,
+                                          int* __restrict__ out_tri,
                                           float* __restrict__ out_t, float* __restrict__ out_u,
                                           float* __restrict__ out_v,
                                           int* __restrict__ out_node_tests,
-                                          int* __restrict__ out_tri_tests) {
+                                          int* __restrict__ out_tri_tests,
+                                          int* __restrict__ out_stack) {
     out_tri[ray] = h.tri;
     out_t[ray] = h.t;
     if constexpr (kWantUv) {
@@ -390,12 +394,15 @@ __device__ __forceinline__ void store_hit(const Hit& h, int ray, int* __restrict
     if constexpr (kStats) {
         out_node_tests[ray] = h.node_tests;
         out_tri_tests[ray] = h.tri_tests;
+        out_stack[ray] = stack;
     }
 }
 
 // The arguments of one traversal launch, as the C ABI gives them
 // (leaf_counts and n_counts only for the binary kernel).  The persistent
-// kernels take it whole, as a __grid_constant__ parameter.
+// kernels take it whole, as a __grid_constant__ parameter.  out_stack, the
+// counter forms' third output, comes last, so that every other member has
+// the offset it had before that output.
 struct TraceArgs {
     const float4* nodes;
     int n_nodes;
@@ -415,6 +422,7 @@ struct TraceArgs {
     int n_rays;
     int cursors;
     unsigned* counter;   // the ray pool: zeroed by the launch
+    int* out_stack;
 };
 
 // The traversal stack of one lane: the top in a register, above the
@@ -441,6 +449,28 @@ struct TraversalStack {
         if (x != kEmpty) top = mem[--sp];
         return x;
     }
+};
+
+// A lane's pushes onto its stack and, in the counter forms, their
+// high-water: the most entries the stack held in local memory at once (the
+// largest sp).  The lanes derive from it; in the other forms it is an empty
+// base, so that their state keeps its layout and their code is unchanged.
+template <bool kStats>
+struct StackHigh {
+    __device__ __forceinline__ void clear_high() {}
+    __device__ __forceinline__ void push(TraversalStack& stack, int x) { stack.push(x); }
+    __device__ __forceinline__ int high() const { return 0; }
+};
+template <>
+struct StackHigh<true> {
+    int entries;
+
+    __device__ __forceinline__ void clear_high() { entries = 0; }
+    __device__ __forceinline__ void push(TraversalStack& stack, int x) {
+        stack.push(x);
+        entries = stack.sp > entries ? stack.sp : entries;
+    }
+    __device__ __forceinline__ int high() const { return entries; }
 };
 
 // Dynamic ray fetch (kepler_dynamic_fetch.cu:100-119): the lanes with

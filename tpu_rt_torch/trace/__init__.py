@@ -101,7 +101,7 @@ def make_routing_tracer(flat, prefer: str = "auto", device="cuda", want_uv: bool
                         k: int | None = None, u: int | None = None):
     """Returns (fn, kind, tables): fn(tables, rays, any_hit=False,
     with_stats=False) -> Hits (closest hit, or with ``any_hit`` the first
-    accepted hit), or ``(Hits, {"node_tests", "tri_tests"})`` with
+    accepted hit), or ``(Hits, {"node_tests", "tri_tests", "stack"})`` with
     ``with_stats``; ``kind`` names the route; ``tables`` are the scene's
     device tables.
 

@@ -7,9 +7,10 @@ Each kernel has eight forms for each table layout, the instantiations of
 ``template <bool kAnyHit, bool kWantUv, bool kStats, ...>`` in
 ``tpu_rt_torch/csrc/`` (see ``trace_common.cuh``): closest or any hit,
 with or without the barycentrics u, v, with or without the per-ray counters
-``node_tests`` and ``tri_tests``.  A tracer returns ``Hits`` (u = v = 0
-unless ``want_uv``), or ``(Hits, {"node_tests", "tri_tests"})`` with
-``with_stats``, the form of ``trace_wavefront``; a route called
+``node_tests``, ``tri_tests`` and ``stack`` (the most entries the ray's
+traversal stack held at once).  A tracer returns ``Hits`` (u = v = 0
+unless ``want_uv``), or ``(Hits, {"node_tests", "tri_tests", "stack"})``
+with ``with_stats``, the form of ``trace_wavefront``; a route called
 ``with_stats`` adds their sums to the recorder's counters (``count_stats``).
 The layouts are the tables' residency (``tables.RESIDENCIES``: the cache
 policy of their loads) and, for the binary kernel, its node format (f32 or
@@ -187,6 +188,7 @@ class TraceState(NamedTuple):
     v: torch.Tensor           # [N] f32
     node_tests: torch.Tensor  # [N] i32
     tri_tests: torch.Tensor   # [N] i32
+    stack: torch.Tensor       # [N] i32, the stack's high-water
 
     @classmethod
     def start(cls, rays: Rays) -> "TraceState":
@@ -194,7 +196,7 @@ class TraceState(NamedTuple):
         zf = torch.zeros((n,), dtype=torch.float32, device=dev)
         zi = torch.zeros((n,), dtype=torch.int32, device=dev)
         return cls(t=rays.tmax.clone(), tri=torch.full((n,), -1, dtype=torch.int32, device=dev),
-                   u=zf, v=zf.clone(), node_tests=zi, tri_tests=zi.clone())
+                   u=zf, v=zf.clone(), node_tests=zi, tri_tests=zi.clone(), stack=zi.clone())
 
     def result(self, want_uv: bool, with_stats: bool):
         """Hits (u = v = 0 unless ``want_uv``), with the counters if asked."""
@@ -204,7 +206,8 @@ class TraceState(NamedTuple):
             hits = Hits(tri=self.tri, t=self.t, u=torch.zeros_like(self.u),
                         v=torch.zeros_like(self.v))
         if with_stats:
-            return hits, {"node_tests": self.node_tests, "tri_tests": self.tri_tests}
+            return hits, {"node_tests": self.node_tests, "tri_tests": self.tri_tests,
+                          "stack": self.stack}
         return hits
 
 
@@ -222,13 +225,16 @@ def count_stats(out):
     """Add a ``with_stats`` trace's per-ray counters, summed on the device
     and read to the host once, to the recorder's counters
     (``tpu_rt_torch.spans.count``): ``trace.stats_rays`` (the rays traced),
-    ``trace.node_tests``, ``trace.tri_tests`` and ``trace.warp_tests`` (the
-    sum of ``warp_work``).  Returns ``out``, the ``(hits, stats)`` pair."""
+    ``trace.node_tests``, ``trace.tri_tests``, ``trace.warp_tests`` (the
+    sum of ``warp_work``) and ``trace.stack_entries`` (the sum of each
+    ray's stack high-water).  Returns ``out``, the ``(hits, stats)``
+    pair."""
     stats = out[1]
     sums = torch.stack([stats["node_tests"].long().sum(), stats["tri_tests"].long().sum(),
-                        warp_work(stats).sum()]).tolist()
+                        warp_work(stats).sum(), stats["stack"].long().sum()]).tolist()
     spans.count("trace.stats_rays", stats["node_tests"].numel())
-    for name, n in zip(("trace.node_tests", "trace.tri_tests", "trace.warp_tests"), sums):
+    for name, n in zip(("trace.node_tests", "trace.tri_tests", "trace.warp_tests",
+                        "trace.stack_entries"), sums):
         spans.count(name, n)
     return out
 
@@ -469,8 +475,8 @@ class CudaTraceKernel:
 
     The C entry point takes the table arguments, then origin, dirn, tmin,
     tmax, out_tri, out_t, out_u, out_v, out_node_tests, out_tri_tests,
-    n_rays, cursors, any_hit, want_uv, stats, nodes_stream, tris_stream,
-    window_bytes, set_aside, counter, shape, stream (``argtypes``; the
+    out_stack, n_rays, cursors, any_hit, want_uv, stats, nodes_stream,
+    tris_stream, window_bytes, set_aside, counter, shape, stream (``argtypes``; the
     QUAD_LAUNCH_ARGS / FLAT_LAUNCH_ARGS macros of ``csrc/``).
     ``last_shape`` holds the last launch's grid, blocks per SM, dynamic
     shared memory and SM count.
@@ -505,7 +511,7 @@ class CudaTraceKernel:
         """The ctypes types of the C entry point's arguments, in order."""
         vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         schedule = [ci, ci] if self.slots else []
-        return (schedule + self.table_argtypes + [vp] * 10 + [ci] * 7
+        return (schedule + self.table_argtypes + [vp] * 11 + [ci] * 7
                 + [sz, sz, vp, vp, vp])
 
     def load(self):
@@ -607,10 +613,10 @@ class CudaTraceKernel:
         t = torch.empty((n,), dtype=f32, device=dev)
         uv = [torch.empty((n,), dtype=f32, device=dev) for _ in range(2)] if want_uv else None
         stats = {k: torch.empty((n,), dtype=i32, device=dev)
-                 for k in ("node_tests", "tri_tests")} if with_stats else None
+                 for k in ("node_tests", "tri_tests", "stack")} if with_stats else None
         outs = [tri.data_ptr(), t.data_ptr()]
         outs += [x.data_ptr() for x in uv] if want_uv else [None, None]
-        outs += [x.data_ptr() for x in stats.values()] if with_stats else [None, None]
+        outs += [x.data_ptr() for x in stats.values()] if with_stats else [None] * 3
         # The ray pool of the persistent kernels: 4 bytes, zeroed by the launch.
         counter = torch.empty((1,), dtype=i32, device=dev)
         shape = (ctypes.c_int * 4)()

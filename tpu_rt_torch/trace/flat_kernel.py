@@ -8,8 +8,10 @@ Counterpart of the binary f32 node-unit form of the Pallas kernel
 the host oracle ``trace_flat_scalar`` (``tpu_rt_torch/trace/
 cpu_reference.py``) computes, in the same order, so their (tri, t, u, v)
 equal the oracle's bit for bit, and their ``node_tests`` / ``tri_tests``
-equal its ``RayStats.per_ray_node_tests`` / ``per_ray_tri_tests``.  For any
-hit a ray stops at its first accepted hit in the oracle's visit order, so
+equal its ``RayStats.per_ray_node_tests`` / ``per_ray_tri_tests``
+(``stack``, the most entries a ray's stack held at once, it does not
+count).  For any hit a ray stops at its first accepted hit in the oracle's
+visit order, so
 the occluder is the oracle's too.  (The Pallas kernel orders a packet's
 children by a split-axis vote, so against ``trace_packet2`` only hit vs
 miss of an any-hit ray is comparable.)
@@ -265,6 +267,7 @@ def trace_flat_plain(tables: FlatTables, rays: Rays, any_hit: bool = False,
             b = sel[both]
             stack[b, sp[b]] = torch.where(swap, c0, c1)[both]
             sp[b] += 1
+            st.stack[ids[b]] = torch.maximum(st.stack[ids[b]], sp[b].to(torch.int32))
             node[sel] = torch.where(swap | ~h0, c1, c0)
             pop[sel] = ~h0 & ~h1
 
@@ -365,7 +368,7 @@ def trace_flat(tables: FlatTables, rays: Rays, any_hit: bool = False,
                u: int | None = None):
     """Closest hit per ray over the FlatBVH tables, or with ``any_hit`` the
     first accepted hit in visit order; u, v with ``want_uv`` (else 0) and
-    ``(hits, {"node_tests", "tri_tests"})`` with ``with_stats``.  CPU rays
+    ``(hits, {"node_tests", "tri_tests", "stack"})`` with ``with_stats``.  CPU rays
     take the plain version; CUDA rays launch the kernel (there is no
     fallback).  Counterpart of ``tpu_rt`` ``trace_packet2``, whose ``c=``
     and ``mxu=`` are ``cursors`` (leaves a ray holds before it drains them,

@@ -10,8 +10,9 @@ versions here compute what the host oracle ``trace_quad_scalar``
 (tri, t, u, v) equal the oracle's bit for bit -- for any hit too, down to
 which occluder is reported: a ray stops at its first accepted hit in the
 oracle's visit order.  The counters are per ray: ``node_tests`` quad nodes
-visited, ``tri_tests`` triangles tested (the oracle has none, so the kernel
-is held to the plain version's).
+visited, ``tri_tests`` triangles tested, ``stack`` the most entries the
+ray's stack held at once (the oracle has none, so the kernel is held to the
+plain version's).
 
 - ``trace_quad`` dispatches on the device of the rays: a CPU tensor takes
   the plain version, a CUDA tensor launches the kernel
@@ -224,6 +225,7 @@ def trace_quad_plain(tables: QuadTables, rays: Rays, any_hit: bool = False,
         node = torch.where(go, inn[:, 0], node)
         node = torch.where(pop, stack[rows, (sp - 1).clamp(min=0)], node)
         sp = torch.where(go, sp + (m - 1), torch.where(pop, sp - 1, sp))
+        st.stack[ids] = torch.maximum(st.stack[ids], sp.to(torch.int32))
         live = go | pop
         if any_hit:
             live &= st.tri[ids] < 0
@@ -275,7 +277,7 @@ def trace_quad(tables: QuadTables, rays: Rays, any_hit: bool = False,
                tile: int | None = None, k: int | None = None, u: int | None = None):
     """Closest hit per ray over the QuadBVH tables, or with ``any_hit`` the
     first accepted hit in visit order; u, v with ``want_uv`` (else 0) and
-    ``(hits, {"node_tests", "tri_tests"})`` with ``with_stats``.  CPU rays
+    ``(hits, {"node_tests", "tri_tests", "stack"})`` with ``with_stats``.  CPU rays
     take the plain version; CUDA rays launch the kernel (there is no
     fallback).  Counterpart of ``tpu_rt`` ``trace_packet4``, whose ``c=``
     is ``cursors``: leaves a ray holds before it drains them,

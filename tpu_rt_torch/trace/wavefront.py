@@ -52,9 +52,9 @@ def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def trace_wavefront(flat: FlatBVH, rays: Rays, any_hit: bool = False, with_stats: bool = False):
     """Trace a ray batch against the device BVH from ``device_bvh``.
     Returns Hits (original scene triangle ids, -1 for a miss; u, v always
-    filled) and, with ``with_stats``, a dict of per-ray ``node_tests`` and
-    ``tri_tests`` counters, whose sums it adds to the recorder's
-    (``common.count_stats``)."""
+    filled) and, with ``with_stats``, a dict of per-ray ``node_tests``,
+    ``tri_tests`` and ``stack`` (the most entries its stack held at once)
+    counters, whose sums it adds to the recorder's (``common.count_stats``)."""
     nodes = flat.nodes
     links = nodes.view(torch.int32)[:, 12:16]
     woop = flat.tri_woop
@@ -74,7 +74,7 @@ def trace_wavefront(flat: FlatBVH, rays: Rays, any_hit: bool = False, with_stats
                     u=zeros, v=zeros.clone())
         if with_stats:
             zi = torch.zeros((n,), dtype=i32, device=dev)
-            return hits, {"node_tests": zi, "tri_tests": zi.clone()}
+            return hits, {"node_tests": zi, "tri_tests": zi.clone(), "stack": zi.clone()}
         return hits
 
     idir = safe_inv(dirn)
@@ -91,6 +91,7 @@ def trace_wavefront(flat: FlatBVH, rays: Rays, any_hit: bool = False, with_stats
     hit_v = torch.zeros((n,), dtype=torch.float32, device=dev)
     node_tests = torch.zeros((n,), dtype=i32, device=dev)
     tri_tests = torch.zeros((n,), dtype=i32, device=dev)
+    stack_hw = torch.zeros((n,), dtype=i32, device=dev)
     rows = torch.arange(n, device=dev)
 
     def pop(node_val, sp, want):
@@ -157,6 +158,7 @@ def trace_wavefront(flat: FlatBVH, rays: Rays, any_hit: bool = False, with_stats
         pr = torch.nonzero(push).squeeze(1)
         stack[pr, sp[pr]] = far_child[pr]
         sp = sp + push.long()
+        stack_hw = torch.maximum(stack_hw, sp.to(i32))
 
         # Pop where neither hit.
         miss = is_inner & ~hit0 & ~hit1
@@ -178,5 +180,6 @@ def trace_wavefront(flat: FlatBVH, rays: Rays, any_hit: bool = False, with_stats
     tri = torch.where(hit_row >= 0, tri_index[hit_row.clamp(0, max(0, num_refs - 1))], -1)
     hits = Hits(tri=tri.to(i32), t=hit_t, u=hit_u, v=hit_v)
     if with_stats:
-        return count_stats((hits, {"node_tests": node_tests, "tri_tests": tri_tests}))
+        return count_stats((hits, {"node_tests": node_tests, "tri_tests": tri_tests,
+                                   "stack": stack_hw}))
     return hits
