@@ -24,7 +24,7 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      resident blocks per SM and waves (``probe_shapes``).
 2-5. bunny (144,500 triangles), SBVH build, 4-wide collapse, Morton-ordered
      primary rays at 640x480, the closest-hit trace through
-     ``Renderer(tracer="auto")`` (the CUDA quad kernel) and the image; the
+     ``Renderer(tracer="packet4")`` (the CUDA quad kernel) and the image; the
      kernel against its plain version on every ray and the oracle on a
      strided subset; both timed with CUDA events.
 6-7. conference (350,949 triangles) AO frame at 640x480, 8 samples, the
@@ -58,8 +58,9 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      cache, quad collapses at leaf 16 and 32, table bytes, the card's L2
      and the routing decisions at the default budget (none), at the
      card's largest persisting-L2 set-aside and at tpu_rt's 12 MiB.
-16.  the dragon primary frame through ``Renderer(tracer="auto")`` and
-     ``Renderer(tracer="packet")`` at the default budget (vmem f32).
+16.  the dragon primary frame through ``Renderer(tracer="packet4")`` and
+     ``Renderer(tracer="packet")`` at the default budget (vmem f32);
+     ``"auto"`` routes as ``"packet"`` at the default budget and at 12 MiB.
 17.  the dragon AO frame, 8 samples, ``suite_ao_radius``, through
      ``Renderer(tracer="packet")``.
 18.  tpu_rt's forced large-scene forms (binary bf16 mixed, binary f32 hbm,
@@ -112,10 +113,10 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      indexing at the tool's sizes.
 27.  (none: the A/B of the traversal designs that ran here went with them)
 28.  the secondary-ray sort: the conference AO frame (8 samples) through
-     ``Renderer(tracer="auto", sort_secondary=True)``, ``"auto"`` with
-     ``compact_degenerate=True`` and ``"packet"`` with
+     ``Renderer(tracer="packet4", sort_secondary=True)``, ``"packet4"``
+     with ``compact_degenerate=True`` and ``"packet"`` with
      ``compact_degenerate=True``, and the bunny AO frame (its batches hold
-     dead rays) through ``"auto"`` with and without
+     dead rays) through ``"packet4"`` with and without
      ``compact_degenerate=True``, each a path of its own: each image
      bit-equal to the unsorted frame of its route (phases 6 and 11), each
      batch the unsorted batch under the card's sort of its rays, the
@@ -131,8 +132,9 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      ``sort_secondary`` frame four kernel launches and one
      ``sort.kernel_batches`` a batch, none in the compacted frames; the any-hit
      kernels on AO batch 1 in identity, coarse and 192-bit order, timed in
-     two passes; one bunny primary frame with ``profile_dir`` under
-     ``build/``, whose Chrome trace must hold the closest-hit kernel.
+     two passes; one bunny primary frame through the default route
+     (``"auto"``: the binary kernel) with ``profile_dir`` under ``build/``,
+     whose Chrome trace must hold the binary closest-hit kernel.
 29.  the training path on bunny's 640x480 primary rays (144,500 triangles,
      307,200 rays): routing by the closest-hit kernel, a path of its own;
      ``trace_diff`` with those hits against the wavefront-routed one
@@ -145,7 +147,7 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      (``init_multihost`` over a file store under ``build/``), (b) a gloo
      world of 2, both ranks on the one card, each this script run again
      with ``--dist-worker``.  On each rank: ``trace_sharded`` through
-     ``"auto"`` (closest and any hit) and ``"packet"``, hits bit-equal to
+     ``"packet4"`` (closest and any hit) and ``"packet"``, hits bit-equal to
      its block of the unsharded kernels' hits on every ray;
      ``grad_step_sharded`` against the unsharded step (loss rtol 1e-5,
      gradients rtol 1e-4 / atol 1e-7); ``collective_audit`` no collective
@@ -155,7 +157,7 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
 31.  the command-line app (``tpu_rt_torch.bench.cli``): (a) ``python -m
      tpu_rt_torch.bench.cli --scene bunny --size 640x480`` at the suite
      camera's signature, in a subprocess: its ``Results =`` and JSON lines,
-     route ``quad-cuda``, its PPM byte-equal to a Renderer frame on the
+     route ``flat-cuda``, its PPM byte-equal to a Renderer frame on the
      decoded signature in this process; the same command through
      ``cli.main`` here, counted; (b) a two-line cookbook under ``build/``:
      the conference line replayed as AO (8 samples, 640x480) on its
@@ -171,20 +173,22 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      their bound and the evicted one freed.
 33.  the leaf-width tune tool (``tpu_rt_torch.bench.tune_quad``) on bunny
      and dragon at leaf 16 and 32 (ms and Mray/s per width), then a fresh
-     ``Renderer(tracer="auto")`` on each, routed at the recorded width and
-     held to ``trace_quad_scalar`` on 8,192 rays; a file at ``tpu_rt``'s
-     tune path does not move the route; every tune file written is deleted.
+     ``Renderer(tracer="packet4")`` on each, routed at the recorded width
+     and held to ``trace_quad_scalar`` on 8,192 rays; a file at ``tpu_rt``'s
+     tune path does not move the route, and ``"auto"`` routes the binary
+     kernel; every tune file written is deleted.
 34.  the headline run (``tpu_rt_torch.bench.bench``, bench.py's
      counterpart): ``python -m tpu_rt_torch.bench.bench`` in a subprocess
      with bench.py's defaults (bunny primary 640x480), then ``bench.main``
      here on dragon primary and conference AO, counted: each JSON line
-     printed, verified rays and Mray/s above 0, route ``quad-cuda``,
+     printed, verified rays and Mray/s above 0, route ``flat-cuda``,
      ``detail.device`` the card's nvidia-smi line.
 35.  the suite (``tpu_rt_torch.bench.bench_suite``): every row of its 19
      but those on hairball and sanmiguel (``SUITE_SKIP``: their SBVH builds
      would take minutes), grouped by scene, at 640x480 with the census and
      the cost model, ``build/bench/SUITE.md`` printed; then
-     ``--verify-full`` (bunny, conference and dragon through "auto", and
+     ``--verify-full`` (bunny, conference and dragon through "auto", the
+     binary kernel on the card, and
      the binary vmem f32, mixed f32, mixed bf16 and hbm f32 forms, every
      ray of each frame against the wavefront, disputes adjudicated by
      ``trace_flat_scalar``: no kernel-wrong ray) and ``--verify-ao`` (knob
@@ -237,6 +241,14 @@ oracles ``trace_quad_scalar`` (4-wide) and ``trace_flat_scalar`` (binary):
      beside the bytes' bound; then the conference AO and diffuse frames
      again, every batch one launch (2 and 1), the plain version never
      called.
+43.  the benchmark's four trace cells (``rtbench/``: ``conference-ao8``,
+     ``dragon-primary``, ``sanmiguel-diffuse``, ``hairball-primary``)
+     through their own drivers at a fixed seed, their trees built in the
+     benchmark's cache by a process started with the run (``--cell-trees``):
+     each cell's ``"auto"`` must route the binary kernel, and its hits on
+     the first pose's batches equal those of ``"packet4"`` on the same tree
+     (closest hit: t bit for bit, tri except at exact-t ties; any hit:
+     hit / miss).
 
 Run from the root of the repository:  python3 chip_smoke.py
 It needs a CUDA device, nvcc (PATH, CUDA_HOME or /usr/local/cuda) and g++;
@@ -676,7 +688,8 @@ def bunny_primary(t0, kernel, dev):
     t1 = time.perf_counter()
     scene = Scene(procedural.scene_by_name(SCENE))
     camera = suite_camera(SCENE, scene)
-    renderer = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE))
+    renderer = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE,
+                                                      tracer="packet4"))
     renderer.set_scene(scene)
     print(f"scene: {SCENE} {scene.num_triangles} tris, {scene.num_vertices} vertices "
           f"({time.perf_counter() - t1:.2f} s)")
@@ -688,7 +701,7 @@ def bunny_primary(t0, kernel, dev):
           f"({tables.nodes.numel() * 4 / 1e6:.2f} MB), {tables.woop.shape[0]} woop rows "
           f"({tables.woop.numel() * 4 / 1e6:.2f} MB), depth {tables.depth}, leaf_max {MAX_LEAF4}")
     hit_frac = frame_line(f"{SCENE} primary frame", renderer, stats, counts, wall)
-    check(stats["tracer"] == "quad-cuda", f"auto tracer is {stats['tracer']}")
+    check(stats["tracer"] == "quad-cuda", f"packet4 tracer is {stats['tracer']}")
     check(counts == {"closest": 1}, f"the primary path launched {counts}, want the closest-hit "
           "kernel only")
     check_image(image, "primary")
@@ -725,7 +738,7 @@ def bunny_primary(t0, kernel, dev):
           f"Mray/s at best; plain ms {[round(x, 2) for x in p_ms]} median {median(p_ms):.2f} "
           f"-> {WIDTH * HEIGHT / (median(p_ms) * 1e3):.2f} Mray/s")
     phase("bunny timed", t0)
-    entry = {"path": f"{SCENE} primary frame, Renderer(tracer='auto')",
+    entry = {"path": f"{SCENE} primary frame, Renderer(tracer='packet4')",
              "launches": counts["closest"], "max_abs_err": max_abs_err,
              "ms": median(k_ms), "plain_ms": median(p_ms)}
     ctx = {"scene": scene, "camera": camera, "renderer": renderer, "image": image,
@@ -757,7 +770,7 @@ def conference(t0, kernel, dev):
           f"AO radius {radius:.4f}")
     ao = Renderer(WIDTH, HEIGHT, RendererParams(
         ray_type="ao", num_samples=AO_SAMPLES, ao_radius=radius, max_batch=AO_MAX_BATCH,
-        cache_dir=CACHE, device=DEVICE))
+        cache_dir=CACHE, device=DEVICE, tracer="packet4"))
     ao.set_scene(scene)
     stats, image, counts, wall = render(ao, camera, kernel)
     tables = ao.tracer_tables
@@ -770,7 +783,7 @@ def conference(t0, kernel, dev):
     live = sum(int((b.rays.tmax >= 0).sum()) for b in ao._batches)
     occluded = sum(int(((b.rays.tmax >= 0) & (b.hits.tri >= 0)).sum()) for b in ao._batches)
     print(f"AO: primary hits {hits}, live AO rays {live}, occluded fraction {occluded / live:.4f}")
-    check(stats["tracer"] == "quad-cuda", f"auto tracer is {stats['tracer']}")
+    check(stats["tracer"] == "quad-cuda", f"packet4 tracer is {stats['tracer']}")
     per_batch = AO_MAX_BATCH // AO_SAMPLES
     want_batches = -(-WIDTH * HEIGHT // per_batch)
     check(stats["batches"] == want_batches,
@@ -812,7 +825,7 @@ def conference(t0, kernel, dev):
 
     # 8. The diffuse frame (1 sample): the closest-hit kernel on secondary rays.
     dif = Renderer(WIDTH, HEIGHT, RendererParams(
-        ray_type="diffuse", num_samples=1, cache_dir=CACHE, device=DEVICE))
+        ray_type="diffuse", num_samples=1, cache_dir=CACHE, device=DEVICE, tracer="packet4"))
     dif.set_scene(scene)
     stats_d, image_d, counts_d, wall_d = render(dif, camera, kernel)
     frame_line(f"{SECONDARY_SCENE} diffuse frame", dif, stats_d, counts_d, wall_d)
@@ -845,7 +858,7 @@ def conference(t0, kernel, dev):
     timing_line("closest-hit kernel, diffuse batch", k_dif, bd.rays, hits)
     timing_line("plain any-hit, AO batch 1", p_b1, b1.rays, b1_live)
     phase("conference timed", t0)
-    anyhit = {"path": f"{SECONDARY_SCENE} AO frame, Renderer(tracer='auto')",
+    anyhit = {"path": f"{SECONDARY_SCENE} AO frame, Renderer(tracer='packet4')",
               "launches": ao_counts["any"], "max_abs_err": any_err,
               "ms": median(k_b1), "plain_ms": median(p_b1)}
     closest = {"max_abs_err": dif_err}
@@ -904,7 +917,8 @@ def binary_bunny(t0, flat_k, quad_k, bctx):
     phase("binary kernel == plain, oracle, quad", t0)
     entry = {"path": f"{SCENE} primary frame, Renderer(tracer='packet')",
              "launches": counts["closest"], "max_abs_err": err}
-    return entry, {"renderer": r, "plain": full, "oracle": oracle, "stats": st, "seen": seen}
+    return entry, {"renderer": r, "image": image, "plain": full, "oracle": oracle, "stats": st,
+                   "seen": seen}
 
 
 def binary_conference(t0, flat_k, quad_k, cctx):
@@ -1300,8 +1314,8 @@ def dragon_setup(t0, quad_k, flat_k, dev):
     persisting-L2 set-aside and at tpu_rt's 12 MiB."""
     from tpu_rt_torch.bvh import BuildParams, Platform, load_or_build_bvh, load_or_collapse_quad
     from tpu_rt_torch.scene import Scene, procedural
-    from tpu_rt_torch.trace import choose_node_format, quad_policy
-    from tpu_rt_torch.trace.common import tree_depth
+    from tpu_rt_torch.trace import choose_node_format, kernel_order, quad_policy
+    from tpu_rt_torch.trace.common import STACK_SIZE, tree_depth
     from tpu_rt_torch.trace.tables import (
         BF16_NODE_BYTES,
         FLAT_NODE_BYTES,
@@ -1353,12 +1367,15 @@ def dragon_setup(t0, quad_k, flat_k, dev):
         qres = quad_residency(q.nodes.shape[0] * QUAD_NODE_BYTES,
                               max(q.tri_woop.shape[0], 1) * WOOP_ROW_BYTES, budget)
         decisions[label] = {"binary": (res, bf16), "quad": (leaf, qres)}
-        print(f"routing at {label} ({budget} B): packet -> {res} {'bf16' if bf16 else 'f32'} "
-              f"nodes; auto -> quad leaf {leaf} {qres}")
+        print(f"routing at {label} ({budget} B): packet and auto -> {res} "
+              f"{'bf16' if bf16 else 'f32'} nodes (binary depth {depth} of {STACK_SIZE}); "
+              f"packet4 -> quad leaf {leaf} {qres}")
     check(decisions["default"] == {"binary": ("vmem", False), "quad": (16, "vmem")},
           "the default budget must keep dragon on the vmem f32 forms")
     check(decisions["tpu_rt 12 MiB"] == {"binary": ("mixed", True), "quad": (32, "mixed")},
           "at 12 MiB the policy must give tpu_rt's dragon targets")
+    check(kernel_order("auto", "cuda") == ("packet", "packet4") and depth <= STACK_SIZE,
+          f"'auto' on the card must take the binary kernel for dragon (depth {depth})")
     phase("dragon set-up done", t0)
     return {"scene": scene, "flat": flat, "quads": quads, "decisions": decisions,
             "sizes": sizes, "l2": l2}
@@ -1385,8 +1402,9 @@ def layout_key(tables) -> str:
 
 
 def dragon_frames(t0, quad_k, flat_k, dev, dctx):
-    """Phases 16-18: the dragon primary frame through Renderer("auto") and
-    Renderer("packet") at the default budget, the AO frame through
+    """Phases 16-18: the dragon primary frame through Renderer("packet4")
+    and Renderer("packet") at the default budget, "auto" routed as
+    "packet" at the default budget and at 12 MiB, the AO frame through
     Renderer("packet"), and tpu_rt's forced large-scene forms on the same
     rays through make_routing_tracer, each its own path; every form against
     its plain version on every ray, against the oracles on 8,192 rays, and
@@ -1408,11 +1426,11 @@ def dragon_frames(t0, quad_k, flat_k, dev, dctx):
     res, bf16 = dec["binary"]
     leaf, qres = dec["quad"]
     want_packet = "flat-cuda" + ("" if res == "vmem" else f"-{res}") + ("-bf16" if bf16 else "")
-    want_auto = "quad-cuda" + ("" if qres == "vmem" else f"-{qres}")
+    want_quad = "quad-cuda" + ("" if qres == "vmem" else f"-{qres}")
 
     # 16. The primary frame through the user's entry points, default budget.
     frames = {}
-    for prefer, kern, idle, want in (("auto", quad_k, flat_k, want_auto),
+    for prefer, kern, idle, want in (("packet4", quad_k, flat_k, want_quad),
                                      ("packet", flat_k, quad_k, want_packet)):
         r = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE, tracer=prefer))
         r.set_scene(scene)
@@ -1424,11 +1442,10 @@ def dragon_frames(t0, quad_k, flat_k, dev, dctx):
         check_image(image, f"dragon {prefer} primary")
         check(0.05 < hit_frac < 0.95, f"hit fraction {hit_frac}")
         frames[prefer] = {"renderer": r, "image": image, "counts": counts}
-    if isinstance(frames["auto"]["renderer"].tracer_tables, quad_kernel.QuadTables):
-        check(frames["auto"]["renderer"].tracer_tables.nodes.shape[0]
-              == dctx["quads"][leaf].nodes.shape[0], "auto's quad tree is not the policy's")
+    check(frames["packet4"]["renderer"].tracer_tables.nodes.shape[0]
+          == dctx["quads"][leaf].nodes.shape[0], "packet4's quad tree is not the policy's")
     rays = frames["packet"]["renderer"].primary.rays
-    check(all(torch.equal(a, b) for a, b in zip(rays, frames["auto"]["renderer"].primary.rays)),
+    check(all(torch.equal(a, b) for a, b in zip(rays, frames["packet4"]["renderer"].primary.rays)),
           "the two renderers' primary rays differ")
     phase("dragon primary frames done", t0)
 
@@ -1452,19 +1469,28 @@ def dragon_frames(t0, quad_k, flat_k, dev, dctx):
     print(f"dragon AO: live AO rays {live}, occluded {occluded} ({occluded / max(live, 1):.4f})")
     phase("dragon AO frame done", t0)
 
+    # "auto" on the card takes the binary kernel in its default residency
+    # and node format, at the default budget and at tpu_rt's 12 MiB.
+    for budget, want in ((None, want_packet), (VMEM_TABLE_BUDGET, "flat-cuda-mixed-bf16")):
+        kind = make_routing_tracer(flat, prefer="auto", device=dev, cache_dir=CACHE,
+                                   budget_bytes=budget)[1]
+        print(f"auto at {'the default budget' if budget is None else budget} B: {kind}")
+        check(kind == want, f"'auto' routes {kind} at budget {budget}, want {want}")
+
     # 18a. The default routes' tables, then tpu_rt's forced large-scene
     # forms (FULLFRAME_TARGETS) and the other layouts through
     # make_routing_tracer, on the same primary rays and AO batches.
-    defaults = {"auto (default)": "auto", "packet (default)": "packet"}
+    defaults = {"packet4 (default)": "packet4", "packet (default)": "packet"}
     configs = [
-        ("auto (default)", frames["auto"]["renderer"].routing,
-         frames["auto"]["renderer"].tracer_tables, want_auto),
+        ("packet4 (default)", frames["packet4"]["renderer"].routing,
+         frames["packet4"]["renderer"].tracer_tables, want_quad),
         ("packet (default)", frames["packet"]["renderer"].routing,
          frames["packet"]["renderer"].tracer_tables, want_packet),
     ]
     forced = (("packet at 12 MiB", "packet", {"budget_bytes": VMEM_TABLE_BUDGET},
                "flat-cuda-mixed-bf16"),
-              ("auto at 12 MiB", "auto", {"budget_bytes": VMEM_TABLE_BUDGET}, "quad-cuda-mixed"),
+              ("packet4 at 12 MiB", "packet4", {"budget_bytes": VMEM_TABLE_BUDGET},
+               "quad-cuda-mixed"),
               ("packet hbm f32", "packet", {"residency": "hbm", "bf16_nodes": False},
                "flat-cuda-hbm"),
               ("packet vmem bf16", "packet", {"residency": "vmem", "bf16_nodes": True},
@@ -2276,12 +2302,12 @@ def check_card_kernel_sort(rays, chain_order):
     return {"ms": median(k_ms), "plain_ms": median(p_ms), "bound_ms": bound_ms}
 
 
-def secondary_sort(t0, quad_k, flat_k, bctx, cctx, fc):
-    """Phase 28: the conference AO frame through Renderer("auto") with
+def secondary_sort(t0, quad_k, flat_k, bctx, cctx, fb, fc):
+    """Phase 28: the conference AO frame through Renderer("packet4") with
     sort_secondary and with compact_degenerate, and through
     Renderer("packet") with compact_degenerate, and the bunny AO frame
     (63% of its primary rays miss, so its batches have dead rays) through
-    Renderer("auto") with compact_degenerate and without, each a path of
+    Renderer("packet4") with compact_degenerate and without, each a path of
     its own.  Each image bit-equal to the unsorted frame of its route
     (phases 6 and 11 for conference); each batch the unsorted batch under
     the card's sort of its rays; rays_traced + rays_skipped the batch sizes
@@ -2291,7 +2317,8 @@ def secondary_sort(t0, quad_k, flat_k, bctx, cctx, fc):
     batch and no compacted one, and equal the torch chain there
     (check_card_kernel_sort).  Then the
     any-hit kernels on AO batch 1 in identity, coarse and 192-bit order,
-    and one bunny primary frame with profile_dir.  Returns ({kernel entry:
+    and one bunny primary frame with profile_dir through the default route
+    ("auto": the binary kernel on the card).  Returns ({kernel entry:
     {path: launches}}, the morton_coarse entry)."""
     from tpu_rt_torch import spans
     from tpu_rt_torch.bench.workload import suite_ao_radius
@@ -2320,11 +2347,11 @@ def secondary_sort(t0, quad_k, flat_k, bctx, cctx, fc):
         return path, r, stats, image
 
     b_radius = suite_ao_radius(SCENE, bctx["scene"])
-    _, b_ao, _, b_image = ao_frame(SCENE, bctx["scene"], bctx["camera"], b_radius, "auto", {})
-    frames = ((SECONDARY_SCENE, "sort_secondary", "auto", cctx),
-              (SECONDARY_SCENE, "compact_degenerate", "auto", cctx),
+    _, b_ao, _, b_image = ao_frame(SCENE, bctx["scene"], bctx["camera"], b_radius, "packet4", {})
+    frames = ((SECONDARY_SCENE, "sort_secondary", "packet4", cctx),
+              (SECONDARY_SCENE, "compact_degenerate", "packet4", cctx),
               (SECONDARY_SCENE, "compact_degenerate", "packet", fc),
-              (SCENE, "compact_degenerate", "auto", {"ao": b_ao, "image": b_image}))
+              (SCENE, "compact_degenerate", "packet4", {"ao": b_ao, "image": b_image}))
     sort_k = sort_kernel.KERNEL
     for scene_name, flag, tracer, ref in frames:
         ctx = cctx if scene_name == SECONDARY_SCENE else dict(bctx, radius=b_radius)
@@ -2396,26 +2423,27 @@ def secondary_sort(t0, quad_k, flat_k, bctx, cctx, fc):
         timing_line(label, ms, permuted[label], cctx["b1_live"])
     phase("sort orders timed", t0)
 
-    # One bunny primary frame under torch.profiler: the trace holds the
-    # closest-hit kernel's launch.
+    # One bunny primary frame under torch.profiler through the default
+    # route: the trace holds the binary closest-hit kernel's launch.
     shutil.rmtree(PROFILE_DIR, ignore_errors=True)
     r = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE,
                                                profile_dir=PROFILE_DIR))
     r.set_scene(bctx["scene"])
-    stats, image, counts, wall = render(r, bctx["camera"], quad_k, idle=flat_k)
+    stats, image, counts, wall = render(r, bctx["camera"], flat_k, idle=quad_k)
     path = f"{SCENE} primary frame, Renderer(tracer='auto', profile_dir=build/...)"
     frame_line(path, r, stats, counts, wall)
-    check(counts == {"closest": 1}, f"{path} launched {counts}")
-    paths["quad_trace"][path] = counts["closest"]
+    check(stats["tracer"] == "flat-cuda" and counts == {"closest": 1},
+          f"{path} routed {stats['tracer']} and launched {counts}")
+    paths["flat_trace"][path] = counts["closest"]
     with open(stats["profile_trace"]) as f:
         events = json.load(f)["traceEvents"]
-    launches = [e for e in events if e.get("cat") == "kernel" and "quad_trace_kernel" in e["name"]]
+    launches = [e for e in events if e.get("cat") == "kernel" and "flat_trace_kernel" in e["name"]]
     print(f"profile: {stats['profile_trace']} holds {len(events)} events, "
           f"{sum(e.get('cat') == 'kernel' for e in events)} device kernels, "
-          f"{len(launches)} quad_trace_kernel launches "
+          f"{len(launches)} flat_trace_kernel launches "
           f"({[round(e.get('dur', 0) / 1e3, 4) for e in launches]} ms)")
     check(len(launches) == 1, "the profile trace lacks the trace kernel's launch")
-    check(bool((image == bctx["image"]).all()), "the profiled frame's image differs")
+    check(bool((image == fb["image"]).all()), "the profiled frame's image differs from phase 10's")
     phase("profiled frame done", t0)
     return paths, {"name": "morton_coarse", "route": "cuda",
                    "source": "tpu_rt_torch/csrc/morton_coarse.cu", "replaces": None,
@@ -2427,7 +2455,7 @@ def secondary_sort(t0, quad_k, flat_k, bctx, cctx, fc):
 def training(t0, quad_k, flat_k, bctx, dev):
     """Phase 29: the training path on bunny's 640x480 primary rays (144,500
     triangles, 307,200 rays).  Routing from the CUDA closest-hit kernel
-    (``Renderer(tracer="auto")``'s tracer), its own path; trace_diff with
+    (``Renderer(tracer="packet4")``'s tracer), its own path; trace_diff with
     it against the wavefront-routed trace_diff (disputed rays adjudicated by
     trace_flat_scalar); the loss and gradients of one step on the card
     against the port's CPU step; fit for TRAIN_STEPS steps, twice, and for
@@ -2444,7 +2472,7 @@ def training(t0, quad_k, flat_k, bctx, dev):
     rng = np.random.default_rng(TRAIN_SEED)
     mat0 = torch.as_tensor(scene.tri_material + 0.3 * rng.normal(
         size=scene.tri_material.shape).astype(np.float32), device=dev)
-    path = f"{SCENE} training, routing by Renderer(tracer='auto')'s tracer"
+    path = f"{SCENE} training, routing by Renderer(tracer='packet4')'s tracer"
 
     quad_k.reset_counts()
     flat_k.reset_counts()
@@ -2601,9 +2629,9 @@ def step_agrees(got, want) -> tuple[bool, list[float]]:
 
 def sharded_runs(mesh, rays, geom, routes, scaling_modes):
     """Phase 30's path on one rank, launch counts set to 0 just before it
-    and read just after: trace_sharded through both routes ("auto" closest
+    and read just after: trace_sharded through both routes ("packet4" closest
     and any hit, "packet" closest), grad_step_sharded and collective_audit
-    with "auto" routing, measure_scaling in each mode.  Returns (hits,
+    with "packet4" routing, measure_scaling in each mode.  Returns (hits,
     step, audit, scaling, launches by kernel entry, ms per step timed after
     the counted run)."""
     import torch.distributed as dist
@@ -2615,12 +2643,12 @@ def sharded_runs(mesh, rays, geom, routes, scaling_modes):
 
     vtx, tvi, mat, target = geom
     srays, starget = shard_rays(rays, mesh), shard_rows(target, mesh)
-    (fn, tables), (ffn, ftables) = routes["auto"], routes["packet"]
+    (fn, tables), (ffn, ftables) = routes["packet4"], routes["packet"]
     quad_k, flat_k = quad_kernel.KERNEL, flat_kernel.KERNEL
     quad_k.reset_counts()
     flat_k.reset_counts()
-    hits = {"auto": trace_sharded(None, srays, mesh, routing=fn, tables=tables),
-            "auto_any": trace_sharded(None, srays, mesh, any_hit=True, routing=fn, tables=tables),
+    hits = {"packet4": trace_sharded(None, srays, mesh, routing=fn, tables=tables),
+            "packet4_any": trace_sharded(None, srays, mesh, any_hit=True, routing=fn, tables=tables),
             "packet": trace_sharded(None, srays, mesh, routing=ffn, tables=ftables)}
     step = grad_step_sharded(mesh, None, srays, vtx, tvi, mat, starget, routing=fn,
                              tables=tables)
@@ -2654,7 +2682,7 @@ def sharded_checks(mesh, hits, want, step, want_step, audit, what):
     """Each route's hits bit-equal to this rank's block of the unsharded
     kernel hits (tri and t), the step within the dry run's tolerances, the
     audit {} forward and three all-reduces in the step."""
-    n = hits["auto"].tri.shape[0]
+    n = hits["packet4"].tri.shape[0]
     block = slice(mesh.rank * n, (mesh.rank + 1) * n)
     bad = {}
     for route, h in hits.items():
@@ -2676,7 +2704,7 @@ def sharded_checks(mesh, hits, want, step, want_step, audit, what):
 
 def sharded(t0, quad_k, flat_k, bctx, fb, dev):
     """Phase 30: the sharded ray path on bunny's 640x480 primary rays with
-    the frames' tables (phases 2-5 "auto", phase 10 "packet").  (a) an NCCL
+    the frames' tables (phases 2-5 "packet4", phase 10 "packet").  (a) an NCCL
     world of 1 in this process, over a file store under build/; (b) a gloo
     world of DIST_WORLD, each rank this script run again with --dist-worker
     on cuda:0.  Each rank's hits must be bit-equal to its block of the
@@ -2690,7 +2718,7 @@ def sharded(t0, quad_k, flat_k, bctx, fb, dev):
 
     r, rf, scene = bctx["renderer"], fb["renderer"], bctx["scene"]
     rays = r.primary.rays
-    routes = {"auto": (r.routing, r.tracer_tables), "packet": (rf.routing, rf.tracer_tables)}
+    routes = {"packet4": (r.routing, r.tracer_tables), "packet": (rf.routing, rf.tracer_tables)}
     vtx = torch.as_tensor(scene.vtx_pos, device=dev)
     tvi = torch.as_tensor(scene.tri_vtx_index, device=dev)
     rng = np.random.default_rng(TRAIN_SEED)
@@ -2702,8 +2730,8 @@ def sharded(t0, quad_k, flat_k, bctx, fb, dev):
     target = render_image_diff(None, rays, vtx, tvi, torch.as_tensor(scene.tri_material,
                                                                      device=dev), raw).detach()
     want = {k: (h.tri.cpu().numpy(), h.t.cpu().numpy()) for k, h in (
-        ("auto", raw), ("packet", rf.primary.hits),
-        ("auto_any", r.routing(r.tracer_tables, rays, True)))}
+        ("packet4", raw), ("packet", rf.primary.hits),
+        ("packet4_any", r.routing(r.tracer_tables, rays, True)))}
     want_step = unsharded_step(rays, vtx, tvi, mat0, target, raw)
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     os.makedirs(DIST_DIR)
@@ -2720,12 +2748,12 @@ def sharded(t0, quad_k, flat_k, bctx, fb, dev):
         hits, step, audit, scaling, launches, step_ms = sharded_runs(
             mesh, rays, (vtx, tvi, mat0, target), routes, ("strong", "weak"))
         sharded_checks(mesh, hits, want, step, want_step, audit, "NCCL world of 1")
-        print(f"grad_step_sharded, NCCL world of 1, {rays.num} rays, routing 'auto': "
+        print(f"grad_step_sharded, NCCL world of 1, {rays.num} rays, routing 'packet4': "
               f"{step_ms:.3f} ms per step (host clock over {STEP_REPEATS} steps, synchronized)")
     finally:
         dist.destroy_process_group()
     for mode, out in scaling.items():
-        print(f"measure_scaling ({mode}, NCCL world of 1, routing 'auto'): {json.dumps(out)}")
+        print(f"measure_scaling ({mode}, NCCL world of 1, routing 'packet4'): {json.dumps(out)}")
     # trace 1 + grad step 1 + audit 2 + strong (rate_1 only) and weak windows.
     closest = 4 + 2 * (WARMUP + REPEATS)
     check(launches == {"quad_trace": closest, "quad_trace_anyhit": 1, "flat_trace": 1},
@@ -2797,7 +2825,7 @@ def dist_worker(rank: str, world: str, store: str, inputs: str) -> None:
         geom = tuple(torch.as_tensor(z[k], device=dev)
                      for k in ("vtx_pos", "tri_vtx_index", "mat0", "target"))
         routes = {}
-        for prefer, kind in (("auto", "quad-cuda"), ("packet", "flat-cuda")):
+        for prefer, kind in (("packet4", "quad-cuda"), ("packet", "flat-cuda")):
             fn, got, tables = make_routing_tracer(flat, prefer, dev, cache_dir=CACHE)
             check(got == kind, f"rank {rank}: {prefer!r} routes to {got}")
             routes[prefer] = (fn, tables)
@@ -2834,13 +2862,13 @@ GRT_LINES = ('--mesh=scenes/rt/conference/conference.obj '
 TUNE_WIDTHS, TUNE_CHAIN, TUNE_REPEATS = (16, 32), 16, 3
 
 
-def app_counts(quad_k, flat_k, what):
-    """The quad kernel's frame-form launches since the last reset; the
-    binary kernel and every other form must not have launched."""
+def app_counts(kern, idle, what):
+    """``kern``'s frame-form launches since the last reset; the ``idle``
+    kernel and every other form must not have launched."""
     torch.cuda.synchronize()
-    counts = {k: v for k, v in quad_k.launches_by_form.items() if v}
-    check(flat_k.launches == 0 and set(counts) <= {"closest", "any"},
-          f"{what} launched {counts}, binary {flat_k.launches_by_form}")
+    counts = {k: v for k, v in kern.launches_by_form.items() if v}
+    check(idle.launches == 0 and set(counts) <= {"closest", "any"},
+          f"{what} launched {counts} on {kern.name}, {idle.name} {idle.launches_by_form}")
     return {"closest": counts.get("closest", 0), "any": counts.get("any", 0)}
 
 
@@ -2865,7 +2893,8 @@ def run_cli(argv):
 def cli_phase(t0, quad_k, flat_k, bctx):
     """Phase 31: the command-line app on the card.  (a) ``python -m
     tpu_rt_torch.bench.cli`` on bunny at the suite camera's signature in a
-    subprocess: its ``Results =`` and JSON lines, route ``quad-cuda``, and
+    subprocess: its ``Results =`` and JSON lines, route ``flat-cuda`` (the
+    default "auto" on the card), and
     its PPM byte-equal to a Renderer frame on ``Camera.decode_signature`` of
     the same string in this process; then the same command through
     ``cli.main`` here, counted.  (b) a two-line cookbook: the conference
@@ -2902,7 +2931,7 @@ def cli_phase(t0, quad_k, flat_k, bctx):
     lines = proc.stdout.strip().splitlines()
     rate = [float(m.group(1)) for ln in lines if (m := re.fullmatch(r"Results = (\S+) M Rays/s", ln))]
     res = json.loads(lines[-1])
-    check(len(rate) == 1 and res["tracer"] == "quad-cuda" and res["total_rays"] == WIDTH * HEIGHT,
+    check(len(rate) == 1 and res["tracer"] == "flat-cuda" and res["total_rays"] == WIDTH * HEIGHT,
           f"the CLI printed rate {rate}, result {res}")
     r = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE))
     r.set_scene(bctx["scene"])
@@ -2919,7 +2948,7 @@ def cli_phase(t0, quad_k, flat_k, bctx):
     quad_k.reset_counts()
     flat_k.reset_counts()
     rc, _ = run_cli(argv + ["--image", os.path.join(APP_DIR, "cli_bunny_here.ppm")])
-    counts = app_counts(quad_k, flat_k, "cli.main on bunny")
+    counts = app_counts(flat_k, quad_k, "cli.main on bunny")
     check(rc == 0 and counts == {"closest": 4, "any": 0}, f"cli.main: rc {rc}, launches {counts}")
     launches = {k: launches[k] + counts[k] for k in launches}
 
@@ -2933,7 +2962,7 @@ def cli_phase(t0, quad_k, flat_k, bctx):
     rc, out = run_cli(["--grt-file", book, "--grt-line", "1", "--ray-type", "ao", "--samples",
                        str(AO_SAMPLES), "--size", f"{WIDTH}x{HEIGHT}", "--cache-dir", CACHE,
                        "--json", "--device", DEVICE])
-    counts = app_counts(quad_k, flat_k, "cookbook replay")
+    counts = app_counts(flat_k, quad_k, "cookbook replay")
     res = json.loads(out.strip().splitlines()[-1])
     defaults = build_parser()
     frames = defaults.get_default("warmup_repeats") + defaults.get_default("measure_repeats")
@@ -2942,7 +2971,7 @@ def cli_phase(t0, quad_k, flat_k, bctx):
           f"{res['mrays_per_s']} Mray/s, total_rays {res['total_rays']} (primary hits x "
           f"{AO_SAMPLES}), tris {res['tris']}, "
           f"tracer {res['tracer']}; launches {counts}")
-    check(rc == 0 and "procedural surrogate 'conference'" in out and res["tracer"] == "quad-cuda",
+    check(rc == 0 and "procedural surrogate 'conference'" in out and res["tracer"] == "flat-cuda",
           "the conference line did not replay on its surrogate")
     check(counts == {"closest": frames, "any": frames * batches},
           f"the replay launched {counts}")
@@ -2964,7 +2993,7 @@ def cli_phase(t0, quad_k, flat_k, bctx):
     check(r.flat is None and r.tracer_tables is None, "set_build_params kept the old tables")
     r.render_frame(bctx["camera"])
     rebuild_s = time.perf_counter() - t1
-    counts = app_counts(quad_k, flat_k, "set_build_params")
+    counts = app_counts(flat_k, quad_k, "set_build_params")
     check(counts == {"closest": 2, "any": 0} and r.tracer_tables is not a_tables,
           f"the rebuild launched {counts}")
     launches = {k: launches[k] + counts[k] for k in launches}
@@ -2987,7 +3016,7 @@ def cli_phase(t0, quad_k, flat_k, bctx):
             adjudicate(flat, sub, hits.tri.cpu().numpy()[ids], hits.t.cpu().numpy()[ids], s_id,
                        s_t, f"cli (c), {what}")
     phase(f"command-line app done ({time.perf_counter() - t_phase:.2f} s of phase 31)", t0)
-    return {"quad_trace": launches["closest"], "quad_trace_anyhit": launches["any"]}
+    return {"flat_trace": launches["closest"], "flat_trace_anyhit": launches["any"]}
 
 
 def decode_frame(body: bytes, ctype: str) -> np.ndarray:
@@ -3089,14 +3118,14 @@ def viewer_phase(t0, quad_k, flat_k, bctx):
         check(len(state._renderers) == viewer.MAX_RENDERERS, "the renderer cache passed its bound")
         check(first not in state._renderers.values() and first.tracer_tables is None,
               "the least recently used renderer was not freed")
-        counts = app_counts(quad_k, flat_k, "viewer")
+        counts = app_counts(flat_k, quad_k, "viewer")
         check(counts == {"closest": 4 + len(sizes), "any": 0}, f"the viewer launched {counts}")
     finally:
         srv.shutdown()
         srv.server_close()
         thread.join()
     phase(f"orbit viewer done ({time.perf_counter() - t_phase:.2f} s of phase 32)", t0)
-    return {"quad_trace": counts["closest"]}
+    return {"flat_trace": counts["closest"]}
 
 
 def tpu_rt_tune_path(flat, cache_dir: str) -> str:
@@ -3113,9 +3142,11 @@ def tpu_rt_tune_path(flat, cache_dir: str) -> str:
 def tune_phase(t0, quad_k, flat_k, bctx, dctx, dev):
     """Phase 33 (last: it writes tune files into the shared cache): the
     leaf-width tune tool on bunny and dragon at widths 16 and 32, then a
-    fresh ``Renderer(tracer="auto")`` on each scene, which must route at the
-    recorded width and agree with ``trace_quad_scalar`` on 8,192 rays; a file
-    at ``tpu_rt``'s tune path must not move the route.  Every tune file the
+    fresh ``Renderer(tracer="packet4")`` on each scene, which must route at
+    the recorded width and agree with ``trace_quad_scalar`` on 8,192 rays; a
+    file at ``tpu_rt``'s tune path must not move the 4-wide route, and
+    ``"auto"`` takes the binary kernel on the card whatever either file
+    says.  Every tune file the
     phase wrote is deleted at its end.  Returns ({kernel entry: launches} of
     the tune path, {scene: record})."""
     from tpu_rt_torch.bench import tune_quad
@@ -3149,7 +3180,8 @@ def tune_phase(t0, quad_k, flat_k, bctx, dctx, dev):
         closest += counts["closest"]
         for name, (scene, flat) in scenes.items():
             width = records[name]["leaf_max"]
-            r = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE))
+            r = Renderer(WIDTH, HEIGHT, RendererParams(cache_dir=CACHE, device=DEVICE,
+                                                       tracer="packet4"))
             r.set_scene(scene)
             stats, image, counts, wall = render(r, suite_camera(name, scene), quad_k, idle=flat_k)
             frame_line(f"{name} primary frame after the tune", r, stats, counts, wall)
@@ -3175,11 +3207,13 @@ def tune_phase(t0, quad_k, flat_k, bctx, dctx, dev):
                            f"{name} primary at the tuned leaf {width}")
             with open(tpu_rt_tune_path(flat, CACHE), "w") as f:
                 json.dump({"scene": name, "leaf_max": 64}, f)
-            _, kind, tables = make_routing_tracer(flat, "auto", dev, cache_dir=CACHE)
+            _, kind, tables = make_routing_tracer(flat, "packet4", dev, cache_dir=CACHE)
+            _, auto_kind, _ = make_routing_tracer(flat, "auto", dev, cache_dir=CACHE)
             print(f"{name}: a tpu_rt tune file (leaf_max 64) beside it: route {kind} at leaf "
-                  f"{width}: {routed_at(tables, quad)}")
+                  f"{width}: {routed_at(tables, quad)}; 'auto' routes {auto_kind}")
             check(kind == "quad-cuda" and routed_at(tables, quad),
                   f"{name}: tpu_rt's tune file moved the route")
+            check(auto_kind == "flat-cuda", f"{name}: 'auto' routes {auto_kind} after the tune")
     finally:
         for p in written:
             if os.path.exists(p):
@@ -3246,7 +3280,8 @@ def headline_phase(t0, quad_k, flat_k):
     subprocess with bench.py's defaults (bunny primary 640x480); (b)
     ``bench.main`` in this process on dragon primary (BASELINE.md's primary
     metric) and conference AO, counted.  Each line: verified rays and Mray/s
-    above 0, the route ``quad-cuda`` (as phase 5's), ``detail.device`` the
+    above 0, the route ``flat-cuda`` (the default "auto" on the card, as
+    phase 10's), ``detail.device`` the
     card's nvidia-smi line.  Returns ({kernel entry: launches} of (b), the
     lines)."""
     from tpu_rt_torch.bench import bench
@@ -3278,7 +3313,7 @@ def headline_phase(t0, quad_k, flat_k):
               f"{res['vs_baseline']}, best {d['best_s'] * 1e3:.4f} ms mean "
               f"{d['mean_s'] * 1e3:.4f} ms per trace, rays_metric {d['rays_metric']}, "
               f"verified_rays {d['verified_rays']}, tracer {d['tracer']}, device {d['device']}")
-        check(d["verified_rays"] > 0 and res["value"] > 0 and d["tracer"] == "quad-cuda"
+        check(d["verified_rays"] > 0 and res["value"] > 0 and d["tracer"] == "flat-cuda"
               and card in d["device"], f"headline {what}: {res}")
     # Each in-process run: one verification trace, the warm-up traces and
     # the timed chains, all on the routed kernel (closest for primary rays,
@@ -3286,7 +3321,7 @@ def headline_phase(t0, quad_k, flat_k):
     s = bench.settings(HEADLINE_ENV)
     per = 1 + s["warmup"] + s["repeats"] * s["chain"]
     print(f"headline: launches of bench.main {counts}")
-    check(counts == {"quad_trace": per, "quad_trace_anyhit": per}, f"bench.main launched {counts}")
+    check(counts == {"flat_trace": per, "flat_trace_anyhit": per}, f"bench.main launched {counts}")
     phase(f"headline runs done ({time.perf_counter() - t_phase:.2f} s of phase 34)", t0)
     return counts, lines
 
@@ -3341,10 +3376,11 @@ def suite_phase(t0, quad_k, flat_k):
               for e in full.values()), "a full-frame target has kernel-wrong rays")
     check(ao["batches"] >= 3 and ao["kernel_wrong"] == 0 and ao["verified"]
           and ao["image_nonempty"], f"the AO frame check: {ao}")
-    # The default route (4-wide) on the three "auto" targets and the AO
-    # frame's primary pre-trace and batches; each forced binary form once.
-    want = {"quad_trace": 4, "quad_trace_anyhit": ao["batches"], "flat_trace": 1,
-            "flat_trace@mixed": 1, "flat_trace@mixed-bf16": 1, "flat_trace@hbm": 1}
+    # The default route (binary on the card) on the three "auto" targets
+    # and the AO frame's primary pre-trace and batches; each forced binary
+    # form once.
+    want = {"flat_trace": 5, "flat_trace_anyhit": ao["batches"], "flat_trace@mixed": 1,
+            "flat_trace@mixed-bf16": 1, "flat_trace@hbm": 1}
     print(f"fullframe: launches {fullframe}")
     check(fullframe == want, f"the full-frame checks launched {fullframe}, want {want}")
     phase(f"full-frame checks done ({time.perf_counter() - t1:.2f} s; "
@@ -3369,11 +3405,11 @@ def diff_phase(t0, quad_k, flat_k):
           + f"; diff overhead {out['diff_overhead_s'] * 1e3:.4f} ms, backward "
           f"{out['backward_s'] * 1e3:.4f} ms, psum_bytes {out['psum_bytes']}; launches {counts}")
     check(all(out[f"{k}_s"] > 0 for k in ("routing", "forward", "grad_step"))
-          and out["routing"] == "quad-cuda", f"the diff bench: {out}")
+          and out["routing"] == "flat-cuda", f"the diff bench: {out}")
     # Routing, forward and step each route through the kernel once a call:
     # 2 warm-up calls and the timed chains.
     per = 2 + int(DIFF_ENV.get("BD_REPEATS", 3)) * int(DIFF_ENV.get("BD_CHAIN", 2))
-    check(counts == {"quad_trace": 3 * per}, f"the diff bench launched {counts}")
+    check(counts == {"flat_trace": 3 * per}, f"the diff bench launched {counts}")
     phase(f"diff bench done ({time.perf_counter() - t_phase:.2f} s of phase 36)", t0)
     return counts, out
 
@@ -3874,10 +3910,174 @@ def raygen_phase(t0, cctx, dev):
     check(launches["ao"] == 2, f"AO frame: {launches['ao']} raygen launches, want 2")
     phase("raygen kernel serves every AO and diffuse batch", t0)
     return {"name": "raygen_ao", "route": "cuda", "source": "tpu_rt_torch/csrc/raygen_ao.cu",
-            "replaces": None, "path": f"{SECONDARY_SCENE} AO frame, Renderer(tracer='auto')",
+            "replaces": None, "path": f"{SECONDARY_SCENE} AO frame, Renderer(tracer='packet4')",
             "launches": launches["ao"], "max_abs_err": max(errs), "ms": median(k_ms),
             "plain_ms": median(p_ms), "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# Phase 43: the benchmark's trace cells (rtbench/, BENCHMARK.json), whose
+# configurations route "auto"
+# ---------------------------------------------------------------------------
+
+CELLS = ("conference-ao8", "dragon-primary", "sanmiguel-diffuse", "hairball-primary")
+CELL_SEED = 2718281828
+# Rays of a cell's first pose on which the two kernels may disagree, each
+# adjudicated on the host by the trees' oracles.
+MAX_DISPUTES = 256
+# The cells' trees are built in a process of their own from the start of the
+# run (the hairball's SBVH alone takes five minutes on one host core).
+CELL_TREES_TIMEOUT = 1000
+CELL_TREES_LOG = os.path.join(BUILD, "chip_smoke_cell_trees.log")
+
+
+def cell_spec(cell: str) -> dict:
+    from rtbench import paths, run
+
+    return run.resolve(run.load_json(paths.ROOT, "BENCHMARK.json"), cell)
+
+
+def cell_trees() -> None:
+    """``--cell-trees``: each of CELLS' mesh, SBVH and 4-wide collapse into
+    the benchmark's own caches (``rtbench/paths.py``), where the cells'
+    drivers find them."""
+    from rtbench import paths
+    from rtbench.data import hairball  # noqa: F401  (registers the hairball scene)
+    from rtbench.port import load_mesh, port_mesh
+    from tpu_rt_torch.bvh import BuildParams, Platform, load_or_build_bvh, load_or_collapse_quad
+    from tpu_rt_torch.scene import Scene
+    from tpu_rt_torch.trace import TABLE_BUDGET, quad_policy
+
+    for cell in CELLS:
+        t1 = time.perf_counter()
+        scene = Scene(port_mesh(load_mesh(cell_spec(cell)["config"])))
+        flat, _ = load_or_build_bvh(scene, Platform.gpu(), BuildParams(), cache_dir=paths.BVH_DIR)
+        load_or_collapse_quad(flat, leaf_max=quad_policy(flat, paths.BVH_DIR, TABLE_BUDGET),
+                              cache_dir=paths.BVH_DIR)
+        print(f"{cell}: {scene.num_triangles} triangles, {flat.nodes.shape[0]} binary nodes, "
+              f"tree and 4-wide collapse in {time.perf_counter() - t1:.2f} s", flush=True)
+
+
+def start_cell_trees():
+    """Start ``--cell-trees`` in the background; it is stopped at exit if
+    phase 43 has not waited for it."""
+    import atexit
+
+    os.makedirs(BUILD, exist_ok=True)
+    log = open(CELL_TREES_LOG, "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cell-trees"],
+                            stdout=log, stderr=subprocess.STDOUT, cwd=REPO)
+    log.close()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, time.perf_counter()
+
+
+def tree_disputes(flat, quad, batches, got, any_hit, what):
+    """The rays on which the binary and the 4-wide kernel disagree (closest
+    hit: tri or t; any hit: hit / miss), each kernel's (tri, t) there held
+    to its own tree's host oracle (``trace_flat_scalar``, ``trace_quad_scalar``)
+    bit for bit: an exact-t tie, or a hit on a box's edge that one tree's
+    boxes take and the other's do not (the SBVH's clipped boxes against the
+    collapse's merged ones).  At most MAX_DISPUTES.  Returns their count."""
+    from tpu_rt_torch.bvh.collapse import trace_quad_scalar
+    from tpu_rt_torch.trace import trace_flat_scalar
+
+    sub, hits = [], []
+    for r, (a, q) in zip(batches, got):
+        if any_hit:
+            differ = (a.tri >= 0) != (q.tri >= 0)
+        else:
+            differ = (a.tri != q.tri) | (a.t.view(torch.int32) != q.t.view(torch.int32))
+        ids = torch.nonzero(differ).flatten()
+        if ids.numel():
+            sub.append([x[ids].cpu().numpy() for x in r])
+            hits.append([(h.tri[ids].cpu().numpy(), h.t[ids].cpu().numpy()) for h in (a, q)])
+    n = sum(len(x[0]) for x in sub)
+    print(f"{what}: rays where auto and packet4 differ: {n}")
+    check(n <= MAX_DISPUTES, f"{what}: {n} rays differ, more than {MAX_DISPUTES}")
+    wrong = 0
+    for rays_np, ((a_tri, a_t), (q_tri, q_t)) in zip(sub, hits):
+        f_tri, f_t, _, _ = trace_flat_scalar(flat, *rays_np, any_hit=any_hit)
+        q_tri_o, q_t_o, _, _ = trace_quad_scalar(quad, *rays_np, any_hit=any_hit)
+        for i in range(len(a_tri)):
+            own = (a_tri[i] == f_tri[i] and np_bits_differ(a_t[i:i + 1], f_t[i:i + 1]) == 0
+                   and q_tri[i] == q_tri_o[i] and np_bits_differ(q_t[i:i + 1], q_t_o[i:i + 1]) == 0)
+            wrong += not own
+            kind = ("exact-t tie" if a_t[i] == q_t[i]
+                    else f"{'binary' if a_t[i] < q_t[i] else '4-wide'} kernel's hit the closer")
+            print(f"  {what}: disputed ray: auto tri {a_tri[i]} t {float(a_t[i])!r}, packet4 tri "
+                  f"{q_tri[i]} t {float(q_t[i])!r} ({kind}); each its own tree's oracle: {own}")
+    check(wrong == 0, f"{what}: {wrong} disputed rays where a kernel differs from its oracle")
+    return n
+
+
+def cells_phase(t0, quad_k, flat_k, trees):
+    """Phase 43: each trace cell of the benchmark through its own driver
+    (its scene, tree, routing tracer "auto" and poses' batches from
+    ``rtbench/``), then the first pose's batches through "packet4" on the
+    same tree: "auto" must route the binary kernel ("flat-cuda"), and its
+    hits equal the 4-wide kernel's (closest hit: tri and t bit for bit; any
+    hit: hit / miss) on every ray but a few disputed ones (at most
+    MAX_DISPUTES a cell), where each kernel's hit must be its own tree's
+    host oracle's (``tree_disputes``).  Returns {cell: launches of "auto"
+    and "packet4", disputes}."""
+    from rtbench import paths
+    from rtbench.run import load_module
+    from tpu_rt_torch.bvh import load_or_collapse_quad
+    from tpu_rt_torch.trace import TABLE_BUDGET, make_routing_tracer, quad_policy
+
+    proc, started = trees
+    t1 = time.perf_counter()
+    rc = proc.wait(timeout=max(1.0, CELL_TREES_TIMEOUT - (t1 - started)))
+    with open(CELL_TREES_LOG) as f:
+        print("\n".join(f"  | {ln}" for ln in f.read().splitlines()))
+    print(f"cell trees: exit {rc}, {t1 - started:.2f} s after their start, waited "
+          f"{time.perf_counter() - t1:.2f} s")
+    check(rc == 0, f"the cells' trees failed ({CELL_TREES_LOG})")
+    out = {}
+    for cell in CELLS:
+        t1 = time.perf_counter()
+        spec = cell_spec(cell)
+        check(spec["config"]["tracer"] == "auto", f"{cell} does not route 'auto'")
+        drv = load_module("drivers", spec["mix"]["driver"]).Driver(
+            spec["config"], spec["mix"], CELL_SEED, DEVICE, {}, {})
+        drv.prepare()
+        port, any_hit = drv.port, drv.any_hit
+        fn4, kind4, tables4 = make_routing_tracer(port.flat, "packet4", port.device,
+                                                  cache_dir=paths.BVH_DIR)
+        batches = [b["rays"] for b in drv.batches if b["pose"] == 0]
+        reset_counts(quad_k, flat_k)
+        got = [(drv.route(drv.tables, r, any_hit=any_hit), fn4(tables4, r, any_hit=any_hit))
+               for r in batches]
+        torch.cuda.synchronize()
+        launches = {"auto": flat_k.launches, "packet4": quad_k.launches}
+        rays = sum(r.num for r in batches)
+        print(f"{cell}: auto routes {port.kind} ({drv.tables.nodes.shape[0]} binary nodes, depth "
+              f"{drv.tables.depth}), packet4 {kind4} (depth {tables4.depth}); pose 0, "
+              f"{len(batches)} batches, {rays} rays, {'any' if any_hit else 'closest'} hit; "
+              f"launches {launches}")
+        check(port.kind == "flat-cuda" and kind4 == "quad-cuda",
+              f"{cell}: auto routes {port.kind}, packet4 {kind4}")
+        check(launches == {"auto": len(batches), "packet4": len(batches)},
+              f"{cell}: launches {launches}")
+        quad = load_or_collapse_quad(port.flat, leaf_max=quad_policy(port.flat, paths.BVH_DIR,
+                                                                     TABLE_BUDGET),
+                                     cache_dir=paths.BVH_DIR)
+        disputes = tree_disputes(port.flat, quad, batches, got, any_hit, cell)
+        print(f"{cell}: {time.perf_counter() - t1:.2f} s")
+        out[cell] = dict(launches, disputes=disputes)
+        drv.free()
+        del drv, port, got, batches, fn4, tables4
+        torch.cuda.empty_cache()
+    phase("benchmark cells: auto == packet4", t0)
+    return out
 
 
 def main() -> None:
@@ -3885,6 +4085,9 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     if sys.argv[1:2] == ["--dist-worker"]:
         dist_worker(*sys.argv[2:6])
+        return
+    if sys.argv[1:2] == ["--cell-trees"]:
+        cell_trees()
         return
     from tpu_rt_torch.probes import ablate2, mosaic_probe3, mxu_ablate
     from tpu_rt_torch.raygen import ao_kernel
@@ -3897,6 +4100,7 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     shutil.rmtree(CACHE, ignore_errors=True)
+    trees = start_cell_trees()
 
     # 1. Build every kernel of the paths from the checkout's sources, one
     # nvcc per library, all started together (the forms of each are
@@ -3986,7 +4190,7 @@ def main() -> None:
     ab_runs = ablate2_phase(t0, fb, bctx, dev)
     mp_runs, _ = mosaic_phase(t0, dev)
     p_entries = probe_entries(ab_runs, mp_runs)
-    new_paths, sort_entry = secondary_sort(t0, kernel, flat_k, bctx, cctx, fc)
+    new_paths, sort_entry = secondary_sort(t0, kernel, flat_k, bctx, cctx, fb, fc)
     train_path, train_launches, _ = training(t0, kernel, flat_k, bctx, dev)
     new_paths["quad_trace"][train_path] = train_launches
     t1 = time.perf_counter()
@@ -4049,6 +4253,9 @@ def main() -> None:
                                 fc["plain"][1], fc["seen"], 2)}
     # 42. The AO ray generator (it renders the conference frames again).
     raygen_entry = raygen_phase(t0, cctx, dev)
+    # 43. The benchmark's trace cells, "auto" against "packet4".
+    cells = cells_phase(t0, kernel, flat_k, trees)
+    print(f"benchmark cells: launches {json.dumps(cells)}")
 
     def form_entries(name, src, base):
         f = forms[name]

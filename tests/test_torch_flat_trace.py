@@ -31,6 +31,7 @@ from tpu_rt_torch.trace import (
     assign_treelets,
     flat_kernel,
     intersect_brute,
+    kernel_order,
     make_routing_tracer,
     quad_kernel,
     trace_flat_scalar,
@@ -262,6 +263,78 @@ def test_auto_falls_to_binary_only_for_a_deep_quad_tree():
         for prefer in TRACERS:
             with pytest.raises(StackDepthError):
                 make_routing_tracer(deep, prefer=prefer, device="cpu")
+
+
+@pytest.mark.parametrize("prefer, route, order", [
+    ("auto", "cuda", ("packet", "packet4")),
+    ("auto", "plain", ("packet4", "packet")),
+    ("pallas", "cuda", ("packet4", "packet")),
+    ("pallas", "plain", ("packet4", "packet")),
+    ("packet4", "cuda", ("packet4",)),
+    ("packet", "plain", ("packet",)),
+])
+def test_kernel_order(prefer, route, order):
+    # "auto" on the card tries the binary kernel first; every other route
+    # keeps tpu_rt's order.
+    assert kernel_order(prefer, route) == order
+
+
+@pytest.fixture
+def card_route(monkeypatch):
+    """The "cuda" route's decisions on the CPU: both uploads put the tables
+    in host memory, and each quad collapse is recorded."""
+    import tpu_rt_torch.bvh.cache as bvh_cache
+    import tpu_rt_torch.trace as trace
+
+    real_flat, real_quad = trace.upload_flat, trace.upload_quad
+    real_collapse = bvh_cache.load_or_collapse_quad
+    collapses = []
+
+    def collapse(flat, **kw):
+        collapses.append(kw["leaf_max"])
+        return real_collapse(flat, **kw)
+
+    monkeypatch.setattr(trace, "upload_flat", lambda flat, device, **kw: real_flat(flat, "cpu", **kw))
+    monkeypatch.setattr(trace, "upload_quad", lambda quad, device, **kw: real_quad(quad, "cpu", **kw))
+    monkeypatch.setattr(bvh_cache, "load_or_collapse_quad", collapse)
+    return collapses
+
+
+def test_auto_on_the_card_takes_the_binary_kernel(card_route):
+    # A tree both stacks hold: "auto" takes the binary kernel on the card,
+    # without a warning and without collapsing the tree; the CPU keeps
+    # tpu_rt's order (4-wide first), and "pallas" and "packet4" keep theirs.
+    flat, _ = _chain_flat(8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        fn, kind, tables = make_routing_tracer(flat, prefer="auto", device="cuda")
+    assert kind == "flat-cuda" and fn.func is trace_flat and tables.depth == 8
+    assert card_route == []
+    fn, kind, _ = make_routing_tracer(flat, prefer="auto", device="cuda", cursors=2)
+    assert kind == "flat-cuda-c2" and card_route == []
+    for prefer in ("pallas", "packet4"):
+        fn, kind, _ = make_routing_tracer(flat, prefer=prefer, device="cuda")
+        assert kind == "quad-cuda" and fn.func is quad_kernel.trace_quad
+    assert make_routing_tracer(flat, prefer="auto", device="cpu")[1] == "quad-plain"
+    assert card_route == [16, 16, 16]
+
+
+def test_auto_on_the_card_falls_to_quad_only_for_a_deep_binary_tree(card_route):
+    # A 65-level chain of one-triangle leaves: deeper than the binary stack
+    # holds, while its 4-wide collapse has 17 levels (3 * 17 <= STACK_SIZE).
+    # "auto" on the card warns and takes the 4-wide kernel; "packet" raises.
+    flat, _ = _chain_flat(STACK_SIZE + 1)
+    with pytest.warns(RuntimeWarning, match=r"binary BVH depth 65.*quad-cuda"):
+        fn, kind, tables = make_routing_tracer(flat, prefer="auto", device="cuda")
+    assert kind == "quad-cuda" and fn.func is quad_kernel.trace_quad and tables.depth == 17
+    assert card_route == [16]
+    with pytest.raises(StackDepthError, match="binary"):
+        make_routing_tracer(flat, prefer="packet", device="cuda")
+    # A tree neither stack holds raises after the warning.
+    deep, _ = _chain_flat(STACK_SIZE + 1, per_leaf=9)
+    with pytest.warns(RuntimeWarning, match="quad-cuda"):
+        with pytest.raises(StackDepthError, match="quad"):
+            make_routing_tracer(deep, prefer="auto", device="cuda")
 
 
 def test_empty_tree_and_degenerate_rays():

@@ -206,8 +206,9 @@ def main(env=None, device="cuda", cache_dir: str | None = "bvhcache",
     any_hit = False
     num_rays = s["width"] * s["height"]  # metric numerator (App.cc:188-204)
 
-    # BENCH_TRACER: auto (4-wide, binary only for a quad tree too deep for
-    # its stack), pallas, packet4, packet (binary), xla (the wavefront).
+    # BENCH_TRACER: auto (on the card binary, 4-wide only for a binary tree
+    # too deep for its stack), pallas, packet4, packet (binary), xla (the
+    # wavefront).
     routing_fn, tracer, tables = make_routing_tracer(flat, prefer=s["tracer"], device=device,
                                                      cache_dir=cache_dir)
     if tracer == "wavefront":

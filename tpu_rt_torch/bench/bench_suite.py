@@ -88,7 +88,7 @@ TRIS = {"knob": "12.6K", "sponza": "121.4K", "bunny": "144.5K",
 # JAX tool's comments name.  On the card the placement policy routes every
 # scene to vmem f32, so the binary forms are forced.
 FULLFRAME_TARGETS = [
-    ("bunny", "auto", None, None),          # the default route (4-wide)
+    ("bunny", "auto", None, None),          # the default route (binary on the card)
     ("conference", "auto", None, None),
     ("dragon", "auto", None, None),
     ("bunny", "packet", "vmem", False),     # binary vmem f32
@@ -130,8 +130,8 @@ def bench_row(scene_name: str, ray_type: str, width: int, height: int, repeats: 
     num_rays = width * height
     any_hit = False
 
-    # BS_TRACER: auto (4-wide, binary for a quad tree too deep for its
-    # stack), pallas, packet4, packet (binary), xla (the wavefront).
+    # BS_TRACER: auto (on the card binary, 4-wide for a binary tree too deep
+    # for its stack), pallas, packet4, packet (binary), xla (the wavefront).
     routing_fn, kind, tables = make_routing_tracer(flat, prefer=tracer, device=device,
                                                    cache_dir=cache_dir)
     try:

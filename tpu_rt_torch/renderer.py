@@ -74,9 +74,10 @@ class RendererParams:
     max_batch: int = 1 << 21
     seed: int = 0
     cache_dir: str | None = "bvhcache"
-    # One of TRACERS: "auto" / "packet4" the 4-wide BVH kernel, "packet"
-    # the binary one, "pallas" 4-wide then binary -- each the CUDA kernel on
-    # a CUDA device, its plain PyTorch version on the CPU -- or "xla" the
+    # One of TRACERS: "packet4" the 4-wide BVH kernel, "packet" the binary
+    # one, "pallas" 4-wide then binary, "auto" binary then 4-wide on a CUDA
+    # device and 4-wide then binary on the CPU -- each the CUDA kernel on a
+    # CUDA device, its plain PyTorch version on the CPU -- or "xla" the
     # wavefront tracer (tpu_rt_torch.trace.make_routing_tracer).
     tracer: str = "auto"
     # "cuda" launches the kernels; "cpu" runs their plain versions (no

@@ -66,6 +66,7 @@ __all__ = [
     "tables2_residency",
     "release_persisting_l2",
     "route_kind",
+    "kernel_order",
     "MAX_CURSORS",
     "MXU_LEAF",
     "check_cursors",
@@ -92,6 +93,23 @@ def route_kind(tables, route: str, mxu: bool = False, cursors: int = 1,
     kind += ("-mxu" if mxu else "") + (f"-c{cursors}" if cursors > 1 else "")
     return kind + "".join(f"-{tag}{x}" for tag, x in (("k", k), ("u", u), ("t", tile))
                           if x is not None)
+
+
+def kernel_order(prefer: str, route: str) -> tuple[str, ...]:
+    """The kernels a kernel route tries in turn ("packet4" the 4-wide,
+    "packet" the binary), for ``make_routing_tracer``'s ``prefer`` on the
+    ``route`` "cuda" or "plain".  Each is taken unless its tables' stack
+    check refuses the tree (``StackDepthError``); the next then takes it,
+    and the last one's refusal raises.  "auto" on the card tries the binary
+    kernel first: it beat the 4-wide kernel on every tree timed on the H100,
+    the deepest and largest included.  "pallas", and "auto" on the CPU,
+    keep ``tpu_rt``'s order, 4-wide first: the plain route is held against
+    ``tpu_rt``."""
+    if prefer == "auto" and route == "cuda":
+        return ("packet", "packet4")
+    if prefer in ("auto", "pallas"):
+        return ("packet4", "packet")
+    return (prefer,)
 
 
 def make_routing_tracer(flat, prefer: str = "auto", device="cuda", want_uv: bool = False,
@@ -124,10 +142,15 @@ def make_routing_tracer(flat, prefer: str = "auto", device="cuda", want_uv: bool
                   "-mixed" / "-hbm" and "-bf16" (e.g.
                   "flat-cuda-mixed-bf16");
       "pallas"  — packet4, then packet;
-      "auto"    — packet4; only a quad tree too deep for the quad stack
-                  falls to packet, with a RuntimeWarning (``tpu_rt`` falls
-                  further to the wavefront; the port never does: a tree
-                  neither kernel's stack holds raises);
+      "auto"    — on the card, packet; only a binary tree too deep for
+                  the binary stack falls to packet4, with a RuntimeWarning
+                  (the binary kernel beat the 4-wide one on every tree
+                  timed on the H100, so the 4-wide collapse runs only
+                  then); on the CPU, ``tpu_rt``'s order: packet4, and only
+                  a quad tree too deep for the quad stack falls to packet.
+                  ``tpu_rt`` falls further to the wavefront; the port never
+                  does: a tree neither kernel's stack holds raises
+                  (``kernel_order``);
       "xla"     — the wavefront tracer on ``device``, kind "wavefront".
     cache_dir: consult/populate the quad-collapse cache (bvh.cache) and the
     leaf-width tune file (``tables._tune_path``).
@@ -169,25 +192,33 @@ def make_routing_tracer(flat, prefer: str = "auto", device="cuda", want_uv: bool
             raise ValueError("the wavefront tracer ('xla') has no tile, k or u")
         return trace_wavefront, "wavefront", device_bvh(flat, device)
     slots = {"tile": tile, "k": k, "u": u}
-    if prefer != "packet":
+
+    def quad_route():
         from tpu_rt_torch.bvh.cache import load_or_collapse_quad
 
         budget = TABLE_BUDGET if budget_bytes is None else budget_bytes
-        leaf_max = quad_policy(flat, cache_dir, budget)
-        quad = load_or_collapse_quad(flat, leaf_max=leaf_max, cache_dir=cache_dir)
+        quad = load_or_collapse_quad(flat, leaf_max=quad_policy(flat, cache_dir, budget),
+                                     cache_dir=cache_dir)
+        tables = upload_quad(quad, device, residency=residency, budget_bytes=budget)
+        return (functools.partial(trace_quad, want_uv=want_uv, cursors=cursors, **slots),
+                route_kind(tables, route, cursors=cursors, **slots), tables)
+
+    def flat_route():
+        tables = upload_flat(flat, device, residency=residency, bf16_nodes=bf16_nodes,
+                             budget_bytes=budget_bytes)
+        if mxu:
+            check_mxu(tables)
+        return (functools.partial(trace_flat, want_uv=want_uv, mxu=mxu, cursors=cursors, **slots),
+                route_kind(tables, route, mxu, cursors, **slots), tables)
+
+    routes = {"packet4": (quad_route, "4-wide", "quad"), "packet": (flat_route, "binary", "flat")}
+    order = kernel_order(prefer, route)
+    for kernel, fallback in zip(order, order[1:] + (None,)):
         try:
-            tables = upload_quad(quad, device, residency=residency, budget_bytes=budget)
+            return routes[kernel][0]()
         except StackDepthError as e:
-            if prefer == "packet4":
+            if fallback is None:
                 raise
-            warnings.warn(f"tpu_rt_torch: {e}; {prefer!r} falls to the binary kernel "
-                          f"(flat-{route})", RuntimeWarning, stacklevel=2)
-        else:
-            return (functools.partial(trace_quad, want_uv=want_uv, cursors=cursors, **slots),
-                    route_kind(tables, route, cursors=cursors, **slots), tables)
-    tables = upload_flat(flat, device, residency=residency, bf16_nodes=bf16_nodes,
-                         budget_bytes=budget_bytes)
-    if mxu:
-        check_mxu(tables)
-    return (functools.partial(trace_flat, want_uv=want_uv, mxu=mxu, cursors=cursors, **slots),
-            route_kind(tables, route, mxu, cursors, **slots), tables)
+            _, name, stem = routes[fallback]
+            warnings.warn(f"tpu_rt_torch: {e}; {prefer!r} falls to the {name} kernel "
+                          f"({stem}-{route})", RuntimeWarning, stacklevel=2)
