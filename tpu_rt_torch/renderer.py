@@ -24,6 +24,9 @@ Each phase of the frame is a span of ``tpu_rt_torch.spans`` (``frame``,
 recorded while ``torch.profiler`` runs (``RendererParams.profile_dir``) or
 after ``spans.enable()``.  ``phase_s`` adds up each phase's time (host
 clock; the trace's from CUDA events) whether or not they are recorded.
+``frame_stats`` counts the traversal work of the frame just rendered (its
+batches routed again ``with_stats``, under the span ``trace.stats``), off
+the frame cycle.
 """
 
 from __future__ import annotations
@@ -126,6 +129,7 @@ class Renderer:
         self.rays_traced = 0
         self.rays_skipped = 0
         self.batch_trace_s: list[float] = []
+        self._batches: list[BatchRecord] = []
         self.setup_s = 0.0
 
     # -- setup ---------------------------------------------------------------
@@ -380,6 +384,32 @@ class Renderer:
             "timer": "cuda_event" if self.device.type == "cuda" else "host",
             "profile_trace": trace_path,
         }
+
+    def frame_stats(self) -> None:
+        """Traversal counters of the frame just rendered: each of its
+        batches (a primary frame's one batch, else the secondary batches)
+        routed once more ``with_stats=True`` as ``trace_batch`` routed it
+        (any hit for AO rays, closest hit otherwise; a
+        ``compact_degenerate`` batch's live prefix), under the span
+        ``trace.stats``.  The routes add to the recorder's counters
+        (``trace.common.count_stats``: ``trace.stats_rays``,
+        ``trace.node_tests``, ``trace.tri_tests``, ``trace.warp_tests``,
+        ``trace.stack_entries``; ``spans.snapshot()`` reads them).  No hit,
+        image, ``phase_s`` entry or trace time changes: call it only off a
+        timed path, since each route reads its sums to the host."""
+        if not self._batches:
+            raise RuntimeError("render_frame() first")
+        any_hit = self.params.ray_type == "ao"
+
+        def route(rays: Rays) -> Hits:
+            return self.routing(self.tracer_tables, rays, any_hit=any_hit, with_stats=True)[0]
+
+        with spans.span("trace.stats"):
+            for b in self._batches:
+                if self.params.compact_degenerate:
+                    trace_live_prefix(route, b.rays, int((b.rays.tmax >= 0).sum()))
+                else:
+                    route(b.rays)
 
     # -- reconstruction ------------------------------------------------------
 
